@@ -1,0 +1,183 @@
+"""Tiled "704" evaluation CLI — counterpart of ``image_denoising_tpu/cli/evaluation_704.py``.
+
+352×352 tiles, 64-px overlap (stride 288), reflect-padded ragged edge tiles,
+pyramid weight blending, uint8 via clip(p·255) with NO +0.5 (reference
+quirk, ``evaluation_704.py:120``). The network runs through
+``make_fused_forward``: on a CUDA device every level block goes through the
+hand-written chain kernel. Same flags and output files as the JAX CLI, plus
+``--device {cuda,cpu}``: ``cuda`` runs on the one card ``--gpu_devices``
+names (``cuda:N``). ``--parallel``, ``--device_metrics``, ``--profile_dir``,
+``--host_workers``, ``--blindspot`` and several ``--gpu_devices`` are parsed
+and refused (not ported yet).
+
+Run: ``python -m image_denoising_tpu_torch.cli.evaluation_704 --data_dir d
+--checkpoint model.pth`` (a ``.pth`` from the JAX package's
+``ckpt/pth_export.py::export_pth``).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--data_dir", type=str, default="./dataset/m1")
+    parser.add_argument("--checkpoint", type=str, required=True,
+                        help="reference-layout .pth state dict")
+    parser.add_argument("--save_dir", type=str, default="./eval_results")
+    parser.add_argument("--n_feature", type=int, default=48)
+    parser.add_argument("--n_channel", type=int, default=1)
+    parser.add_argument("--log_name", type=str, default="UNetImproved")
+    parser.add_argument("--arch", type=str, default=None)
+    parser.add_argument("--gpu_devices", default="0", type=str,
+                        help="index N of the card to run on (cuda:N)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="'cuda': the card --gpu_devices names; 'cpu': "
+                             "the plain chain")
+    parser.add_argument("--parallel", action="store_true",
+                        help="not ported yet")
+    parser.add_argument("--tile", type=int, default=352)
+    parser.add_argument("--overlap", type=int, default=64)
+    parser.add_argument("--tile_batch", type=int, default=-1,
+                        help="forward chunk size; 0 = all tiles in one batch, "
+                             "±k = chunks of k tiles")
+    parser.add_argument("--frame_burst", type=int, default=0,
+                        help="process N same-shape frames per runner call "
+                             "(serving mode: 8 with --tile_batch -8). 0 = "
+                             "frame by frame like the reference.")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="not ported yet")
+    parser.add_argument("--save_images", type=str, default="all",
+                        choices=["all", "denoised", "none"],
+                        help="which PNGs to write per frame: 'all' (noisy + "
+                             "clean + denoised, as the reference), "
+                             "'denoised', or 'none'")
+    parser.add_argument("--device_metrics", action="store_true",
+                        help="not ported yet")
+    parser.add_argument("--compute_iq_iou", action="store_true")
+    parser.add_argument("--iq_low_q", type=float, default=0.25)
+    parser.add_argument("--iq_high_q", type=float, default=0.75)
+    parser.add_argument("--blindspot", action="store_true",
+                        help="not ported yet")
+    parser.add_argument("--dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="compute dtype of the forward; weights load as float32")
+    parser.add_argument("--host_workers", type=int, default=0,
+                        help="not ported yet (0 = inline host pass)")
+    return parser.parse_args(argv)
+
+
+_NOT_PORTED = ("parallel", "device_metrics", "profile_dir", "host_workers",
+               "blindspot")
+
+
+def evaluate(opt):
+    from ..data.pairs import validation_denoise
+    from ..eval.tiled import denoise_tiled_pyramid, make_tiled_pyramid_runner_frames
+    from ..metrics import calculate_psnr, calculate_ssim, compute_iq_iou
+    from ..models.fused_forward import make_fused_forward
+    from ..utils.device import resolve_device
+    from .common import (MetricsWriter, build_network, drain_burst, iter_bursts,
+                         load_params, make_metrics_finalize, save_png)
+
+    unsupported = [f"--{n}" for n in _NOT_PORTED if getattr(opt, n)]
+    if "," in opt.gpu_devices:
+        unsupported.append("--gpu_devices with several cards")
+    if unsupported:
+        raise NotImplementedError(
+            f"{', '.join(unsupported)} not ported to the PyTorch package yet "
+            "(ROADMAP.md)")
+    device = "cpu" if opt.device == "cpu" else f"cuda:{int(opt.gpu_devices)}"
+    resolve_device(device)  # fail before any loading when there is no GPU
+
+    os.makedirs(opt.save_dir, exist_ok=True)
+    clean_imgs, noisy_imgs, clean_paths, noisy_paths = validation_denoise(opt.data_dir)
+
+    network = load_params(
+        opt.checkpoint,
+        build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature))
+    dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
+    fwd = make_fused_forward(network, device=device, dtype=dtype)
+    print(f"Loaded checkpoint from {opt.checkpoint}")
+
+    pred_cache: dict = {}
+    burst_stream = None
+    if opt.frame_burst > 1:
+        by_shape: dict = {}
+        for j, nz in enumerate(noisy_imgs):
+            if np.ndim(nz) != 2:
+                raise ValueError(f"tiled pyramid eval is single-channel: "
+                                 f"frame {j} has shape {np.shape(nz)}")
+            by_shape.setdefault(np.shape(nz), []).append(j)
+
+        def make_runner(h, w):
+            return make_tiled_pyramid_runner_frames(
+                fwd, opt.frame_burst, h, w, opt.tile, opt.overlap,
+                batch=opt.tile_batch, out_dtype="uint8_floor",
+                device=device)
+
+        burst_stream = iter_bursts(
+            by_shape, lambda j: np.asarray(noisy_imgs[j], np.uint8),
+            opt.frame_burst, make_runner)
+
+    writer = MetricsWriter()
+    finalize = make_metrics_finalize(writer)
+    save_mode = opt.save_images
+    for i, (clean, noisy) in enumerate(zip(clean_imgs, noisy_imgs)):
+        clean_name = os.path.basename(clean_paths[i]).split(".")[0]
+        noisy_name = os.path.basename(noisy_paths[i]).split(".")[0]
+        clean_u8 = np.asarray(clean).astype(np.uint8)
+        noisy_u8 = np.asarray(noisy).astype(np.uint8)
+
+        if burst_stream is not None:
+            while i not in pred_cache:
+                drain_burst(next(burst_stream), pred_cache)
+            pred255, l1_val = pred_cache.pop(i)
+        else:
+            pred255, l1_val = denoise_tiled_pyramid(
+                fwd, noisy_u8, ps=opt.tile, overlap=opt.overlap,
+                batch=opt.tile_batch, out_dtype="uint8_floor",
+                device=device)
+
+        if save_mode == "all":
+            save_png(noisy_u8, os.path.join(opt.save_dir, f"{noisy_name}_{i:03d}_noisy.png"), mode=None)
+            save_png(clean_u8, os.path.join(opt.save_dir, f"{clean_name}_{i:03d}_clean.png"), mode=None)
+        if save_mode != "none":
+            save_png(pred255, os.path.join(opt.save_dir, f"{noisy_name}_{i:03d}_denoised.png"), mode=None)
+
+        psnr_val = calculate_psnr(pred255, clean_u8)
+        ssim_val = calculate_ssim(pred255, clean_u8)
+        msg = (f"[{i + 1}/{len(clean_imgs)}] {noisy_name} -> "
+               f"PSNR: {psnr_val:.2f}, SSIM: {ssim_val:.4f}, L1: {l1_val:.6f}")
+        ious = None
+        if opt.compute_iq_iou:
+            ious = compute_iq_iou(pred255, clean_u8, opt.iq_low_q, opt.iq_high_q)
+            msg += f", IoU(d/m/b)=({ious[0]:.3f},{ious[1]:.3f},{ious[2]:.3f})"
+        finalize((msg, dict(psnr=psnr_val, ssim=ssim_val, l1=l1_val, ious=ious)))
+
+    writer.write(opt.save_dir)
+    avg = writer.averages()
+    print(
+        f"Average PSNR: {avg['psnr']:.2f}, Average SSIM: {avg['ssim']:.4f}, "
+        f"Average L1 Loss: {avg['l1']:.6f}"
+    )
+    if opt.compute_iq_iou and "iou_dark" in avg:
+        print(
+            "Average IQ-3class IoU - "
+            f"dark: {avg['iou_dark']:.4f}, mid: {avg['iou_mid']:.4f}, "
+            f"bright: {avg['iou_bright']:.4f}"
+        )
+    return avg
+
+
+def main(argv=None):
+    return evaluate(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,218 @@
+"""Batched tiled full-frame inference with pyramid blending.
+
+Counterpart of the pyramid half of ``image_denoising_tpu/eval/tiled.py``
+(the ``evaluation_704.py`` engine): 352-px tiles, stride = ps − overlap, grid
+anchored at multiples of the stride (tiles may overrun the frame; they are
+cropped and reflect-padded), weight (1−|2y−1|)(1−|2x−1|) on the *unpadded*
+tile extent, contribution==0 → 1 divide guard, uint8 via clip(p·255) with NO
++0.5 (``uint8_floor``) or with it (``uint8_round``).
+
+The tile grid is static per frame geometry and computed on the host; the
+gather, the chunked forward, the blend and the quantisation run on the
+device. Model calls take and return NCHW ``[k, 1, ps, ps]`` tiles.
+
+Where the JAX package has two blend forms (an unrolled pad-and-add for ≤256
+tiles and a scatter loop above that), PyTorch needs one: an in-place add of
+each weighted tile into the canvas, in tile order, which is both.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+__all__ = [
+    "pyramid_weight_mask",
+    "reference_tile_grid",
+    "make_tiled_pyramid_runner",
+    "make_tiled_pyramid_runner_frames",
+    "denoise_tiled_pyramid",
+]
+
+
+def pyramid_weight_mask(ps: int) -> np.ndarray:
+    """(1 − |2y−1|)(1 − |2x−1|) on a [0,1]-linspace grid (evaluation_704.py:62-68)."""
+    yy, xx = np.meshgrid(
+        np.linspace(0, 1, ps), np.linspace(0, 1, ps), indexing="ij"
+    )
+    return ((1 - np.abs(yy - 0.5) * 2) * (1 - np.abs(xx - 0.5) * 2)).astype(np.float32)
+
+
+def reference_tile_grid(h: int, w: int, ps: int, stride: int):
+    """(r0, c0, th, tw) tuples for the stride-anchored, crop-overrun grid."""
+    grid = []
+    for r0 in range(0, h, stride):
+        for c0 in range(0, w, stride):
+            th = min(r0 + ps, h) - r0
+            tw = min(c0 + ps, w) - c0
+            grid.append((r0, c0, th, tw))
+    return grid
+
+
+def _reflect_indices(start: int, valid: int, ps: int) -> np.ndarray:
+    """Absolute image indices for a ps-long axis slice starting at ``start``
+    with ``valid`` in-bounds pixels, reflect-extended (edge excluded) like
+    np.pad(mode='reflect') on the cropped tile; past size−1 the mirror
+    repeats cyclically instead of failing."""
+    idx = np.arange(ps)
+    out = np.empty(ps, dtype=np.int64)
+    inb = idx < valid
+    out[inb] = start + idx[inb]
+    if valid < ps:
+        # reflect cycle of length 2·(valid−1): [0..v-1, v-2..1] repeating
+        cycle = max(2 * (valid - 1), 1)
+        over = idx[~inb] % cycle
+        refl = np.where(over < valid, over, cycle - over)
+        out[~inb] = start + refl
+    return out
+
+
+def _chunked_forward(model_call, tiles, batch: int):
+    """Run ``[T, C, ps, ps]`` tiles through model_call in chunks.
+
+    batch == 0 (or ≥ T): one call. batch = k > 0: chunks of k, the last one
+    zero-padded to k and cropped. batch = −k: the same chunks of k, the
+    counterpart of the JAX package's ``lax.map`` over k-tile chunks.
+    """
+    t = tiles.shape[0]
+    k = abs(batch)
+    if k == 0 or k >= t:
+        return model_call(tiles)
+    outs = []
+    for s in range(0, t, k):
+        chunk = tiles[s : s + k]
+        n = chunk.shape[0]
+        if n < k:
+            pad = tiles.new_zeros((k - n,) + tuple(tiles.shape[1:]))
+            chunk = torch.cat([chunk, pad])
+        outs.append(model_call(chunk)[:n])
+    return torch.cat(outs)
+
+
+def _quantize(out01, out_dtype: str):
+    """'uint8_floor' = clip(p·255) without +0.5 (evaluation_704.py:120);
+    'uint8_round' = clip(p·255 + 0.5); 'float32' passes through."""
+    if out_dtype == "float32":
+        return out01
+    if out_dtype not in ("uint8_floor", "uint8_round"):
+        raise ValueError(f"unknown out_dtype {out_dtype!r}")
+    bias = 0.5 if out_dtype == "uint8_round" else 0.0
+    return torch.clamp(out01 * 255.0 + bias, 0, 255).to(torch.uint8)
+
+
+class _PyramidGeometry:
+    """Host-side tile grid, gather indices and blend weights for one frame size."""
+
+    def __init__(self, h, w, ps, overlap, device):
+        self.h, self.w, self.ps = h, w, ps
+        self.grid = reference_tile_grid(h, w, ps, ps - overlap)
+        rows = np.stack([_reflect_indices(r0, th, ps) for (r0, _, th, _) in self.grid])
+        cols = np.stack([_reflect_indices(c0, tw, ps) for (_, c0, _, tw) in self.grid])
+        self.row_idx = torch.as_tensor(rows, device=device)[:, :, None]
+        self.col_idx = torch.as_tensor(cols, device=device)[:, None, :]
+        mask = pyramid_weight_mask(ps)
+        contrib = np.zeros((h, w), np.float64)
+        for (r0, c0, th, tw) in self.grid:
+            contrib[r0 : r0 + th, c0 : c0 + tw] += mask[:th, :tw]
+        contrib[contrib == 0] = 1.0
+        self.mask = torch.as_tensor(mask, device=device)
+        self.inv_contrib = torch.as_tensor(1.0 / contrib, dtype=torch.float32,
+                                           device=device)
+
+    def gather(self, imgs):
+        """[F, H, W] → [F, T, ps, ps] reflect-padded tiles."""
+        return imgs[:, self.row_idx, self.col_idx]
+
+    def blend(self, preds):
+        """[F, T, ps, ps] → [F, H, W]: clip to [0,1], weight, add in tile order,
+        scale by the reciprocal contribution."""
+        canvas = preds.new_zeros((preds.shape[0], self.h, self.w),
+                                 dtype=torch.float32)
+        for i, (r0, c0, th, tw) in enumerate(self.grid):
+            p = torch.clamp(preds[:, i, :th, :tw].float(), 0.0, 1.0)
+            canvas[:, r0 : r0 + th, c0 : c0 + tw] += p * self.mask[:th, :tw]
+        return canvas * self.inv_contrib
+
+
+def _run_frames(geo, model_call, frames255, batch, out_dtype, device):
+    imgs = torch.as_tensor(frames255).to(device).float() / 255.0  # [F,H,W]
+    tiles = geo.gather(imgs)                                     # [F,T,ps,ps]
+    f, t, ps = tiles.shape[0], tiles.shape[1], geo.ps
+    preds = _chunked_forward(model_call, tiles.reshape(f * t, 1, ps, ps), batch)
+    preds = preds.reshape(f, t, ps, ps).float()
+    l1 = torch.mean(torch.abs(preds - tiles), dim=(2, 3)).mean(dim=1)
+    return _quantize(geo.blend(preds), out_dtype), l1
+
+
+def make_tiled_pyramid_runner(
+    model_call: Callable, h: int, w: int, ps: int = 352, overlap: int = 64,
+    batch: int = 0, *, out_dtype: str = "float32", device="cuda",
+):
+    """frame [H, W] in [0, 255] → (pred [H, W], mean tile L1), on ``device``.
+
+    ``out_dtype`` in {'float32', 'uint8_floor', 'uint8_round'}.
+    """
+    dev = resolve_device(device)
+    geo = _PyramidGeometry(h, w, ps, overlap, dev)
+
+    @torch.inference_mode()
+    def run(noisy255):
+        out, l1 = _run_frames(geo, model_call, torch.as_tensor(noisy255)[None],
+                              batch, out_dtype, dev)
+        return out[0], l1[0]
+
+    return run
+
+
+def make_tiled_pyramid_runner_frames(
+    model_call: Callable, n_frames: int, h: int, w: int, ps: int = 352,
+    overlap: int = 64, batch: int = 0, *, out_dtype: str = "float32",
+    device="cuda",
+):
+    """Frame-batched variant: [F, H, W] in [0, 255] → ([F, H, W] pred, [F] L1).
+
+    All F·T tiles run through ``_chunked_forward`` as one stack (``batch=-k``
+    for k-tile chunks: the serving shape is F=8, k=8) and the blends run
+    over all frames at once. Frames may be a numpy array or a tensor on any
+    device; results stay on ``device``.
+    """
+    dev = resolve_device(device)
+    geo = _PyramidGeometry(h, w, ps, overlap, dev)
+
+    @torch.inference_mode()
+    def run(frames255):
+        frames = torch.as_tensor(frames255)
+        if tuple(frames.shape) != (n_frames, h, w):
+            raise ValueError(f"expected frames of shape {(n_frames, h, w)}, "
+                             f"got {tuple(frames.shape)}")
+        return _run_frames(geo, model_call, frames, batch, out_dtype, dev)
+
+    return run
+
+
+def denoise_tiled_pyramid(
+    model_call: Callable,
+    noisy255: np.ndarray,
+    ps: int = 352,
+    overlap: int = 64,
+    batch: int = 0,
+    out_dtype: str = "float32",
+    device="cuda",
+):
+    """Tiled-352 pyramid-blend full-frame denoise (evaluation_704.py engine).
+
+    noisy255: [H, W] uint8/float in [0, 255]. Returns (pred [H, W] as numpy —
+    float32 in [0, 1] or uint8 per ``out_dtype`` — and the mean per-tile
+    L1(pred, padded input) as a float).
+    """
+    noisy = np.asarray(noisy255)
+    if noisy.ndim != 2:
+        raise ValueError("tiled pyramid eval is single-channel")
+    h, w = noisy.shape
+    run = make_tiled_pyramid_runner(model_call, h, w, ps, overlap, batch,
+                                    out_dtype=out_dtype, device=device)
+    out, l1 = run(noisy)
+    return out.cpu().numpy(), float(l1)

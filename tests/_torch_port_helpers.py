@@ -1,0 +1,42 @@
+"""Shared pieces of the port's parity tests.
+
+``seeded_improved_unet_params``: the tree is the one ``ImprovedUNet.init`` builds (its structure and shapes
+from ``jax.eval_shape``); the values are drawn with numpy from a seed, on
+torch's default-init scale. Compiling the real init on the CPU costs about
+25 s per test process, and the parity tests need only some fixed weights.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from image_denoising_tpu.models import ImprovedUNet
+
+
+def seeded_improved_unet_params(n_feature: int, seed: int, in_nc: int = 1):
+    model = ImprovedUNet(in_nc=in_nc, out_nc=in_nc, n_feature=n_feature)
+    shapes = jax.eval_shape(
+        model.init, jax.random.PRNGKey(0),
+        jax.ShapeDtypeStruct((1, 32, 32, in_nc), np.float32))["params"]
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = jax.tree_util.keystr(path)
+        if "'scale'" in name:  # GroupNorm scale around 1
+            return (1.0 + 0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        fan_in = int(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 else 9 * n_feature
+        bound = fan_in ** -0.5
+        return rng.uniform(-bound, bound, leaf.shape).astype(np.float32)
+
+    return model, jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while a module's tests run: the suite runs in
+    several worker processes, and each one's full-width thread pool
+    oversubscribes the cores (the CLI parity test ran 3x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

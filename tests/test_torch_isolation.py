@@ -1,0 +1,63 @@
+"""The PyTorch port stands alone: it imports no JAX, no flax and nothing of the
+JAX package, and its entry points run on CUDA unless told otherwise."""
+import json
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_port_modules_import_no_jax():
+    code = textwrap.dedent("""
+        import importlib, json, pkgutil, sys
+        import image_denoising_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for n in names:
+            importlib.import_module(n)
+        def banned(n):
+            return any(n == b or n.startswith(b + ".") for b in
+                       ("jax", "jaxlib", "flax", "image_denoising_tpu"))
+        print(json.dumps({"modules": names,
+                          "banned": sorted(n for n in sys.modules if banned(n))}))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "image_denoising_tpu_torch.ops.fused_block" in report["modules"]
+    assert "image_denoising_tpu_torch.cli.evaluation_704" in report["modules"]
+    assert report["banned"] == []
+
+
+def _entry_points():
+    from image_denoising_tpu_torch.cli import evaluation_704
+    from image_denoising_tpu_torch.eval import tiled
+    from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
+
+    frame = np.zeros((32, 32), np.uint8)
+    return {
+        "make_fused_forward": lambda: make_fused_forward(ImprovedUNet(1, 1, 8)),
+        "runner": lambda: tiled.make_tiled_pyramid_runner(lambda t: t, 32, 32, 16, 8),
+        "runner_frames": lambda: tiled.make_tiled_pyramid_runner_frames(
+            lambda t: t, 2, 32, 32, 16, 8),
+        "denoise_tiled_pyramid": lambda: tiled.denoise_tiled_pyramid(
+            lambda t: t, frame, 16, 8),
+        "evaluation_704": lambda: evaluation_704.main(
+            ["--checkpoint", "missing.pth", "--data_dir", "missing"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["make_fused_forward", "runner", "runner_frames",
+                                  "denoise_tiled_pyramid", "evaluation_704"])
+def test_entry_points_default_to_cuda(name):
+    call = _entry_points()[name]
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
