@@ -5,25 +5,43 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device  — the card's name and power limit.
-  2. build   — nvcc builds csrc/fused_block.cu for sm_90a (seconds printed).
-  3. kernels — fused_rdb_chain's CUDA kernel against its plain PyTorch version
-               (fused_rdb_chain_reference, TF32 off) at the 9 chain shapes of
-               the main path (B=8 tiles of 352², ImprovedUNet-48), in float32
-               and bfloat16; per-shape times (CUDA events, median) and bounds.
+  2. build   — nvcc builds csrc/fused_block.cu and csrc/retrieval.cu for
+               sm_90a, both at once (seconds printed).
+  3. kernels — each kernel against its plain PyTorch version (TF32 off):
+               fused_rdb_chain at the 9 chain shapes of E2 (B=8 tiles of
+               352²) and of E6 (B=8 tiles of 128², down to the 8×8
+               bottleneck), in float32 and bfloat16; top1_l2_retrieval on
+               seeded device banks of N=105,125 rows of D=16,384 in float32,
+               bfloat16 and int8, with B=400 and B=8 queries, a duplicated
+               row (the first must win) and a bank padded to 512 rows (no
+               padded row may win). Times (CUDA events, median) and bounds.
   4. main    — the E2 serving path: ImprovedUNet-48 (seeded init) through
                make_tiled_pyramid_runner_frames(make_fused_forward(model), 8,
                704, 704, 352, 64, batch=-8, out_dtype="uint8_floor") on 3
                bursts of 8 seeded 704² uint8 frames, in float32 and bfloat16;
                launch counts asserted (9 chains × 9 chunks per burst); output
                held against the same runner over the per-conv module forward,
-               in float32 and in the same dtype; end-to-end MP/s from host
-               frames to host uint8 frames.
+               in float32 and in the same dtype; end-to-end MP/s.
+  5. memory  — the E6 path at its production preset: ImprovedUNet-48 base
+               through make_fused_forward, hyper_gated_fft adapter (hidden
+               16, every weight drawn non-zero from the seed), an int8/uint8
+               bank of 5 seeded 704² pairs at stride 4 (N = 5·145², padded to
+               512), make_tiled_hann_runner_frames(…, 4, 704, 704, ps=128,
+               overlap=64, batch=-8, out_dtype="uint8_round", hoisted
+               retrieval) on 3 bursts of 4 frames, in float32 and bfloat16;
+               burst 1 (the bank's own noisy frames) must retrieve each
+               tile's own patch; launch counts asserted (1 retrieval and
+               9 × 50 chains per burst); output held against the same runner
+               over the per-conv module base and the plain retrieval; one
+               burst each with a float32 and a bfloat16 bank; per-layer times
+               and end-to-end MP/s.
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Per-shape details go to the --json file.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import copy
 import json
 import os
@@ -35,26 +53,49 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 B, TILE, FRAME, OVERLAP, NF = 8, 352, 704, 64, 48
-BURSTS = 3  # timed bursts per dtype on the main path
+BURSTS = 3  # timed bursts per dtype on each path
 # bf16 fused output against the per-conv forward in f32 and in bf16, in
 # uint8 levels: largest and mean difference allowed. Seeds 0 and 1 read at
 # most 5 and 0.71 on an H100 (PERF.md)
 BF16_MAX_LEVELS, BF16_MEAN_LEVELS = 8, 1.0
+# E6 adds a float32 adapter on the bf16 base's output and a Hann blend that
+# does not clip; seeds 0, 1 and 2 read at most 8 levels and a mean of 1.04
+# against the yardstick (PERF.md): limits 1.5 times those readings
+E6_BF16_MAX_LEVELS, E6_BF16_MEAN_LEVELS = 12, 1.5
 GROWTH, N_GROWTH = 32, 4
 HBM_BYTES_PER_S = 3.35e12
-# H100 SXM dense peaks (NVIDIA data sheet): f32 on the CUDA cores, bf16 on
-# the tensor cores — the rate for the type of the kernel's inputs
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# (name, H, Cin, nf, lead) of the 9 level blocks at n_feature 48, B=8
-CHAIN_SHAPES = [
-    ("down0", 352, 2, 48, True), ("down1", 176, 48, 96, True),
-    ("down2", 88, 96, 192, True), ("down3", 44, 192, 384, True),
-    ("bottle", 22, 384, 384, False),
-    ("up0", 44, 576, 192, True), ("up1", 88, 288, 96, True),
-    ("up2", 176, 144, 48, True), ("up3", 352, 72, 24, True),
+# H100 SXM dense peaks (NVIDIA data sheet): f32 on the CUDA cores, bf16 and
+# int8 on the tensor cores — the rate for the type of the kernel's inputs
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+# (name, H, Cin, nf, lead) of the 9 level blocks at n_feature 48
+CHAIN_LEVELS = [
+    ("down0", 1, 2, 48, True), ("down1", 2, 48, 96, True),
+    ("down2", 4, 96, 192, True), ("down3", 8, 192, 384, True),
+    ("bottle", 16, 384, 384, False),
+    ("up0", 8, 576, 192, True), ("up1", 4, 288, 96, True),
+    ("up2", 2, 144, 48, True), ("up3", 1, 72, 24, True),
 ]
-SOURCE = "image_denoising_tpu_torch/csrc/fused_block.cu"
-REPLACES = "image_denoising_tpu/ops/fused_block_pallas.py:241"  # fused_rdb_chain
+
+
+def chain_shapes(tile):
+    """The 9 chain shapes (name, H, Cin, nf, lead) for a tile size."""
+    return [(n, tile // div, cin, nf, lead) for n, div, cin, nf, lead in CHAIN_LEVELS]
+
+
+CHAIN_SOURCE = "image_denoising_tpu_torch/csrc/fused_block.cu"
+CHAIN_REPLACES = "image_denoising_tpu/ops/fused_block_pallas.py:241"  # fused_rdb_chain
+TOP1_SOURCE = "image_denoising_tpu_torch/csrc/retrieval.cu"
+TOP1_REPLACES = "image_denoising_tpu/memory/retrieval_pallas.py:101"  # top1_l2_retrieval
+
+# E6 production preset (scripts/eval_704_iqsl_memory_tpu_fast.sh)
+E6_TILE, E6_BURST, E6_STRIDE, E6_PAIRS, E6_HIDDEN = 128, 4, 4, 5, 16
+E6_GRID = (FRAME - E6_TILE) // E6_STRIDE + 1          # 145 patches per axis
+E6_BANK_ROWS = E6_PAIRS * E6_GRID ** 2                # 105,125
+PATCH_D = E6_TILE * E6_TILE                            # 16,384
+E6_TILES = E6_BURST * ((FRAME - E6_TILE) // (E6_TILE - OVERLAP) + 1) ** 2  # 400
+# retrieval check: a duplicated bank row (dup_hi := dup_lo) and queries
+# that sit near no row, where float32 rankings come closest to a tie
+DUP_LO, DUP_HI, N_FAR = 1234, 98765, 6
 
 
 def log(msg: str) -> None:
@@ -80,10 +121,18 @@ def time_ms(fn, warmup: int = 1, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def chain_work(h: int, cin: int, nf: int, lead: bool, itemsize: int):
-    """(FLOPs, bytes) one chain call needs at batch B: 2 per multiply-add;
+def bound(ops: float, nbytes: float, dname: str):
+    """(bound_ms, bound_by): the larger of operations over the peak for the
+    inputs' type and bytes over the memory rate."""
+    t_ops = ops / PEAK_OPS[dname] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def chain_work(h: int, cin: int, nf: int, lead: bool, itemsize: int, batch: int = B):
+    """(FLOPs, bytes) one chain call needs at ``batch``: 2 per multiply-add;
     x, weights and biases read once, rdb_out and c0 written once."""
-    px = B * h * h
+    px = batch * h * h
     macs_w = (9 * cin * nf if lead else 0) + sum(
         9 * (nf + i * GROWTH) * GROWTH for i in range(N_GROWTH))
     macs_w += (nf + N_GROWTH * GROWTH) * nf + 9 * nf * nf
@@ -99,8 +148,8 @@ def random_chain(rng, cin, nf, lead, dtype):
     from image_denoising_tpu_torch.ops.fused_block import FusedChainWeights
 
     def t(shape, fan_in):
-        bound = fan_in ** -0.5
-        a = rng.uniform(-bound, bound, shape).astype("float32")
+        bound_ = fan_in ** -0.5
+        a = rng.uniform(-bound_, bound_, shape).astype("float32")
         return torch.from_numpy(a).to("cuda", dtype)
 
     growth_w = [t((3, 3, nf + i * GROWTH, GROWTH), 9 * (nf + i * GROWTH))
@@ -114,7 +163,8 @@ def random_chain(rng, cin, nf, lead, dtype):
         t((3, 3, nf, nf), 9 * nf))
 
 
-def phase_kernels(seed: int):
+def phase_chain(seed: int, shapes, label: str, reps: int = 5):
+    """fused_rdb_chain against its plain version at ``shapes``, batch B."""
     import numpy as np
     import torch
 
@@ -126,7 +176,7 @@ def phase_kernels(seed: int):
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
         rows = []
-        for name, h, cin, nf, lead in CHAIN_SHAPES:
+        for name, h, cin, nf, lead in shapes:
             x = torch.from_numpy(
                 rng.standard_normal((B, h, h, cin)).astype("float32")).to("cuda", dt)
             wts = random_chain(rng, cin, nf, lead, dt)
@@ -145,27 +195,190 @@ def phase_kernels(seed: int):
             tol = (1e-4 * max(1.0, scale) if dname == "float32"
                    else 4 * 2.0 ** -7 * scale)
             del got, want
-            ms = time_ms(lambda: fused_rdb_chain(x, wts))
-            plain_ms = time_ms(lambda: fused_rdb_chain_reference(x, wts))
+            ms = time_ms(lambda: fused_rdb_chain(x, wts), reps=reps)
+            plain_ms = time_ms(lambda: fused_rdb_chain_reference(x, wts), reps=reps)
             flops, nbytes = chain_work(h, cin, nf, lead, x.element_size())
-            t_ops = flops / PEAK_FLOPS[dname] * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms, bound_by = bound(flops, nbytes, dname)
             row = dict(name=name, h=h, cin=cin, nf=nf, lead=lead,
                        max_abs_err=err, tol=tol, max_abs_ref=scale,
                        ms=ms, plain_ms=plain_ms, gflop=flops / 1e9,
-                       mbytes=nbytes / 1e6, bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       mbytes=nbytes / 1e6, bound_ms=bound_ms, bound_by=bound_by,
                        tflops=flops / ms / 1e9)
             rows.append(row)
-            log(f"[kernels] {dname:8s} {name:6s} B={B} {h}x{h} {cin}->{nf}: "
-                f"max_abs_err {err:.3g} (tol {tol:.3g}) kernel {ms:.3f} ms "
-                f"plain {plain_ms:.3f} ms bound {row['bound_ms']:.3f} ms "
-                f"({row['bound_by']}) {row['tflops']:.2f} TFLOP/s")
+            log(f"[kernels] chain {label} {dname:8s} {name:6s} B={B} {h}x{h} "
+                f"{cin}->{nf}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
+                f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.3f} ms "
+                f"({bound_by}) {row['tflops']:.2f} TFLOP/s")
             if not err <= tol:
-                raise AssertionError(f"{dname} {name}: max_abs_err {err} > {tol}")
+                raise AssertionError(f"{label} {dname} {name}: max_abs_err {err} > {tol}")
             del x, wts
         results[dname] = rows
     return results
+
+
+def _f64_top1(q, bank, rows: int = 8192):
+    """Per query: the kernel-independent best and second-best distance
+    ‖b‖² − 2q·b in float64 over the whole bank, the best row, and the
+    distance of every row (as a callable on picked indices)."""
+    import torch
+
+    qd = q.double()
+    n = bank.shape[0]
+    best = torch.full((q.shape[0], 2), float("inf"), dtype=torch.float64, device=q.device)
+    arg = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    sqn64 = torch.empty(n, dtype=torch.float64, device=q.device)
+    for s in range(0, n, rows):
+        bd = bank[s : s + rows].double()
+        sqn64[s : s + rows] = (bd * bd).sum(1)
+        d = sqn64[s : s + rows][None] - 2.0 * (qd @ bd.T)
+        cand = torch.cat([best, d], 1)
+        vals, idx = torch.topk(cand, 2, dim=1, largest=False, sorted=True)
+        # a new best row comes from this chunk when index 0 is past the 2 carried
+        new0 = idx[:, 0] >= 2
+        arg = torch.where(new0, idx[:, 0] - 2 + s, arg)
+        best = vals
+        del bd, d, cand
+
+    def dist(picks):
+        bp = bank[picks].double()
+        return sqn64[picks] - 2.0 * (qd * bp).sum(1)
+
+    return best[:, 0], best[:, 1], arg, dist
+
+
+def phase_retrieval(seed: int):
+    """top1_l2_retrieval against its plain version at the E6 bank shape."""
+    import torch
+
+    from image_denoising_tpu_torch.memory.retrieval import (
+        pad_bank_for_retrieval, top1_l2_retrieval, top1_l2_retrieval_reference)
+
+    n, d = E6_BANK_ROWS, PATCH_D
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bank32 = torch.rand((n, d), generator=g, device="cuda")
+    bank32[DUP_HI] = bank32[DUP_LO]
+    picks = torch.randint(0, n, (E6_TILES,), generator=g, device="cuda")
+    q32 = bank32[picks] + 0.1 * torch.randn((E6_TILES, d), generator=g, device="cuda")
+    q32[0] = bank32[DUP_LO]                      # an exact copy of both rows
+    q32[1 : 1 + N_FAR] = torch.rand((N_FAR, d), generator=g, device="cuda")
+
+    regimes = {}
+    bank8 = (torch.round(bank32 * 255.0) - 128.0).to(torch.int8)
+    regimes["int8"] = (bank8, (bank8.int() ** 2).sum(1, dtype=torch.int32),
+                       torch.clamp(torch.round(q32 * 255.0) - 128.0, -128, 127)
+                       .to(torch.int8))
+    bank16 = bank32.to(torch.bfloat16)
+    regimes["bfloat16"] = (bank16, (bank16.float() ** 2).sum(1), q32)
+    regimes["float32"] = (bank32, (bank32 ** 2).sum(1), q32)
+
+    results = {}
+    for dname in ("float32", "bfloat16", "int8"):
+        bank, sqn, q = regimes[dname]
+        idx = top1_l2_retrieval(q, bank, sqn)
+        ref = top1_l2_retrieval_reference(q, bank, sqn)
+        torch.cuda.synchronize()
+        assert idx.dtype == torch.int32 and tuple(idx.shape) == (E6_TILES,)
+        if int(idx[0]) != DUP_LO:
+            raise AssertionError(f"{dname}: the duplicated row {DUP_LO} lost to "
+                                 f"{int(idx[0])}")
+        mism_plain = int((idx != ref).sum())
+        if dname == "int8":
+            tol, excess, mism_gap = 0.0, 0.0, mism_plain
+            if mism_plain:
+                raise AssertionError(f"int8: {mism_plain} indices differ from the "
+                                     "exact plain version")
+        else:
+            # the values the kernel saw (bf16 banks take bf16 queries)
+            qk = q.to(bank.dtype)
+            best, second, arg, dist = _f64_top1(qk, bank)
+            excess_all = dist(idx.long()) - best
+            excess = float(excess_all.max())
+            # f32 sums of D products in sequence: error ≲ √D·2⁻²⁴·Σ|q b| per
+            # q·b, doubled in the distance; Σ|q b| ≤ ‖q‖‖b‖; 16× margin
+            qn = float(qk.float().norm(dim=1).max())
+            bn = float(bank.float().norm(dim=1).max())
+            tol = 16 * d ** 0.5 * 2.0 ** -24 * 2 * qn * bn
+            decisive = (second - best) > tol
+            mism_gap = int(((idx.long() != arg) & decisive).sum())
+            if not excess <= tol or mism_gap:
+                raise AssertionError(
+                    f"{dname}: largest f64 excess {excess:.4g} (tol {tol:.4g}); "
+                    f"{mism_gap} indices differ where the f64 gap exceeds tol")
+        # padded to 512 rows: no padded row may win, the picks do not move
+        bp, sp = pad_bank_for_retrieval(bank, sqn, 512)
+        idx_p = top1_l2_retrieval(q, bp, sp)
+        if not torch.equal(idx_p, idx) or int(idx_p.max()) >= n:
+            raise AssertionError(f"{dname}: the padded bank changed the picks")
+        del bp, sp, idx_p
+
+        rows = []
+        for b in (E6_TILES, 8):
+            qb = q[:b].contiguous()
+            ms = time_ms(lambda: top1_l2_retrieval(qb, bank, sqn), reps=5)
+            plain_ms = time_ms(lambda: top1_l2_retrieval_reference(qb, bank, sqn), reps=3)
+            library_ms = time_ms(_library_top1(qb, bank, sqn), reps=3)
+            item = bank.element_size()
+            nbytes = (b * d + n * d) * item + n * 4 + b * 4
+            bound_ms, bound_by = bound(2.0 * b * n * d, nbytes, dname)
+            rows.append(dict(batch=b, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             tops=2.0 * b * n * d / ms / 1e9))
+            log(f"[kernels] top1 {dname:8s} B={b:3d} N={n} D={d}: kernel {ms:.3f} ms "
+                f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms bound "
+                f"{bound_ms:.3f} ms ({bound_by}) {rows[-1]['tops']:.2f} TOP/s")
+        results[dname] = dict(max_f64_excess=excess, tol=tol,
+                              mismatched_vs_plain=mism_plain,
+                              mismatched_where_gap_exceeds_tol=mism_gap,
+                              rows=rows)
+        log(f"[kernels] top1 {dname:8s}: duplicate row {DUP_LO} wins; padded bank "
+            f"agrees; vs plain {mism_plain} of {E6_TILES} indices differ; largest "
+            f"f64 excess {excess:.4g} (tol {tol:.4g})")
+        del bank, sqn, q, regimes[dname]
+        torch.cuda.empty_cache()
+    return results
+
+
+def _library_top1(q, bank, sqn):
+    """One cuBLAS product (torch.mm; torch._int_mm for int8) plus argmin: two
+    calls, since no single PyTorch call computes top-1 L2. int8 runs on the
+    bank padded to a multiple of 8 rows with queries padded to 32 rows
+    (_int_mm needs both)."""
+    import torch
+
+    if bank.dtype == torch.int8:
+        n = bank.shape[0]
+        bt = torch.cat([bank, bank.new_zeros(((-n) % 8, bank.shape[1]))]).t()
+        qp = torch.cat([q, q.new_zeros((max(0, 32 - q.shape[0]), q.shape[1]))])
+        s = torch.cat([sqn, sqn.new_full(((-n) % 8,), torch.iinfo(torch.int32).max)])
+        return lambda: (s[None] - 2 * torch._int_mm(qp, bt)).argmin(1)
+    qc = q.to(bank.dtype)
+    return lambda: (sqn[None] - 2.0 * torch.mm(qc, bank.t()).float()).argmin(1)
+
+
+def level_diff(a, b):
+    import numpy as np
+
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return dict(max_level_diff=int(d.max()), mean_level_diff=float(d.mean()),
+                frac_pixels_diff=float((d > 0).mean()))
+
+
+def check_levels(dname, vs_f32, vs_same, what, bf16_limits=(BF16_MAX_LEVELS,
+                                                           BF16_MEAN_LEVELS)):
+    """f32: the kernel and cuDNN differ only in summation order, which can
+    move a blended pixel across one rounding edge. bf16 rounds every stored
+    activation to 8 significant bits, and cuDNN's bf16 forward rounds in
+    another order: both differences are held to ``bf16_limits`` (largest,
+    mean level difference)."""
+    if dname == "float32":
+        ok = vs_f32["max_level_diff"] <= 1 and vs_f32["frac_pixels_diff"] <= 1e-3
+    else:
+        ok = all(d["max_level_diff"] <= bf16_limits[0]
+                 and d["mean_level_diff"] <= bf16_limits[1]
+                 for d in (vs_f32, vs_same))
+    if not ok:
+        raise AssertionError(f"{what} {dname}: fused path too far from the "
+                             "per-conv forward")
 
 
 def phase_main(seed: int):
@@ -193,20 +406,6 @@ def phase_main(seed: int):
     tiles = B * len(reference_tile_grid(FRAME, FRAME, TILE, TILE - OVERLAP))
     chunks_per_burst = -(-tiles // B)  # 72 tiles in 8-tile chunks: 9
 
-    def warm_up(run):  # cuDNN plans, the kernel library
-        run(torch.from_numpy(bursts[0]))[0].cpu()
-
-    def timed_bursts(run):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        preds = [run(torch.from_numpy(b))[0].cpu().numpy() for b in bursts]
-        return np.stack(preds).astype(np.int16), time.perf_counter() - t0
-
-    def level_diff(a, b):
-        d = np.abs(a - b)
-        return dict(max_level_diff=int(d.max()), mean_level_diff=float(d.mean()),
-                    frac_pixels_diff=float((d > 0).mean()))
-
     mp = BURSTS * B * FRAME * FRAME / 1e6
     out, module_preds = {}, {}
     for dname in ("float32", "bfloat16"):
@@ -216,16 +415,16 @@ def phase_main(seed: int):
         mod_call = torch.inference_mode()(lambda t, m=mod, d=dt: m(t.to(d)))
         module_ms = time_ms(lambda: mod_call(chunk), reps=3)
         mod_run = runner(mod_call)
-        warm_up(mod_run)
-        module_preds[dname], module_sec = timed_bursts(mod_run)
+        run_bursts(mod_run, bursts[:1])  # warm-up: cuDNN plans
+        module_preds[dname], module_sec = run_bursts(mod_run, bursts)
         del mod
 
         fwd = make_fused_forward(model, dtype=dt)
         run = runner(fwd)
-        warm_up(run)
+        run_bursts(run, bursts[:1])  # warm-up: the kernel library
         fwd_ms = time_ms(lambda: fwd(chunk), reps=3)
         fused_rdb_chain.launches = 0
-        preds, sec = timed_bursts(run)
+        preds, sec = run_bursts(run, bursts)
         launches = fused_rdb_chain.launches
         want = 9 * chunks_per_burst * BURSTS  # 9 level blocks per forward
         if launches != want:
@@ -247,21 +446,270 @@ def phase_main(seed: int):
             log(f"[main] {dname:8s} vs per-conv {what} forward: max "
                 f"{d['max_level_diff']} levels, mean {d['mean_level_diff']:.4f}, "
                 f"{d['frac_pixels_diff']:.3e} of pixels differ")
-        # f32: the kernel and cuDNN differ only in summation order, which can
-        # move a blended pixel across one rounding edge. bf16 rounds every
-        # stored activation to 8 significant bits, and cuDNN's bf16 forward
-        # rounds in another order: both differences are held to the
-        # BF16_* limits
-        if dname == "float32":
-            ok = vs_f32["max_level_diff"] <= 1 and vs_f32["frac_pixels_diff"] <= 1e-3
-        else:
-            ok = all(d["max_level_diff"] <= BF16_MAX_LEVELS
-                     and d["mean_level_diff"] <= BF16_MEAN_LEVELS
-                     for d in (vs_f32, vs_same))
-        if not ok:
-            raise AssertionError(f"{dname} fused path too far from the per-conv "
-                                 "forward")
+        check_levels(dname, vs_f32, vs_same, "E2")
+        out[dname]["profile"] = prof = profile_burst(run, bursts[0])
+        log(f"[main] {dname:8s} one burst under torch.profiler: wall "
+            f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms "
+            f"(share {prof['busy_share']}); top kernels {prof['top_kernels_ms'][:3]}")
     return out
+
+
+def e6_frames(seed: int):
+    """5 memory pairs of 704² uint8 (a smooth pattern, Gaussian noise on top)
+    and 3 bursts of 4 noisy frames: burst 1 is the bank's noisy frames 0-3,
+    bursts 2 and 3 fresh noise on clean frames 1-4 and 0-3."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 6)
+    yy, xx = np.mgrid[0:FRAME, 0:FRAME].astype(np.float32)
+
+    def noisy(c):
+        return np.clip(c + rng.normal(0, 20, c.shape), 0, 255).astype(np.uint8)
+
+    clean = [np.clip(128 + 60 * np.sin(xx / (17 + f) + f) * np.cos(yy / (23 + 2 * f))
+                     + 30 * np.sin((xx + yy) / 41 + f), 0, 255).astype(np.uint8)
+             for f in range(E6_PAIRS)]
+    noise = [noisy(c) for c in clean]
+    bursts = [np.stack(noise[:4]), np.stack([noisy(c) for c in clean[1:5]]),
+              np.stack([noisy(c) for c in clean[:4]])]
+    return clean, noise, bursts
+
+
+def phase_memory(seed: int):
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.adapters import (DenoiserWithMemoryAdapter,
+                                                    build_memory_adapter)
+    from image_denoising_tpu_torch.adapters.wrappers import _clean01
+    from image_denoising_tpu_torch.cli.evaluation_704_iqsl_memory import (
+        make_memory_model_call)
+    from image_denoising_tpu_torch.eval import tiled
+    from image_denoising_tpu_torch.memory import (MemoryBank,
+                                                  build_memory_bank_from_frames)
+    from image_denoising_tpu_torch.memory.retrieval import (
+        pad_bank_for_retrieval, top1_l2_retrieval, top1_l2_retrieval_reference)
+    from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+
+    clean, noise, bursts = e6_frames(seed)
+    t0 = time.perf_counter()
+    bank = build_memory_bank_from_frames(
+        clean, noise, E6_TILE, E6_STRIDE, bank_dtype="int8", pad_to=512,
+        clean_dtype="uint8", device="cuda")
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t0
+    n = E6_BANK_ROWS
+    assert tuple(bank.noise_flat.shape) == (n + (-n) % 512, PATCH_D)
+    log(f"[memory] bank: {n} patches of {E6_TILE}^2 at stride {E6_STRIDE} from "
+        f"{E6_PAIRS} pairs, int8 noise + uint8 clean, padded to "
+        f"{bank.noise_flat.shape[0]}: {bank_s:.2f} s on the host and copy")
+
+    torch.manual_seed(seed)
+    model = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).eval()
+    adapter = build_memory_adapter("hyper_gated_fft", 1, E6_HIDDEN)
+    with torch.no_grad():  # every weight non-zero, the zero-init tails too
+        for p in adapter.parameters():
+            fan_in = p[0].numel() if p.dim() > 1 else 16
+            p.uniform_(-fan_in ** -0.5, fan_in ** -0.5)
+    adapter = adapter.to("cuda").eval()
+
+    grid = tiled.edge_aligned_grid(FRAME, FRAME, E6_TILE, OVERLAP)
+    t_per_frame = len(grid)
+    chunks = -(-E6_TILES // B)
+
+    def queries(frames):  # the hoisted pass's int8 queries for one burst
+        f = torch.from_numpy(frames).to("cuda")
+        t = torch.stack([f[:, r : r + E6_TILE, c : c + E6_TILE] for r, c in grid], 1)
+        return (t.reshape(-1, PATCH_D).int() - 128).to(torch.int8)
+
+    # burst 1's tiles are bank patches: frame f, corner (r, c) is row
+    # f·145² + (r/4)·145 + c/4 (the grid's corners are multiples of 64)
+    own = torch.tensor([f * E6_GRID ** 2 + (r // E6_STRIDE) * E6_GRID + c // E6_STRIDE
+                        for f in range(E6_BURST) for r, c in grid], device="cuda")
+    for k, frames in enumerate(bursts):
+        q = queries(frames)
+        idx = top1_l2_retrieval(q, bank.noise_flat, bank.sq_norms)
+        ref = top1_l2_retrieval_reference(q, bank.noise_flat, bank.sq_norms)
+        if not torch.equal(idx, ref):
+            raise AssertionError(f"E6 burst {k + 1}: retrieval indices differ "
+                                 "from the plain version")
+        if k == 0 and not torch.equal(idx.long(), own):
+            raise AssertionError("E6 burst 1: a tile did not retrieve its own "
+                                 f"bank patch ({int((idx.long() != own).sum())} of "
+                                 f"{E6_TILES})")
+    log(f"[memory] retrieval indices of the 3 bursts equal the plain version's; "
+        f"burst 1's {E6_TILES} tiles each retrieve their own bank patch")
+
+    def plain_pre_tile(tiles):  # the yardstick's retrieval: the plain version
+        q = (torch.round(tiles.reshape(tiles.shape[0], -1) * 255.0) - 128.0).to(torch.int8)
+        idx = top1_l2_retrieval_reference(q, bank.noise_flat, bank.sq_norms)
+        mem = _clean01(bank.clean[idx.long()]).permute(0, 3, 1, 2)
+        return torch.cat([tiles, mem], 1)
+
+    def runner(model_call, pre):
+        return tiled.make_tiled_hann_runner_frames(
+            model_call, E6_BURST, FRAME, FRAME, ps=E6_TILE, overlap=OVERLAP,
+            batch=-B, out_dtype="uint8_round", pre_tile_fn=pre, device="cuda")
+
+    # per-layer timing inputs: burst 1's 400 real tiles, and its first
+    # 8-tile chunk with the retrieved patches as a second channel
+    f1 = torch.from_numpy(bursts[0]).to("cuda").float() / 255.0
+    tiles400 = torch.stack([f1[:, r : r + E6_TILE, c : c + E6_TILE] for r, c in grid],
+                           1).reshape(E6_TILES, 1, E6_TILE, E6_TILE)
+    stack = plain_pre_tile(tiles400[:B])
+    geo = tiled._HannGeometry(FRAME, FRAME, E6_TILE, OVERLAP, torch.device("cuda"))
+    preds_f = torch.rand((E6_BURST, t_per_frame, E6_TILE, E6_TILE), device="cuda")
+    with torch.inference_mode():
+        blend_ms = time_ms(lambda: tiled._quantize(geo.blend(preds_f), "uint8_round"))
+        base_out = torch.rand((B, 1, E6_TILE, E6_TILE), device="cuda")
+        adapter_ms = time_ms(lambda: adapter(stack[:, :1], base_out, stack[:, 1:]))
+
+    mp = BURSTS * E6_BURST * FRAME * FRAME / 1e6
+    out, module_preds = {}, {}
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        # yardstick: per-conv module base (cuDNN) and the plain retrieval
+        mod = copy.deepcopy(model).to("cuda", dt)
+        mod_call = torch.inference_mode()(lambda t, m=mod, d=dt: m(t.to(d)))
+        y_call, _ = make_memory_model_call(
+            DenoiserWithMemoryAdapter(mod_call, adapter), bank)
+        y_run = runner(y_call, plain_pre_tile)
+        run_bursts(y_run, bursts[:1])  # warm-up: cuDNN and FFT plans
+        module_preds[dname], module_sec = run_bursts(y_run, bursts)
+        with torch.inference_mode():
+            module_ms = time_ms(lambda: mod_call(stack[:, :1]), reps=3)
+        del mod, y_run
+
+        fwd = make_fused_forward(model, device="cuda", dtype=dt)
+        model_call, pre = make_memory_model_call(
+            DenoiserWithMemoryAdapter(fwd, adapter), bank)
+        run = runner(model_call, pre)
+        with torch.inference_mode():
+            fwd_ms = time_ms(lambda: fwd(stack[:, :1]), reps=3)
+            pre_ms = time_ms(lambda: pre(tiles400), reps=3)
+        run_bursts(run, bursts[:1])
+        fused_rdb_chain.launches = 0
+        top1_l2_retrieval.launches = 0
+        preds, sec = run_bursts(run, bursts)
+        launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
+                        top1_l2_retrieval=top1_l2_retrieval.launches)
+        want = dict(fused_rdb_chain=9 * chunks * BURSTS, top1_l2_retrieval=BURSTS)
+        if launches != want:
+            raise AssertionError(f"E6 {dname}: launches {launches}, want {want}")
+        assert preds.shape == (BURSTS, E6_BURST, FRAME, FRAME) and preds.dtype == np.uint8
+        vs_f32 = level_diff(preds, module_preds["float32"])
+        vs_same = level_diff(preds, module_preds[dname])
+        out[dname] = dict(launches=launches, seconds=sec, mps=mp / sec,
+                          module_seconds=module_sec, module_mps=mp / module_sec,
+                          fused_forward_ms_per_chunk=fwd_ms,
+                          module_forward_ms_per_chunk=module_ms,
+                          hoisted_retrieval_ms=pre_ms, adapter_ms_per_chunk=adapter_ms,
+                          blend_quantise_ms_per_burst=blend_ms,
+                          **vs_f32, vs_same_dtype_module=vs_same)
+        if dname == "float32":
+            preds_f32 = preds
+        log(f"[memory] {dname:8s} {BURSTS} bursts of {E6_BURST}x{FRAME}^2 "
+            f"({E6_TILES} tiles): {sec:.3f} s, {mp / sec:.4f} MP/s end to end "
+            f"(per-conv module base + plain retrieval: {mp / module_sec:.4f}); "
+            f"per burst: hoisted retrieval {pre_ms:.2f} ms, {chunks} chunks of "
+            f"fused forward {fwd_ms:.2f} ms (per-conv module: {module_ms:.2f}) + "
+            f"adapter {adapter_ms:.2f} ms, blend+quantise {blend_ms:.2f} ms; "
+            f"launches {launches}")
+        for what, d in {"float32": vs_f32, dname: vs_same}.items():
+            log(f"[memory] {dname:8s} vs yardstick {what}: max "
+                f"{d['max_level_diff']} levels, mean {d['mean_level_diff']:.4f}, "
+                f"{d['frac_pixels_diff']:.3e} of pixels differ")
+        check_levels(dname, vs_f32, vs_same, "E6",
+                     (E6_BF16_MAX_LEVELS, E6_BF16_MEAN_LEVELS))
+        out[dname]["profile"] = prof = profile_burst(run, bursts[0])
+        log(f"[memory] {dname:8s} one burst under torch.profiler: wall "
+            f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms "
+            f"(share {prof['busy_share']}); top kernels {prof['top_kernels_ms'][:3]}")
+        y_prof = profile_burst(runner(y_call, plain_pre_tile), bursts[0])
+        out[dname]["module_profile"] = y_prof
+        log(f"[memory] {dname:8s} yardstick burst under torch.profiler: wall "
+            f"{y_prof['wall_ms']:.1f} ms, device busy {y_prof['device_busy_ms']:.1f} ms "
+            f"(share {y_prof['busy_share']})")
+
+    # the other bank regimes, built on the card from the same bytes: burst 1
+    # retrieves the same (own) patches, so the output is the int8 run's
+    fwd = make_fused_forward(model, device="cuda", dtype=torch.float32)
+    noise32 = (bank.noise_flat[:n].float() + 128.0) / 255.0
+    regime_launches = {}
+    for dname in ("float32", "bfloat16"):
+        nb = noise32 if dname == "float32" else noise32.to(torch.bfloat16)
+        nb, sq = pad_bank_for_retrieval(nb, (noise32 ** 2).sum(1), 512)
+        other = MemoryBank(nb, bank.clean, sq, E6_TILE, E6_STRIDE)
+        model_call, pre = make_memory_model_call(DenoiserWithMemoryAdapter(fwd, adapter), other)
+        run = runner(model_call, pre)
+        run_bursts(run, bursts[:1])
+        fused_rdb_chain.launches = 0
+        top1_l2_retrieval.launches = 0
+        got, sec = run_bursts(run, bursts[:1])
+        regime_launches[dname] = dict(fused_rdb_chain=fused_rdb_chain.launches,
+                                      top1_l2_retrieval=top1_l2_retrieval.launches)
+        if regime_launches[dname] != dict(fused_rdb_chain=9 * chunks, top1_l2_retrieval=1):
+            raise AssertionError(f"E6 {dname} bank: launches {regime_launches[dname]}")
+        if not np.array_equal(got[0], preds_f32[0]):
+            raise AssertionError(f"E6 {dname} bank: burst 1 differs from the int8 "
+                                 "bank's output")
+        out[f"{dname}_bank"] = dict(launches=regime_launches[dname], seconds=sec,
+                                    mps=E6_BURST * FRAME * FRAME / 1e6 / sec)
+        log(f"[memory] {dname} bank, float32 compute, burst 1: {sec:.3f} s "
+            f"({out[f'{dname}_bank']['mps']:.4f} MP/s), output equal to the int8 "
+            f"bank's; launches {regime_launches[dname]}")
+        del nb, sq, other
+    out.update(bank_seconds=bank_s, bank_rows=n)
+    return out
+
+
+def _preds(out):
+    """A runner's predictions: the pyramid engine returns (preds, L1)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def run_bursts(run, frames):
+    """Host frames → host uint8 predictions for each burst, and the seconds
+    on the host clock."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds = [_preds(run(torch.from_numpy(b))).cpu().numpy() for b in frames]
+    return np.stack(preds), time.perf_counter() - t0
+
+
+def profile_burst(run, frames, top: int = 5):
+    """One burst under torch.profiler: the host wall time of the window, the
+    union of the device's kernel and copy intervals in it (busy time), and
+    the kernels that take most device time. The profiler's own cost lengthens
+    the window, so the idle share it gives is an upper bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _preds(run(torch.from_numpy(frames))).cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+                busy_share=busy_us / 1e3 / wall_ms if spans else None,
+                top_kernels_ms=[(n[:80], t / 1e3) for n, t in names])
 
 
 def main(argv=None) -> int:
@@ -293,41 +741,75 @@ def main(argv=None) -> int:
     log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    so, nvcc_log = _build.build("fused_block.cu")
+    sources = ("fused_block.cu", "retrieval.cu")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(_build.build, sources))  # one nvcc each, together
     build_s = time.perf_counter() - t0
-    log(f"[build] {so.name} in {build_s:.2f} s")
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    for (so, nvcc_log) in built:
+        log(f"[build] {so.name}")
+        for line in nvcc_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
+    log(f"[build] {len(sources)} sources in {build_s:.2f} s")
     _build.load_fused_block()
+    _build.load_retrieval()
 
-    kernels = phase_kernels(args.seed)
+    chain_e2 = phase_chain(args.seed, chain_shapes(TILE), "E2")
+    chain_e6 = phase_chain(args.seed + 1, chain_shapes(E6_TILE), "E6")
+    top1 = phase_retrieval(args.seed)
     main_path = phase_main(args.seed)
+    memory = phase_memory(args.seed)
 
     summary = []
-    for dname, rows in kernels.items():
+    for dname, rows in chain_e2.items():
+        e6_rows = chain_e6[dname]
         summary.append(dict(
-            name="fused_rdb_chain", dtype=dname, route="cuda", source=SOURCE,
-            replaces=REPLACES, launches=main_path[dname]["launches"],
-            max_abs_err=max(r["max_abs_err"] for r in rows),
+            name="fused_rdb_chain", dtype=dname, route="cuda", source=CHAIN_SOURCE,
+            replaces=CHAIN_REPLACES,
+            launches=main_path[dname]["launches"]
+            + memory[dname]["launches"]["fused_rdb_chain"],
+            launches_by_path={"E2": main_path[dname]["launches"],
+                              "E6": memory[dname]["launches"]["fused_rdb_chain"]},
+            max_abs_err=max(r["max_abs_err"] for r in rows + e6_rows),
             ms=sum(r["ms"] for r in rows),
             plain_ms=sum(r["plain_ms"] for r in rows),
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by="operations" if all(r["bound_by"] == "operations"
                                          for r in rows) else "bytes",
-            library_ms=None))
+            library_ms=None,
+            e6={k: sum(r[k] for r in e6_rows) for k in ("ms", "plain_ms", "bound_ms")}))
+    for dname, res in top1.items():
+        big, small = res["rows"]
+        launches = (memory["float32"]["launches"]["top1_l2_retrieval"]
+                    + memory["bfloat16"]["launches"]["top1_l2_retrieval"]
+                    if dname == "int8" else
+                    memory[f"{dname}_bank"]["launches"]["top1_l2_retrieval"])
+        summary.append(dict(
+            name="top1_l2_retrieval", dtype=dname, route="cuda", source=TOP1_SOURCE,
+            replaces=TOP1_REPLACES, launches=launches,
+            max_abs_err=res["max_f64_excess"],
+            mismatched_indices=res["mismatched_vs_plain"],
+            ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+            bound_by=big["bound_by"], library_ms=big["library_ms"],
+            b8={k: small[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}))
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_seconds=build_s,
                        torch=torch.__version__, cuda=torch.version.cuda,
-                       kernels=kernels, main=main_path, summary=summary),
+                       kernels=dict(chain_e2=chain_e2, chain_e6=chain_e6, top1=top1),
+                       main=main_path, memory=memory, summary=summary),
                   f, indent=1)
-    log(f"[kernels] ms/plain_ms/bound_ms sum the 9 chain calls of one {B}-tile "
-        "chunk; library_ms is null: no single PyTorch call computes the chain")
+    log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
+        f"of one {B}-tile E2 chunk (e6: of one E6 chunk); library_ms is null: no "
+        "single PyTorch call computes the chain. top1_l2_retrieval: B=400 (b8: "
+        "B=8); library_ms is torch.mm (torch._int_mm for int8) plus argmin, two "
+        "calls, as no single PyTorch call computes top-1 L2; max_abs_err is the "
+        "largest float64 distance excess of the kernel's pick over the best row; "
+        "launches per entry from the E2 and E6 runs")
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
 

@@ -1,0 +1,134 @@
+"""Frozen-base + adapter wrappers and top-1 memory retrieval.
+
+Counterpart of ``image_denoising_tpu/adapters/wrappers.py``:
+
+* ``DenoiserWithAdapter`` (reference ``adapter.py:29-67``): frozen base
+  forward, ``OutputAdapter`` refinement.
+* ``DenoiserWithMemoryAdapter`` (reference ``finetune_memory.py:1195-1291``):
+  frozen base + memory adapter (v1–v5) + top-1 L2 retrieval over a
+  (noise, clean) patch bank. The banks are inputs, not parameters.
+
+The base is a callable, NCHW in and out (``models.make_fused_forward`` on
+the card, or an ``nn.Module``); its output is detached and cast to float32,
+so with a bfloat16 base the adapter computes in float32 on the upcast
+``base_out``, as JAX's dtype promotion does. The wrappers and adapters are
+NCHW; ``select_memory_patch`` and ``batched_select_memory_patch`` keep the
+JAX package's NHWC ``[B, P, P, C]`` patches, whose flattening is the bank's.
+Retrieval goes through ``memory/retrieval.py::top1_l2_retrieval``: the
+CUDA kernel on the card (in every bank regime), its plain version on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..memory.retrieval import top1_l2_retrieval
+
+__all__ = [
+    "DenoiserWithAdapter",
+    "DenoiserWithMemoryAdapter",
+    "select_memory_patch",
+    "batched_select_memory_patch",
+]
+
+# uint8 clean banks decode by table, not by a division on the device: the
+# table is numpy's correctly rounded float32 k/255, which is what the float32
+# bank holds (memory/bank.py), so both stores give the same floats to the bit
+_CLEAN01 = torch.from_numpy(np.arange(256, dtype=np.float32) / np.float32(255.0))
+
+
+def _clean01(mem):
+    """uint8-stored clean patches → their exact k/255 floats; floats pass."""
+    if mem.dtype == torch.uint8:
+        return _CLEAN01.to(mem.device)[mem.long()]
+    return mem
+
+
+def select_memory_patch(noisy, memory_noise_flat, memory_clean, sq_norms=None):
+    """Top-1 L2 retrieval of the clean bank patch for each query patch.
+
+    noisy: [B, P, P, C] float in [0, 1]; memory_noise_flat: [N, D]
+    (D = P·P·C); memory_clean: [N, P, P, C]. Returns [B, P, P, C] float32.
+
+    An int8 bank takes centered-int8 queries ``round(x·255) − 128``
+    (``torch.round`` rounds half to even, as ``jnp.round`` does): for
+    uint8-sourced tiles the distances are then exact integers.
+    """
+    b = noisy.shape[0]
+    flat = noisy.detach().reshape(b, -1)
+    if memory_noise_flat.dtype == torch.int8:
+        q = (torch.round(flat * 255.0) - 128.0).to(torch.int8)
+        if sq_norms is None:
+            bi = memory_noise_flat.int()
+            sq_norms = (bi * bi).sum(dim=1, dtype=torch.int32)
+    else:
+        q = flat
+        if sq_norms is None:
+            sq_norms = (memory_noise_flat.float() ** 2).sum(dim=1)
+    idx = top1_l2_retrieval(q, memory_noise_flat, sq_norms)
+    return _clean01(memory_clean[idx.long()])
+
+
+def batched_select_memory_patch(noisy, memory_noise_flat, memory_clean,
+                                sq_norms=None, chunk: int = 128):
+    """One retrieval pass over a whole tile stack in chunks of ``chunk``
+    queries, the tail chunk zero-padded (the hoisted retrieval of the tiled
+    evaluators). Each query's result does not depend on the chunking."""
+    t = noisy.shape[0]
+    if t <= chunk:
+        return select_memory_patch(noisy, memory_noise_flat, memory_clean,
+                                   sq_norms)
+    pad = (-t) % chunk
+    q = noisy
+    if pad:
+        q = torch.cat([q, q.new_zeros((pad,) + tuple(q.shape[1:]))])
+    mem = [select_memory_patch(q[s : s + chunk], memory_noise_flat,
+                               memory_clean, sq_norms)
+           for s in range(0, q.shape[0], chunk)]
+    return torch.cat(mem)[:t]
+
+
+class DenoiserWithAdapter(nn.Module):
+    """``adapter(x, base_forward(x))`` with the base frozen (no gradient)."""
+
+    def __init__(self, base_forward: Callable, adapter: nn.Module):
+        super().__init__()
+        self.base_forward = base_forward
+        self.adapter = adapter
+
+    def forward(self, x):
+        with torch.no_grad():
+            base_out = self.base_forward(x).float()
+        return self.adapter(x, base_out)
+
+
+class DenoiserWithMemoryAdapter(nn.Module):
+    """Frozen base + memory adapter over NCHW tiles.
+
+    ``forward(noisy, memory_noise_flat, memory_clean, bank_sq_norms)``
+    retrieves each tile's clean bank patch; ``mem_clean=`` (NCHW, float or
+    uint8) skips retrieval and uses the given patches — the hoisted path of
+    the tiled evaluator, which retrieves once per tile stack.
+    """
+
+    def __init__(self, base_forward: Callable, adapter: nn.Module):
+        super().__init__()
+        self.base_forward = base_forward
+        self.adapter = adapter
+
+    def forward(self, noisy, memory_noise_flat=None, memory_clean=None,
+                bank_sq_norms=None, mem_clean=None):
+        with torch.no_grad():
+            base_out = self.base_forward(noisy).float()
+        if mem_clean is None:
+            if memory_noise_flat is None or memory_clean is None:
+                raise ValueError("pass the bank (memory_noise_flat, "
+                                 "memory_clean) or mem_clean")
+            mem = select_memory_patch(noisy.permute(0, 2, 3, 1),
+                                      memory_noise_flat, memory_clean,
+                                      bank_sq_norms)
+            mem_clean = mem.permute(0, 3, 1, 2)
+        return self.adapter(noisy, base_out, _clean01(mem_clean))

@@ -1,10 +1,12 @@
 """Carry JAX-layout weights into the port's modules.
 
-``params_to_state_dict`` maps a JAX ImprovedUNet param tree (nested dicts of
-numpy arrays, as ``jax.tree_util.tree_map(np.asarray, params)`` gives it) to
-the reference ``arch_unet.py`` state-dict layout: flax HWIO conv kernels
-become OIHW, GroupNorm scale/bias become weight/bias. It is the port's own
-copy of ``image_denoising_tpu/ckpt/pth_export.py`` for the ImprovedUNet.
+``params_to_state_dict`` maps a JAX param tree (nested dicts of numpy
+arrays, as ``jax.tree_util.tree_map(np.asarray, params)`` gives it) to the
+reference state-dict layout (``arch_unet.py``, ``adapter.py``,
+``finetune_memory.py``): flax HWIO conv kernels become OIHW, Dense kernels
+are transposed, GroupNorm scale/bias become weight/bias. It is the port's
+own copy of ``image_denoising_tpu/ckpt/pth_export.py`` for the ImprovedUNet,
+the output adapter and the five memory-adapter variants.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from ..adapters.memory_adapters import MEMORY_ADAPTERS
 
 __all__ = ["params_to_state_dict", "load_jax_params"]
 
@@ -24,6 +28,11 @@ def _conv_out(out, prefix, p):
     out[f"{prefix}.weight"] = np.transpose(_np(p["conv"]["kernel"]), (3, 2, 0, 1))
     if "bias" in p["conv"]:
         out[f"{prefix}.bias"] = _np(p["conv"]["bias"])
+
+
+def _dense_out(out, prefix, p):
+    out[f"{prefix}.weight"] = np.transpose(_np(p["kernel"]))
+    out[f"{prefix}.bias"] = _np(p["bias"])
 
 
 def _gn_out(out, prefix, p):
@@ -68,17 +77,50 @@ def _improved_out(params, depth=4) -> Dict[str, np.ndarray]:
     return out
 
 
+def _output_adapter_out(params) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    _conv_out(out, "net.0", params["conv0"])
+    _conv_out(out, "net.2", params["conv1"])
+    return out
+
+
+def _memory_adapter_out(params, variant) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    if variant == "memory_residual":
+        for name, idx in (("conv0", 0), ("conv1", 2), ("conv2", 4)):
+            _conv_out(out, f"body.{idx}", params["body"][name])
+    elif variant == "lowfreq_blend":
+        _conv_out(out, "gate_net.0", params["gate_conv0"])
+        _conv_out(out, "gate_net.2", {"conv": params["gate_conv1"]})
+    elif variant == "tone_curve":
+        _dense_out(out, "mlp.0", params["mlp0"])
+        _dense_out(out, "mlp.2", params["mlp1"])
+    else:  # hyper_gated, hyper_gated_fft
+        for name, idx in (("conv0", 0), ("conv1", 2), ("conv2", 4)):
+            _conv_out(out, f"local_net.{idx}", params["local"][name])
+        _dense_out(out, "hyper_mlp.0", params["hyper"]["hyper0"])
+        _dense_out(out, "hyper_mlp.2", params["hyper"]["hyper1"])
+    return out
+
+
 def params_to_state_dict(params: Any, arch: str = "UNetImproved") -> Dict[str, np.ndarray]:
-    """JAX param tree → reference state dict of numpy arrays."""
-    if arch != "UNetImproved":
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (only UNetImproved); see ROADMAP.md")
-    return _improved_out(params)
+    """JAX param tree → reference state dict of numpy arrays. ``arch``:
+    'UNetImproved', 'output_adapter' or a memory-adapter variant."""
+    if arch == "UNetImproved":
+        return _improved_out(params)
+    if arch == "output_adapter":
+        return _output_adapter_out(params)
+    if arch in MEMORY_ADAPTERS:
+        return _memory_adapter_out(params, arch)
+    raise NotImplementedError(
+        f"arch {arch!r} is not ported yet (UNetImproved, output_adapter and "
+        f"the memory adapters {list(MEMORY_ADAPTERS)} are); see ROADMAP.md")
 
 
-def load_jax_params(model: torch.nn.Module, params: Any) -> torch.nn.Module:
-    """Load a JAX ImprovedUNet param tree into ``model`` with ``strict=True``."""
+def load_jax_params(model: torch.nn.Module, params: Any,
+                    arch: str = "UNetImproved") -> torch.nn.Module:
+    """Load a JAX param tree of ``arch`` into ``model`` with ``strict=True``."""
     sd = {k: torch.from_numpy(np.array(v))
-          for k, v in params_to_state_dict(params).items()}
+          for k, v in params_to_state_dict(params, arch).items()}
     model.load_state_dict(sd, strict=True)
     return model

@@ -1,5 +1,6 @@
-"""Shared CLI plumbing for the E2 evaluator (counterpart of the parts of
-``image_denoising_tpu/cli/common.py`` that ``evaluation_704`` uses).
+"""Shared CLI plumbing for the E2 and E6 evaluators (counterpart of the parts
+of ``image_denoising_tpu/cli/common.py`` that ``evaluation_704`` and
+``evaluation_704_iqsl_memory`` use).
 
 Model construction, ``.pth`` loading, PNG writing, the per-image metrics
 file, and the lazy burst stream of ``--frame_burst``.
@@ -92,12 +93,18 @@ def iter_bursts(by_shape, get_frame, fb, make_runner, max_inflight=3):
 
 
 def drain_burst(item, cache):
-    """Fetch one burst of (uint8 preds, L1) to the host: cache[j] = (pred, l1)."""
-    chunk, (preds, l1) = item
+    """Fetch one burst to the host: cache[j] = (pred, *per-frame scalars).
+
+    The runner returns the [F, H, W] uint8 predictions alone (the Hann
+    engine) or with [F] per-frame scalars (the pyramid engine's L1).
+    Returns the drained chunk of frame indices.
+    """
+    chunk, out = item
+    preds, *scalars = out if isinstance(out, tuple) else (out,)
     preds = preds.cpu().numpy()
-    l1 = l1.cpu().numpy()
+    scalars = [s.cpu().numpy() for s in scalars]
     for k, j in enumerate(chunk):
-        cache[j] = (preds[k], float(l1[k]))
+        cache[j] = (preds[k], *(float(s[k]) for s in scalars))
     return chunk
 
 

@@ -1,0 +1,282 @@
+"""Memory-adapter tiled eval CLI — counterpart of
+``image_denoising_tpu/cli/evaluation_704_iqsl_memory.py`` (E6).
+
+Rebuilds the memory bank from the first ``--num_memory_images`` test pairs
+(banks are never checkpointed), loads the base and the adapter, and denoises
+each frame on 128-px tiles with a 64-px overlap and Hann² blending; uint8
+via clip(p·255 + 0.5); PSNR and, with ``--compute_iq_iou``, IQ-IoU. On a
+CUDA device the base runs through ``make_fused_forward`` (every level block
+through the chain kernel) and retrieval through the top-1 kernel. By
+default retrieval is hoisted: one pass over the whole tile stack before the
+chunked forward, the retrieved patches riding along as a second channel.
+
+Same flags, defaults and output files (``*_denoised_mem.png``,
+``metrics.txt``) as the JAX CLI, plus ``--device {cuda,cpu}``: ``cuda`` runs
+on the one card ``--gpu_devices`` names (``cuda:N``). ``--parallel``,
+``--bank_sharded``, ``--device_metrics``, ``--host_workers > 0`` and several
+``--gpu_devices`` are parsed and refused (not ported yet).
+
+Run: ``python -m image_denoising_tpu_torch.cli.evaluation_704_iqsl_memory
+--data_dir d --base_ckpt b.pth --adapter_ckpt a.pth`` with ``.pth`` files
+from the JAX package's ``ckpt/pth_export.py::export_pth(params,
+"UNetImproved")`` and ``export_pth(adapter_params, variant)``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..adapters.memory_adapters import MEMORY_ADAPTERS
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--data_dir", type=str, required=True)
+    parser.add_argument("--base_ckpt", type=str, required=True,
+                        help="reference-layout .pth of the base network")
+    parser.add_argument("--adapter_ckpt", type=str, required=True,
+                        help="reference-layout .pth of the adapter")
+    parser.add_argument("--arch", type=str, default="UNetImproved",
+                        choices=["UNet", "RESNET", "UNetImproved"])
+    parser.add_argument("--save_dir", type=str,
+                        default="./results_704_eval_adapter_memory")
+    parser.add_argument("--gpu_devices", default="0", type=str,
+                        help="index N of the card to run on (cuda:N)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="'cuda': the card --gpu_devices names; 'cpu': "
+                             "the plain versions of the kernels")
+    parser.add_argument("--parallel", action="store_true", help="not ported yet")
+    parser.add_argument("--n_feature", type=int, default=48)
+    parser.add_argument("--n_channel", type=int, default=1)
+    parser.add_argument("--adapter_hidden", type=int, default=16)
+    parser.add_argument("--patch_size", type=int, default=128)
+    parser.add_argument("--overlap", type=int, default=64)
+    parser.add_argument("--num_memory_images", type=int, default=5)
+    parser.add_argument("--memory_stride", type=int, default=4)
+    parser.add_argument("--adapter_variant", type=str, default="hyper_gated_fft",
+                        choices=list(MEMORY_ADAPTERS))
+    parser.add_argument("--pallas_retrieval", action="store_true",
+                        help="pad the bank to a multiple of 512 rows, as the "
+                             "TPU kernel's tile grid needs. On a CUDA device "
+                             "retrieval always runs the top-1 kernel; this "
+                             "flag changes only the padding")
+    parser.add_argument("--bank_sharded", action="store_true",
+                        help="not ported yet")
+    parser.add_argument("--bank_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16", "int8"],
+                        help="noise-bank storage dtype. bf16 halves the "
+                             "memory; int8 quarters it and computes exact "
+                             "integer distances (uint8-sourced patches)")
+    parser.add_argument("--clean_bank_dtype", type=str, default="float32",
+                        choices=["float32", "uint8"],
+                        help="clean-bank storage dtype. uint8 stores the "
+                             "source bytes (lossless for uint8 frames) at 4x "
+                             "less memory")
+    parser.add_argument("--tile_batch", type=int, default=-8,
+                        help="forward chunk size; 0 = all tiles in one batch, "
+                             "±k = chunks of k tiles")
+    parser.add_argument("--frame_burst", type=int, default=0,
+                        help="denoise N same-shape frames per runner call, "
+                             "up to three bursts in flight. 0 = frame by "
+                             "frame like the reference")
+    parser.add_argument("--save_images", type=str, default="denoised",
+                        choices=["denoised", "none"],
+                        help="'denoised' writes *_denoised_mem.png per frame "
+                             "(the reference's only output image); 'none' "
+                             "computes metrics only")
+    parser.add_argument("--compute_iq_iou", action="store_true")
+    parser.add_argument("--iq_low_q", type=float, default=0.25)
+    parser.add_argument("--iq_high_q", type=float, default=0.75)
+    parser.add_argument("--device_metrics", action="store_true",
+                        help="not ported yet")
+    parser.add_argument("--hoist_retrieval", action=argparse.BooleanOptionalAction,
+                        default=True,
+                        help="retrieve all tiles' memory patches in one pass "
+                             "before the chunked forward, instead of sweeping "
+                             "the bank once per --tile_batch chunk")
+    parser.add_argument("--retrieval_chunk", type=int, default=0,
+                        help="query-chunk size of the hoisted retrieval pass; "
+                             "0 (default) = one pass over the whole tile "
+                             "stack. Outputs are identical either way")
+    parser.add_argument("--timing_json", type=str, default=None,
+                        help="write per-burst drain timestamps (seconds since "
+                             "the CLI started, drained frame indices, frame "
+                             "pixel count) to this path")
+    parser.add_argument("--dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="compute dtype of the base forward; weights load "
+                             "as float32 and the adapter computes in float32")
+    parser.add_argument("--host_workers", type=int, default=0,
+                        help="not ported yet (0 = inline host pass)")
+    args, _ = parser.parse_known_args(argv)
+    return args
+
+
+def make_memory_model_call(wrapper, bank, n_channel: int = 1,
+                           hoist: bool = True, retrieval_chunk: int = 0):
+    """(model_call, pre_tile_fn) for the Hann runners over NCHW tiles.
+
+    Hoisted (default): ``pre_tile_fn`` retrieves every tile's clean patch in
+    one pass (``retrieval_chunk`` > 0: in query chunks of that size) and
+    appends it as extra channels; ``model_call`` splits the stack again.
+    Otherwise ``pre_tile_fn`` is None and each forward chunk retrieves its
+    own patches.
+    """
+    from ..adapters import batched_select_memory_patch
+
+    if retrieval_chunk < 0:
+        raise SystemExit(f"--retrieval_chunk must be >= 0 (0 = single pass), "
+                         f"got {retrieval_chunk}")
+    if not hoist:
+        def model_call(tiles):
+            return wrapper(tiles, bank.noise_flat, bank.clean, bank.sq_norms)
+
+        return model_call, None
+    c = n_channel
+    chunk = retrieval_chunk if retrieval_chunk > 0 else 10 ** 9
+
+    def pre_tile_fn(tiles):
+        mem = batched_select_memory_patch(
+            tiles.permute(0, 2, 3, 1), bank.noise_flat, bank.clean,
+            bank.sq_norms, chunk=chunk)
+        return torch.cat([tiles, mem.permute(0, 3, 1, 2).to(tiles.dtype)], 1)
+
+    def model_call(stack):
+        return wrapper(stack[:, :c], mem_clean=stack[:, c:])
+
+    return model_call, pre_tile_fn
+
+
+def _squeeze2d(a, what):
+    a = np.asarray(a)
+    if a.ndim == 3 and a.shape[2] == 1:
+        a = a[..., 0]
+    if a.ndim != 2:
+        raise ValueError(f"memory tiled eval is single-channel: {what} has "
+                         f"shape {a.shape}")
+    return a
+
+
+def evaluate(opt):
+    from ..adapters import DenoiserWithMemoryAdapter, build_memory_adapter
+    from ..ckpt.io import load_checkpoint
+    from ..data.pairs import list_pairs, validation_denoise
+    from ..eval.tiled import denoise_tiled_hann, make_tiled_hann_runner_frames
+    from ..memory import build_memory_bank
+    from ..metrics import calculate_psnr, compute_iq_iou
+    from ..models.fused_forward import make_fused_forward
+    from ..utils.device import resolve_device
+    from .common import (MetricsWriter, build_network, drain_burst, iter_bursts,
+                         load_params, make_metrics_finalize, save_png)
+
+    unsupported = [f"--{n}" for n in ("parallel", "bank_sharded", "device_metrics")
+                   if getattr(opt, n)]
+    if opt.host_workers > 0:
+        unsupported.append("--host_workers > 0")
+    if "," in opt.gpu_devices:
+        unsupported.append("--gpu_devices with several cards")
+    if unsupported:
+        raise NotImplementedError(
+            f"{', '.join(unsupported)} not ported to the PyTorch package yet "
+            "(ROADMAP.md)")
+    device = "cpu" if opt.device == "cpu" else f"cuda:{int(opt.gpu_devices)}"
+    resolve_device(device)  # fail before any loading when there is no GPU
+
+    os.makedirs(opt.save_dir, exist_ok=True)
+    clean_imgs, noisy_imgs, clean_paths, noisy_paths = validation_denoise(opt.data_dir)
+    clean_all, noise_all = list_pairs(opt.data_dir)
+    num_mem = min(opt.num_memory_images, len(clean_all))
+    bank = build_memory_bank(
+        clean_all[:num_mem], noise_all[:num_mem],
+        patch_size=opt.patch_size, stride=opt.memory_stride,
+        bank_dtype=opt.bank_dtype, clean_dtype=opt.clean_bank_dtype,
+        pad_to=512 if opt.pallas_retrieval else 0, device=device)
+
+    base = load_params(opt.base_ckpt, build_network(
+        opt.arch, None, opt.n_channel, opt.n_feature))
+    dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
+    fwd = make_fused_forward(base, device=device, dtype=dtype)
+    adapter = build_memory_adapter(opt.adapter_variant, opt.n_channel,
+                                   opt.adapter_hidden)
+    adapter.load_state_dict(load_checkpoint(opt.adapter_ckpt), strict=True)
+    wrapper = DenoiserWithMemoryAdapter(fwd, adapter).to(device).eval()
+    print(f"Loaded base from {opt.base_ckpt}; adapter from {opt.adapter_ckpt}")
+    model_call, pre_tile_fn = make_memory_model_call(
+        wrapper, bank, opt.n_channel, opt.hoist_retrieval, opt.retrieval_chunk)
+
+    pred_cache: dict = {}
+    burst_stream = None
+    if opt.frame_burst > 1:
+        by_shape: dict = {}
+        for j, nz in enumerate(noisy_imgs):
+            by_shape.setdefault(_squeeze2d(nz, f"frame {j}").shape, []).append(j)
+
+        def make_runner(h, w):
+            return make_tiled_hann_runner_frames(
+                model_call, opt.frame_burst, h, w, ps=opt.patch_size,
+                overlap=opt.overlap, batch=opt.tile_batch,
+                out_dtype="uint8_round", pre_tile_fn=pre_tile_fn, device=device)
+
+        burst_stream = iter_bursts(
+            by_shape, lambda j: _squeeze2d(noisy_imgs[j], f"frame {j}").astype(np.uint8),
+            opt.frame_burst, make_runner)
+
+    t_start = time.perf_counter()
+    drain_log: list = []
+    writer = MetricsWriter()
+    finalize = make_metrics_finalize(writer)
+    for i, (clean, noisy) in enumerate(zip(clean_imgs, noisy_imgs)):
+        noisy_name = os.path.basename(noisy_paths[i]).split(".")[0]
+        clean255 = np.asarray(clean).astype(np.uint8)
+        if burst_stream is not None:
+            while i not in pred_cache:
+                chunk = drain_burst(next(burst_stream), pred_cache)
+                drain_log.append({"t": round(time.perf_counter() - t_start, 4),
+                                  "frames": list(chunk)})
+            (pred255,) = pred_cache.pop(i)
+        else:
+            pred255 = denoise_tiled_hann(
+                model_call, np.asarray(noisy), ps=opt.patch_size,
+                overlap=opt.overlap, batch=opt.tile_batch,
+                out_dtype="uint8_round", pre_tile_fn=pre_tile_fn,
+                device=device)[..., 0]
+
+        if opt.save_images != "none":
+            save_png(pred255, os.path.join(opt.save_dir,
+                                           f"{noisy_name}_denoised_mem.png"),
+                     mode="L")
+        psnr = calculate_psnr(pred255, clean255)
+        msg = f"[{i + 1}/{len(clean_imgs)}] {noisy_name} -> PSNR: {psnr:.2f}"
+        ious = None
+        if opt.compute_iq_iou:
+            ious = compute_iq_iou(pred255, clean255, opt.iq_low_q, opt.iq_high_q)
+            msg += f", IoU(d/m/b)=({ious[0]:.3f},{ious[1]:.3f},{ious[2]:.3f})"
+        finalize((msg, dict(psnr=psnr, ious=ious)))
+
+    if opt.timing_json and drain_log:
+        px = int(np.shape(noisy_imgs[0])[0]) * int(np.shape(noisy_imgs[0])[1])
+        with open(opt.timing_json, "w") as f:
+            json.dump({"px_per_frame": px, "drains": drain_log}, f)
+
+    writer.write(opt.save_dir)
+    avg = writer.averages()
+    print(f"Average PSNR: {avg['psnr']:.2f}")
+    if opt.compute_iq_iou and "iou_dark" in avg:
+        print("Average IQ-3class IoU - "
+              f"dark: {avg['iou_dark']:.4f}, mid: {avg['iou_mid']:.4f}, "
+              f"bright: {avg['iou_bright']:.4f}")
+    return avg
+
+
+def main(argv=None):
+    return evaluate(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

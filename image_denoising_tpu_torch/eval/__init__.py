@@ -1,5 +1,10 @@
 from .tiled import (
+    denoise_tiled_hann,
     denoise_tiled_pyramid,
+    edge_aligned_grid,
+    hann_window_2d,
+    make_tiled_hann_runner,
+    make_tiled_hann_runner_frames,
     make_tiled_pyramid_runner,
     make_tiled_pyramid_runner_frames,
     pyramid_weight_mask,
@@ -7,7 +12,12 @@ from .tiled import (
 )
 
 __all__ = [
+    "denoise_tiled_hann",
     "denoise_tiled_pyramid",
+    "edge_aligned_grid",
+    "hann_window_2d",
+    "make_tiled_hann_runner",
+    "make_tiled_hann_runner_frames",
     "make_tiled_pyramid_runner",
     "make_tiled_pyramid_runner_frames",
     "pyramid_weight_mask",

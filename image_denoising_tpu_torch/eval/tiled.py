@@ -1,15 +1,25 @@
-"""Batched tiled full-frame inference with pyramid blending.
+"""Batched tiled full-frame inference with pyramid and Hann² blending.
 
-Counterpart of the pyramid half of ``image_denoising_tpu/eval/tiled.py``
-(the ``evaluation_704.py`` engine): 352-px tiles, stride = ps − overlap, grid
-anchored at multiples of the stride (tiles may overrun the frame; they are
-cropped and reflect-padded), weight (1−|2y−1|)(1−|2x−1|) on the *unpadded*
-tile extent, contribution==0 → 1 divide guard, uint8 via clip(p·255) with NO
-+0.5 (``uint8_floor``) or with it (``uint8_round``).
+Counterpart of ``image_denoising_tpu/eval/tiled.py``, two regimes:
+
+* pyramid (the ``evaluation_704.py`` engine): 352-px tiles, stride =
+  ps − overlap, grid anchored at multiples of the stride (tiles may overrun
+  the frame; they are cropped and reflect-padded), weight
+  (1−|2y−1|)(1−|2x−1|) on the *unpadded* tile extent, predictions clipped
+  to [0, 1], contribution==0 → 1 divide guard, uint8 via clip(p·255) with
+  NO +0.5 (``uint8_floor``) or with it (``uint8_round``).
+* hann (the ``evaluation_704_iqsl_memory.py`` engine): 128-px full-size
+  tiles on an edge-aligned, deduplicated grid (last row and column snapped
+  to the frame edge), Hann²(periodic=False) window clamped to ≥ 1e-3,
+  divide by (Σw + 1e-8) with Σw summed in float64, NO clip of the
+  predictions before the blend, uint8 via clip(p·255 + 0.5). A
+  ``pre_tile_fn`` hook runs once on the whole NCHW tile stack before the
+  chunked forward (the hoisted memory retrieval: it returns the stack with
+  the retrieved patches as extra channels).
 
 The tile grid is static per frame geometry and computed on the host; the
 gather, the chunked forward, the blend and the quantisation run on the
-device. Model calls take and return NCHW ``[k, 1, ps, ps]`` tiles.
+device. Model calls take and return NCHW ``[k, C, ps, ps]`` tiles.
 
 Where the JAX package has two blend forms (an unrolled pad-and-add for ≤256
 tiles and a scatter loop above that), PyTorch needs one: an in-place add of
@@ -17,7 +27,7 @@ each weighted tile into the canvas, in tile order, which is both.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -26,10 +36,15 @@ from ..utils.device import resolve_device
 
 __all__ = [
     "pyramid_weight_mask",
+    "hann_window_2d",
     "reference_tile_grid",
+    "edge_aligned_grid",
     "make_tiled_pyramid_runner",
     "make_tiled_pyramid_runner_frames",
     "denoise_tiled_pyramid",
+    "make_tiled_hann_runner",
+    "make_tiled_hann_runner_frames",
+    "denoise_tiled_hann",
 ]
 
 
@@ -39,6 +54,26 @@ def pyramid_weight_mask(ps: int) -> np.ndarray:
         np.linspace(0, 1, ps), np.linspace(0, 1, ps), indexing="ij"
     )
     return ((1 - np.abs(yy - 0.5) * 2) * (1 - np.abs(xx - 0.5) * 2)).astype(np.float32)
+
+
+def hann_window_2d(ps: int, clamp_min: float = 1e-3) -> np.ndarray:
+    """torch.hann_window(ps, periodic=False) outer product, clamped ≥ clamp_min."""
+    n = np.arange(ps, dtype=np.float64)
+    w1 = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / (ps - 1)))
+    return np.maximum(np.outer(w1, w1), clamp_min).astype(np.float32)
+
+
+def edge_aligned_grid(h: int, w: int, ps: int, overlap: int):
+    """(r0, c0) full-size tiles with a snapped last row/col, deduplicated and
+    sorted (evaluation_704_iqsl_memory.py:1041-1048)."""
+    if h < ps or w < ps:
+        raise ValueError(f"Image ({h},{w}) smaller than patch_size {ps}")
+    if overlap >= ps:
+        raise ValueError("overlap must be smaller than patch_size")
+    step = ps - overlap
+    ys = sorted(set(range(0, h - ps + 1, step)) | {h - ps})
+    xs = sorted(set(range(0, w - ps + 1, step)) | {w - ps})
+    return [(y, x) for y in ys for x in xs]
 
 
 def reference_tile_grid(h: int, w: int, ps: int, stride: int):
@@ -216,3 +251,126 @@ def denoise_tiled_pyramid(
                                     out_dtype=out_dtype, device=device)
     out, l1 = run(noisy)
     return out.cpu().numpy(), float(l1)
+
+
+class _HannGeometry:
+    """Host-side edge-aligned grid, gather indices, Hann² window and the
+    reciprocal weight sum for one frame size."""
+
+    def __init__(self, h, w, ps, overlap, device):
+        self.h, self.w, self.ps = h, w, ps
+        self.grid = edge_aligned_grid(h, w, ps, overlap)
+        yy = np.arange(ps)
+        rows = np.stack([r0 + yy for r0, _ in self.grid])
+        cols = np.stack([c0 + yy for _, c0 in self.grid])
+        self.row_idx = torch.as_tensor(rows, device=device)[:, :, None]
+        self.col_idx = torch.as_tensor(cols, device=device)[:, None, :]
+        window = hann_window_2d(ps)
+        wsum = np.zeros((h, w), np.float64)
+        for (r0, c0) in self.grid:
+            wsum[r0 : r0 + ps, c0 : c0 + ps] += window
+        self.window = torch.as_tensor(window, device=device)
+        self.inv_wsum = torch.as_tensor(1.0 / (wsum + 1e-8), dtype=torch.float32,
+                                        device=device)
+
+    def gather(self, imgs):
+        """[F, H, W] → [F, T, ps, ps] tiles."""
+        return imgs[:, self.row_idx, self.col_idx]
+
+    def blend(self, preds):
+        """[F, T, ps, ps] → [F, H, W]: weight (no clip), add in tile order,
+        scale by the reciprocal weight sum."""
+        ps = self.ps
+        canvas = preds.new_zeros((preds.shape[0], self.h, self.w),
+                                 dtype=torch.float32)
+        for i, (r0, c0) in enumerate(self.grid):
+            canvas[:, r0 : r0 + ps, c0 : c0 + ps] += preds[:, i].float() * self.window
+        return canvas * self.inv_wsum
+
+
+def _run_hann_frames(geo, model_call, frames255, batch, out_dtype, device,
+                     pre_tile_fn):
+    imgs = torch.as_tensor(frames255).to(device).float() / 255.0  # [F,H,W]
+    tiles = geo.gather(imgs)                                     # [F,T,ps,ps]
+    f, t, ps = tiles.shape[0], tiles.shape[1], geo.ps
+    tiles = tiles.reshape(f * t, 1, ps, ps)
+    if pre_tile_fn is not None:
+        tiles = pre_tile_fn(tiles)
+    preds = _chunked_forward(model_call, tiles, batch)[:, 0]
+    return _quantize(geo.blend(preds.reshape(f, t, ps, ps)), out_dtype)
+
+
+def make_tiled_hann_runner(
+    model_call: Callable, h: int, w: int, ps: int = 128, overlap: int = 64,
+    batch: int = 0, *, out_dtype: str = "float32",
+    pre_tile_fn: Optional[Callable] = None, device="cuda",
+):
+    """frame [H, W] in [0, 255] → pred [H, W], on ``device``.
+
+    ``pre_tile_fn(tiles) -> tiles'`` runs once on the whole NCHW
+    ``[T, 1, ps, ps]`` stack before the chunked forward; ``model_call``
+    then takes chunks of what it returns and gives NCHW predictions, of
+    which channel 0 is blended.
+    """
+    dev = resolve_device(device)
+    geo = _HannGeometry(h, w, ps, overlap, dev)
+
+    @torch.inference_mode()
+    def run(noisy255):
+        return _run_hann_frames(geo, model_call, torch.as_tensor(noisy255)[None],
+                                batch, out_dtype, dev, pre_tile_fn)[0]
+
+    return run
+
+
+def make_tiled_hann_runner_frames(
+    model_call: Callable, n_frames: int, h: int, w: int, ps: int = 128,
+    overlap: int = 64, batch: int = 0, *, out_dtype: str = "float32",
+    pre_tile_fn: Optional[Callable] = None, device="cuda",
+):
+    """Frame-batched Hann variant: [F, H, W] in [0, 255] → [F, H, W] pred.
+
+    All F·T tiles go through ``pre_tile_fn`` once and through
+    ``_chunked_forward`` as one stack (``batch=-k`` for k-tile chunks: the
+    serving shape is F=4, k=8); the blends run over all frames at once.
+    """
+    dev = resolve_device(device)
+    geo = _HannGeometry(h, w, ps, overlap, dev)
+
+    @torch.inference_mode()
+    def run(frames255):
+        frames = torch.as_tensor(frames255)
+        if tuple(frames.shape) != (n_frames, h, w):
+            raise ValueError(f"expected frames of shape {(n_frames, h, w)}, "
+                             f"got {tuple(frames.shape)}")
+        return _run_hann_frames(geo, model_call, frames, batch, out_dtype, dev,
+                                pre_tile_fn)
+
+    return run
+
+
+def denoise_tiled_hann(
+    model_call: Callable,
+    noisy255: np.ndarray,
+    ps: int = 128,
+    overlap: int = 64,
+    batch: int = 0,
+    out_dtype: str = "float32",
+    pre_tile_fn: Optional[Callable] = None,
+    device="cuda",
+):
+    """Hann²-blended patchwise denoise (denoise_full_image_patchwise engine).
+
+    noisy255: [H, W] (or [H, W, 1]) in [0, 255]. Returns the prediction as
+    numpy [H, W, 1]: float32 in [0, 1], or uint8 per ``out_dtype``.
+    """
+    noisy = np.asarray(noisy255)
+    if noisy.ndim == 3 and noisy.shape[2] == 1:
+        noisy = noisy[..., 0]
+    if noisy.ndim != 2:
+        raise ValueError("tiled Hann eval is single-channel")
+    h, w = noisy.shape
+    run = make_tiled_hann_runner(model_call, h, w, ps, overlap, batch,
+                                 out_dtype=out_dtype, pre_tile_fn=pre_tile_fn,
+                                 device=device)
+    return run(noisy).cpu().numpy()[..., None]

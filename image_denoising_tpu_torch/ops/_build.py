@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "build", "load_fused_block"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "build", "load_fused_block", "load_retrieval"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -92,5 +92,17 @@ def load_fused_block() -> ctypes.CDLL:
     fn = lib.idt_chain_conv
     i, p = ctypes.c_int, ctypes.c_void_p
     fn.argtypes = [i, i, i, p, i, i, p, p, p, i, p, i, i, i, i, i, i, p]
+    fn.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_retrieval() -> ctypes.CDLL:
+    """The top-1 retrieval library (csrc/retrieval.cu), built on first call."""
+    path, _ = build("retrieval.cu")
+    lib = ctypes.CDLL(str(path))
+    fn = lib.idt_top1_l2
+    i, p = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [i, p, p, p, i, i, i, p, p, p]
     fn.restype = i
     return lib

@@ -31,6 +31,22 @@ def seeded_improved_unet_params(n_feature: int, seed: int, in_nc: int = 1):
     return model, jax.tree_util.tree_map_with_path(draw, shapes)
 
 
+def seeded_params(module, *example_inputs, seed: int):
+    """Every leaf of ``module.init``'s tree (from ``jax.eval_shape``) drawn
+    with numpy from a seed, uniform on ±fan_in^-½: zero-initialised tails
+    (the adapters' last convs and hyper-networks) get non-zero values too,
+    so the parity tests see every weight at work."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *example_inputs)["params"]
+    rng = np.random.default_rng(seed)
+
+    def draw(leaf):
+        fan_in = int(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 else 16
+        bound = fan_in ** -0.5
+        return rng.uniform(-bound, bound, leaf.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map(draw, shapes)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """One intra-op thread while a module's tests run: the suite runs in

@@ -31,13 +31,18 @@ def test_port_modules_import_no_jax():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "image_denoising_tpu_torch.ops.fused_block" in report["modules"]
-    assert "image_denoising_tpu_torch.cli.evaluation_704" in report["modules"]
+    for mod in ("cli.evaluation_704", "cli.evaluation_704_iqsl_memory",
+                "memory.bank", "memory.retrieval", "adapters.wrappers",
+                "adapters.memory_adapters", "adapters.output_adapter",
+                "eval.tiled"):
+        assert f"image_denoising_tpu_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
 
 def _entry_points():
-    from image_denoising_tpu_torch.cli import evaluation_704
+    from image_denoising_tpu_torch.cli import evaluation_704, evaluation_704_iqsl_memory
     from image_denoising_tpu_torch.eval import tiled
+    from image_denoising_tpu_torch.memory import build_memory_bank
     from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
 
     frame = np.zeros((32, 32), np.uint8)
@@ -50,11 +55,24 @@ def _entry_points():
             lambda t: t, frame, 16, 8),
         "evaluation_704": lambda: evaluation_704.main(
             ["--checkpoint", "missing.pth", "--data_dir", "missing"]),
+        "hann_runner": lambda: tiled.make_tiled_hann_runner(lambda t: t, 32, 32, 16, 8),
+        "hann_runner_frames": lambda: tiled.make_tiled_hann_runner_frames(
+            lambda t: t, 2, 32, 32, 16, 8),
+        "denoise_tiled_hann": lambda: tiled.denoise_tiled_hann(
+            lambda t: t, frame, 16, 8),
+        "build_memory_bank": lambda: build_memory_bank(
+            ["missing.png"], ["missing.png"], 16, 8),
+        "evaluation_704_iqsl_memory": lambda: evaluation_704_iqsl_memory.main(
+            ["--data_dir", "missing", "--base_ckpt", "b.pth",
+             "--adapter_ckpt", "a.pth"]),
     }
 
 
 @pytest.mark.parametrize("name", ["make_fused_forward", "runner", "runner_frames",
-                                  "denoise_tiled_pyramid", "evaluation_704"])
+                                  "denoise_tiled_pyramid", "evaluation_704",
+                                  "hann_runner", "hann_runner_frames",
+                                  "denoise_tiled_hann", "build_memory_bank",
+                                  "evaluation_704_iqsl_memory"])
 def test_entry_points_default_to_cuda(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():
