@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device  — the card's name and power limit.
-  2. build   — nvcc builds csrc/fused_block.cu and csrc/retrieval.cu for
-               sm_90a, both at once (seconds printed).
+  2. build   — nvcc builds csrc/fused_block.cu, csrc/retrieval.cu and
+               csrc/neighbor.cu for sm_90a, all at once (seconds printed).
   3. kernels — each kernel against its plain PyTorch version (TF32 off):
                fused_rdb_chain at the 9 chain shapes of E2 (B=8 tiles of
                352²) and of E6 (B=8 tiles of 128², down to the 8×8
@@ -14,7 +14,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                seeded device banks of N=105,125 rows of D=16,384 in float32,
                bfloat16 and int8, with B=400 and B=8 queries, a duplicated
                row (the first must win) and a bank padded to 512 rows (no
-               padded row may win). Times (CUDA events, median) and bounds.
+               padded row may win); subsample_pair at N=4 352² frames, C=1
+               float32 (the training shape) and C=3 float32 and bfloat16:
+               selectors and sub-images bit-equal, only the 8 listed pairs,
+               each within 0.005 of 1/8, same seed same maps, another seed
+               other maps, one map for all channels. Times (CUDA events,
+               median; the sub-sampler's device time from torch.profiler)
+               and bounds.
   4. main    — the E2 serving path: ImprovedUNet-48 (seeded init) through
                make_tiled_pyramid_runner_frames(make_fused_forward(model), 8,
                704, 704, 352, 64, batch=-8, out_dtype="uint8_floor") on 3
@@ -35,6 +41,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                over the per-conv module base and the plain retrieval; one
                burst each with a float32 and a bfloat16 bank; per-layer times
                and end-to-end MP/s.
+  6. train   — the N2N training step of ImprovedUNet-48 (seeded init, f32,
+               TF32 off) on batches of 4 seeded 352² frames with gauss25
+               noise, epoch 1 of 100: 2 warm-up and 10 timed steps, one
+               sub-sampler launch each; the same 12 steps with the plain
+               sub-sampler must give the same losses (TRAIN_LOSS_RTOL);
+               ms/step, MP/s of input frames, per-part times and the busy
+               share of one profiled step. Then cli/train.main (--loss n2n,
+               1 epoch of 2 steps) on 8 seeded 352² PNG pairs: checkpoints
+               and A_log.csv written, 2 launches.
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Per-shape details go to the --json file.
 """
@@ -93,6 +108,20 @@ E6_GRID = (FRAME - E6_TILE) // E6_STRIDE + 1          # 145 patches per axis
 E6_BANK_ROWS = E6_PAIRS * E6_GRID ** 2                # 105,125
 PATCH_D = E6_TILE * E6_TILE                            # 16,384
 E6_TILES = E6_BURST * ((FRAME - E6_TILE) // (E6_TILE - OVERLAP) + 1) ** 2  # 400
+SUB_SOURCE = "image_denoising_tpu_torch/csrc/neighbor.cu"
+SUB_REPLACES = "image_denoising_tpu/ops/neighbor_pallas.py:81"  # subsample_pair_pallas
+# the N2N trainer's reference geometry (bench.py:29): batch 4 of 352² frames
+TRAIN_B, TRAIN_FRAME, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_EPOCHS = 4, 352, 2, 10, 100
+VALID_PAIRS = ((0, 1), (0, 2), (1, 3), (2, 3), (1, 0), (2, 0), (3, 1), (3, 2))
+PAIR_FREQ_TOL = 0.005  # 5.3 binomial standard deviations at 123,904 cells
+# kernel and plain sub-sampler give bit-equal maps and noise, so the two
+# runs' losses differ only by the order of cuDNN's backward sums, which Adam
+# carries into the next steps
+TRAIN_LOSS_RTOL = 1e-3
+# integer operations of one cell's draw: 10 Philox rounds of 2 multiplies, 2
+# high multiplies, 4 xors and 2 key adds, plus the table look-ups
+PHILOX_OPS_PER_CELL = 10 * 10 + 8
+
 # retrieval check: a duplicated bank row (dup_hi := dup_lo) and queries
 # that sit near no row, where float32 rankings come closest to a tie
 DUP_LO, DUP_HI, N_FAR = 1234, 98765, 6
@@ -664,6 +693,326 @@ def phase_memory(seed: int):
     return out
 
 
+def kernel_device_ms(fn, name: str, reps: int = 50) -> float:
+    """Median device time (ms) of the kernel whose name contains ``name``,
+    over ``reps`` calls of ``fn``, from torch.profiler: a launch of a few
+    microseconds is shorter than the host's time to issue it, so CUDA events
+    around calls would time the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    if len(times) != reps:
+        raise AssertionError(f"the profiler saw {len(times)} '{name}' kernels, want {reps}")
+    return statistics.median(times)
+
+
+def call_ms(fn, reps: int = 200) -> float:
+    """CUDA-event time (ms) per call of ``reps`` calls issued back to back:
+    the rate at which the host issues them when the kernel is shorter."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bits(t):
+    """A float tensor's bits as integers, for bit-equality checks."""
+    import torch
+
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def phase_subsample(seed: int):
+    """subsample_pair_fused against its plain version at the training shape
+    (N=4, 352², C=1, f32) and at C=3 in f32 and bf16."""
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.ops.neighbor import (
+        generate_subimages, subsample_pair, subsample_pair_fused)
+    from image_denoising_tpu_torch.ops.rng import OperationSeed
+
+    rng = np.random.default_rng(seed + 3)
+    seeds = OperationSeed(seed + 3)
+    valid = [4 * a + b for a, b in VALID_PAIRS]
+    h2 = TRAIN_FRAME // 2
+    results = {}
+    for c, dname in ((1, "float32"), (3, "float32"), (3, "bfloat16")):
+        dt = getattr(torch, dname)
+        img = torch.from_numpy(rng.random((TRAIN_B, c, TRAIN_FRAME, TRAIN_FRAME),
+                                          dtype=np.float32)).to("cuda", dt)
+        s, other = seeds.next(), seeds.next()
+        got = subsample_pair_fused(s, img)
+        want = subsample_pair(s, img)
+        again = subsample_pair_fused(s, img)
+        _, _, (o1, o2) = subsample_pair_fused(other, img)
+        torch.cuda.synchronize()
+        sub1, sub2, (sel1, sel2) = got
+        what = f"subsample_pair C={c} {dname}"
+        assert sub1.shape == sub2.shape == (TRAIN_B, c, h2, h2) and sub1.dtype == dt
+        assert sel1.shape == sel2.shape == (TRAIN_B, h2, h2) and sel1.dtype == torch.int32
+
+        def parts(r):
+            return _bits(r[0]), _bits(r[1]), r[2][0], r[2][1]
+
+        if not all(torch.equal(a, b) for a, b in zip(parts(got), parts(want))):
+            raise AssertionError(f"{what}: the kernel differs from the plain version")
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got[:2], want[:2]))
+        if not all(torch.equal(a, b) for a, b in zip(parts(got), parts(again))):
+            raise AssertionError(f"{what}: the same seed gave other maps")
+        if torch.equal(o1, sel1) and torch.equal(o2, sel2):
+            raise AssertionError(f"{what}: another seed gave the same maps")
+        cells = sel1.numel()
+        counts = torch.bincount((sel1 * 4 + sel2).flatten().long(), minlength=16).cpu()
+        if int(counts[valid].sum()) != cells:
+            raise AssertionError(f"{what}: pairs outside the 8 listed: {counts.tolist()}")
+        freq = counts[valid].double() / cells
+        freq_err = float((freq - 1 / 8).abs().max())
+        if not freq_err <= PAIR_FREQ_TOL:
+            raise AssertionError(f"{what}: pair frequencies {freq.tolist()} off 1/8 by "
+                                 f"{freq_err:.4g} > {PAIR_FREQ_TOL}")
+        # one pair of maps for all channels: each channel's sub-images are
+        # its own plane gathered at those maps
+        for ch in range(c):
+            plane = img[:, ch : ch + 1]
+            for sub, sel in ((sub1, sel1), (sub2, sel2)):
+                if not torch.equal(_bits(sub[:, ch : ch + 1]),
+                                   _bits(generate_subimages(plane, sel))):
+                    raise AssertionError(f"{what}: channel {ch} does not follow the "
+                                         "shared maps")
+        ms = kernel_device_ms(lambda: subsample_pair_fused(s, img), "subsample_pair_kernel")
+        wrapper_ms = call_ms(lambda: subsample_pair_fused(s, img))
+        plain_ms = time_ms(lambda: subsample_pair(s, img), reps=5)
+        item = img.element_size()
+        nbytes = img.numel() * item + 2 * sub1.numel() * item + 2 * cells * 4
+        # integer operations, counted at the f32 rate: bytes bound by far
+        bound_ms, bound_by = bound(cells * PHILOX_OPS_PER_CELL, nbytes, "float32")
+        results[f"c{c}_{dname}"] = dict(
+            c=c, dtype=dname, max_abs_err=err, max_pair_freq_err=freq_err,
+            ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, mbytes=nbytes / 1e6, cells=cells)
+        log(f"[kernels] subsample_pair N={TRAIN_B} {TRAIN_FRAME}^2 C={c} {dname:8s}: "
+            f"bit-equal to the plain version; {cells} cells, pair frequencies within "
+            f"{freq_err:.4g} of 1/8; kernel {ms * 1e3:.3f} us on the device, "
+            f"{wrapper_ms * 1e3:.2f} us per call issued back to back; plain "
+            f"{plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    return results
+
+
+def top_convolutions(fn, top: int = 4):
+    """The convolution calls of ``fn`` that take most device time, grouped by
+    input shapes: [(device ms, input shapes)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.device_time_total / 1e3, str(e.input_shapes)[:60])
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.key == "aten::convolution"]
+    return sorted(rows, reverse=True)[:top]
+
+
+def n2n_frames(seed: int, count: int, size: int = TRAIN_FRAME):
+    """``count`` smooth seeded size² uint8 frames [count, size, size]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 9)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, count)
+    return np.stack([
+        np.clip(128 + 60 * np.sin(xx / (17 + f) + phase[f]) * np.cos(yy / (23 + 2 * f))
+                + 30 * np.sin((xx + yy) / 41 + f), 0, 255).astype(np.uint8)
+        for f in range(count)])
+
+
+def phase_train(seed: int):
+    """The N2N step of ImprovedUNet-48 at batch 4 of 352², f32."""
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.losses import n2n_regularized_loss
+    from image_denoising_tpu_torch.models import ImprovedUNet
+    from image_denoising_tpu_torch.ops import AugmentNoise, OperationSeed
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+    from image_denoising_tpu_torch.ops.neighbor import (
+        generate_subimages, subsample_pair, subsample_pair_fused)
+    from image_denoising_tpu_torch.train import (
+        create_train_state, make_n2n_train_step, to_nchw01)
+
+    torch.manual_seed(seed)
+    model = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).to("cuda")
+    init = copy.deepcopy(model.state_dict())
+    clean = n2n_frames(seed, TRAIN_B)[..., None].astype(np.float32)  # NHWC, [0,255]
+    aug = AugmentNoise("gauss25")
+
+    def run(subsample):
+        model.load_state_dict(init)
+        state = create_train_state(model, lr=3e-4)
+        step = make_n2n_train_step(model, state, noise_fn=aug.add_train_noise,
+                                   increase_ratio=2.0, n_epoch=TRAIN_EPOCHS,
+                                   subsample=subsample)
+        seeds = OperationSeed(seed)
+        losses = [step(clean, clean, seeds.next(), 1)["loss"] for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(clean, clean, seeds.next(), 1)["loss"] for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        return state, step, seeds, [float(x) for x in losses], (time.perf_counter() - t0) / TRAIN_STEPS
+
+    torch.cuda.reset_peak_memory_stats()
+    subsample_pair_fused.launches = 0
+    fused_rdb_chain.launches = 0
+    state, step, seeds, losses, step_s = run(subsample_pair_fused)
+    launches = subsample_pair_fused.launches
+    chain_launches = fused_rdb_chain.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != TRAIN_WARMUP + TRAIN_STEPS:
+        raise AssertionError(f"N2N: {launches} sub-sampler launches, want "
+                             f"{TRAIN_WARMUP + TRAIN_STEPS} (one per step)")
+    _, _, _, plain_losses, plain_step_s = run(subsample_pair)
+    if subsample_pair_fused.launches != launches:
+        raise AssertionError("N2N: the plain run launched the kernel")
+    if not all(np.isfinite(losses + plain_losses)):
+        raise AssertionError(f"N2N: non-finite loss: {losses} {plain_losses}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    log(f"[train] N2N losses of {TRAIN_WARMUP}+{TRAIN_STEPS} steps, kernel: "
+        f"{[round(x, 6) for x in losses]}; largest relative difference to the "
+        f"plain sub-sampler's run {rel:.3g} (limit {TRAIN_LOSS_RTOL})")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"N2N: losses differ from the plain run by {rel} > "
+                             f"{TRAIN_LOSS_RTOL}")
+
+    # the step's parts, each timed alone on this step's inputs
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    clean01 = to_nchw01(clean, dev)
+    s = seeds.next()
+    noisy01 = aug.add_train_noise(gen, clean01)
+    sub1, sub2, (sel1, sel2) = subsample_pair_fused(s, noisy01)
+    with torch.no_grad():
+        den = model(noisy01)
+    d1, d2 = generate_subimages(den, sel1), generate_subimages(den, sel2)
+
+    def fwd_bwd():
+        loss, _ = n2n_regularized_loss(model(sub1), sub2, d1, d2, 2.0 / TRAIN_EPOCHS)
+        loss.backward()
+
+    parts = dict(
+        noise_subsample_ms=time_ms(lambda: subsample_pair_fused(s, aug.add_train_noise(gen, clean01))),
+        nograd_forward_ms=time_ms(torch.no_grad()(lambda: model(noisy01)), reps=3),
+        forward_backward_ms=time_ms(fwd_bwd, reps=3),
+        adam_ms=time_ms(state.optimizer.step))
+    # the same two forwards with cuDNN's algorithms picked by timing instead
+    # of its heuristics: what a later change could gain (the port keeps the
+    # default, cudnn.benchmark off)
+    torch.backends.cudnn.benchmark = True
+    try:
+        autotuned = dict(
+            nograd_forward_ms=time_ms(torch.no_grad()(lambda: model(noisy01)), warmup=2, reps=3),
+            forward_backward_ms=time_ms(fwd_bwd, warmup=2, reps=3))
+    finally:
+        torch.backends.cudnn.benchmark = False
+    state.optimizer.zero_grad(set_to_none=True)
+    slow_convs = top_convolutions(torch.no_grad()(lambda: model(noisy01)))
+    prof = profile_window(lambda: float(step(clean, clean, seeds.next(), 1)["loss"]))
+    mp = TRAIN_B * TRAIN_FRAME ** 2 / 1e6
+    log(f"[train] N2N step, ImprovedUNet-{NF} f32, batch {TRAIN_B}x{TRAIN_FRAME}^2 "
+        f"(sub-images {TRAIN_FRAME // 2}^2): {step_s * 1e3:.2f} ms/step, "
+        f"{mp / step_s:.4f} MP/s of input frames (plain sub-sampler: "
+        f"{plain_step_s * 1e3:.2f} ms/step); sub-sampler launches {launches}, "
+        f"chain launches {chain_launches}; peak memory {peak_gb:.2f} GB")
+    log(f"[train] parts, each alone: noise+subsample {parts['noise_subsample_ms']:.3f} ms, "
+        f"no-grad forward {parts['nograd_forward_ms']:.2f} ms, forward+backward "
+        f"{parts['forward_backward_ms']:.2f} ms, Adam {parts['adam_ms']:.3f} ms; with "
+        f"cudnn.benchmark on (not the port's setting): no-grad forward "
+        f"{autotuned['nograd_forward_ms']:.2f} ms, forward+backward "
+        f"{autotuned['forward_backward_ms']:.2f} ms")
+    log(f"[train] the no-grad forward's slowest convolutions (device ms, input "
+        f"shapes): {slow_convs}")
+    log(f"[train] one step under torch.profiler: wall {prof['wall_ms']:.1f} ms, device "
+        f"busy {prof['device_busy_ms']:.1f} ms (share {prof['busy_share']}); top "
+        f"kernels {prof['top_kernels_ms'][:3]}")
+    return dict(launches=launches, chain_launches=chain_launches, ms_per_step=step_s * 1e3,
+                mps=mp / step_s, plain_ms_per_step=plain_step_s * 1e3, losses=losses,
+                plain_losses=plain_losses, max_rel_loss_diff=rel, peak_gb=peak_gb,
+                parts=parts, autotuned_parts=autotuned, slow_convolutions=slow_convs,
+                profile=prof)
+
+
+def phase_train_cli(seed: int):
+    """cli/train.main with --loss n2n for 1 epoch of 2 steps on 8 seeded
+    352² PNG pairs in a temporary directory under build/."""
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from image_denoising_tpu_torch.cli import train as train_cli
+    from image_denoising_tpu_torch.models import ImprovedUNet
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair_fused
+
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        data = os.path.join(tmp, "data")
+        rng = np.random.default_rng(seed + 11)
+        for sub in ("clean", "noise"):
+            os.makedirs(os.path.join(data, sub))
+        for i, c in enumerate(n2n_frames(seed + 1, 2 * TRAIN_B)):
+            noisy = np.clip(c + rng.normal(0, 25, c.shape), 0, 255).astype(np.uint8)
+            Image.fromarray(c).save(os.path.join(data, "clean", f"sem{i:03d}.png"))
+            Image.fromarray(noisy).save(os.path.join(data, "noise", f"sem{i:03d}.png"))
+        subsample_pair_fused.launches = 0
+        t0 = time.perf_counter()
+        train_cli.main(["--data_dir", data, "--save_model_path", os.path.join(tmp, "out"),
+                        "--loss", "n2n", "--arch", "UNetImproved", "--n_epoch", "1",
+                        "--max_steps_per_epoch", "2", "--batchsize", str(TRAIN_B),
+                        "--seed", str(seed)])
+        sec = time.perf_counter() - t0
+        launches = subsample_pair_fused.launches
+        if launches != 2:
+            raise AssertionError(f"train CLI: {launches} sub-sampler launches, want 2")
+        (run_dir,) = glob.glob(os.path.join(tmp, "out", "*", "*"))
+        for name in ("epoch_model_000.pth", "epoch_model_001.pth"):
+            ImprovedUNet(1, 1, NF).load_state_dict(
+                torch.load(os.path.join(run_dir, name), weights_only=True), strict=True)
+        with open(os.path.join(run_dir, "validation", "A_log.csv")) as f:
+            a_log = f.read().strip()
+        mean_loss = float(a_log.split("loss_")[1].split(",")[0])
+        if not (a_log.startswith("epoch1,") and np.isfinite(mean_loss)):
+            raise AssertionError(f"train CLI: A_log.csv reads {a_log!r}")
+        if len(glob.glob(os.path.join(run_dir, "validation", "*_denoised.png"))) != 1:
+            raise AssertionError("train CLI: no validation PNG")
+    log(f"[train] cli.train.main --loss n2n, 1 epoch of 2 steps at batch {TRAIN_B} "
+        f"of {TRAIN_FRAME}^2, validation of 8 frames: {sec:.2f} s; checkpoints "
+        f"000/001 load strict; A_log.csv {a_log!r}; sub-sampler launches {launches}")
+    return dict(seconds=sec, launches=launches, a_log=a_log)
+
+
 def _preds(out):
     """A runner's predictions: the pyramid engine returns (preds, L1)."""
     return out[0] if isinstance(out, tuple) else out
@@ -682,10 +1031,18 @@ def run_bursts(run, frames):
 
 
 def profile_burst(run, frames, top: int = 5):
-    """One burst under torch.profiler: the host wall time of the window, the
+    """One burst under torch.profiler (``profile_window``)."""
+    import torch
+
+    return profile_window(lambda: _preds(run(torch.from_numpy(frames))).cpu(), top)
+
+
+def profile_window(fn, top: int = 5):
+    """``fn`` under torch.profiler: the host wall time of the window, the
     union of the device's kernel and copy intervals in it (busy time), and
     the kernels that take most device time. The profiler's own cost lengthens
-    the window, so the idle share it gives is an upper bound."""
+    the window, so the idle share it gives is an upper bound. ``fn`` ends
+    with a copy to the host or a synchronise."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -693,7 +1050,7 @@ def profile_burst(run, frames, top: int = 5):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _preds(run(torch.from_numpy(frames))).cpu()
+        fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
@@ -741,7 +1098,7 @@ def main(argv=None) -> int:
     log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    sources = ("fused_block.cu", "retrieval.cu")
+    sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(_build.build, sources))  # one nvcc each, together
     build_s = time.perf_counter() - t0
@@ -753,12 +1110,16 @@ def main(argv=None) -> int:
     log(f"[build] {len(sources)} sources in {build_s:.2f} s")
     _build.load_fused_block()
     _build.load_retrieval()
+    _build.load_neighbor()
 
     chain_e2 = phase_chain(args.seed, chain_shapes(TILE), "E2")
     chain_e6 = phase_chain(args.seed + 1, chain_shapes(E6_TILE), "E6")
     top1 = phase_retrieval(args.seed)
+    subsample = phase_subsample(args.seed)
     main_path = phase_main(args.seed)
     memory = phase_memory(args.seed)
+    train = phase_train(args.seed)
+    train_cli = phase_train_cli(args.seed)
 
     summary = []
     for dname, rows in chain_e2.items():
@@ -792,12 +1153,24 @@ def main(argv=None) -> int:
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
             bound_by=big["bound_by"], library_ms=big["library_ms"],
             b8={k: small[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}))
+    sub = subsample["c1_float32"]
+    summary.append(dict(
+        name="subsample_pair", dtype="float32", route="cuda", source=SUB_SOURCE,
+        replaces=SUB_REPLACES, launches=train["launches"],
+        launches_by_path={"N2N train": train["launches"], "train CLI": train_cli["launches"]},
+        max_abs_err=max(r["max_abs_err"] for r in subsample.values()),
+        ms=sub["ms"], plain_ms=sub["plain_ms"], bound_ms=sub["bound_ms"],
+        bound_by=sub["bound_by"], library_ms=None, wrapper_ms=sub["wrapper_ms"],
+        c3={k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms")}
+            for k, r in subsample.items() if r["c"] == 3}))
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_seconds=build_s,
                        torch=torch.__version__, cuda=torch.version.cuda,
-                       kernels=dict(chain_e2=chain_e2, chain_e6=chain_e6, top1=top1),
-                       main=main_path, memory=memory, summary=summary),
+                       kernels=dict(chain_e2=chain_e2, chain_e6=chain_e6, top1=top1,
+                                    subsample=subsample),
+                       main=main_path, memory=memory, train=train, train_cli=train_cli,
+                       summary=summary),
                   f, indent=1)
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
         f"of one {B}-tile E2 chunk (e6: of one E6 chunk); library_ms is null: no "
@@ -805,7 +1178,11 @@ def main(argv=None) -> int:
         "B=8); library_ms is torch.mm (torch._int_mm for int8) plus argmin, two "
         "calls, as no single PyTorch call computes top-1 L2; max_abs_err is the "
         "largest float64 distance excess of the kernel's pick over the best row; "
-        "launches per entry from the E2 and E6 runs")
+        "launches per entry from the E2 and E6 runs. subsample_pair: N=4 352^2 "
+        "C=1 f32 (c3: C=3 f32/bf16); ms is the kernel's device time "
+        "(torch.profiler), wrapper_ms the per-call time of calls issued back to "
+        "back; library_ms is null: no one PyTorch call draws and gathers; "
+        "launches from the 12 N2N steps")
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""Shared CLI plumbing for the E2 and E6 evaluators (counterpart of the parts
-of ``image_denoising_tpu/cli/common.py`` that ``evaluation_704`` and
-``evaluation_704_iqsl_memory`` use).
+"""Shared CLI plumbing for the E2 and E6 evaluators and the trainer
+(counterpart of the parts of ``image_denoising_tpu/cli/common.py`` that
+``evaluation_704``, ``evaluation_704_iqsl_memory`` and ``train`` use).
 
 Model construction, ``.pth`` loading, PNG writing, the per-image metrics
-file, and the lazy burst stream of ``--frame_burst``.
+file, the lazy burst stream of ``--frame_burst``, and the trainer's
+``--dtype`` and ``--blindspot`` flags.
 """
 from __future__ import annotations
 
@@ -17,6 +18,9 @@ from ..ckpt.io import load_checkpoint
 from ..models.improved_unet import ImprovedUNet
 
 __all__ = [
+    "add_blindspot_flag",
+    "add_dtype_flag",
+    "resolve_dtype",
     "build_network",
     "load_params",
     "save_png",
@@ -25,6 +29,30 @@ __all__ = [
     "drain_burst",
     "make_metrics_finalize",
 ]
+
+
+def add_blindspot_flag(parser) -> None:
+    """--blindspot: the 4-rotation blindspot UNet/RESNET with an explicit
+    --arch (those networks are not ported yet, ROADMAP.md)."""
+    parser.add_argument(
+        "--blindspot", action="store_true",
+        help="build the blindspot variant (4-rotation stack, shifted "
+             "convs/pools) when --arch is given (not ported yet)",
+    )
+
+
+def add_dtype_flag(parser, default: str = "float32") -> None:
+    """--dtype: compute dtype for the model (params always stay float32)."""
+    parser.add_argument(
+        "--dtype", type=str, default=default,
+        choices=["float32", "bfloat16"],
+        help="compute dtype; params stay float32",
+    )
+
+
+def resolve_dtype(name: Optional[str]):
+    """'bfloat16' → torch.bfloat16; 'float32'/None → None (f32 compute)."""
+    return torch.bfloat16 if name == "bfloat16" else None
 
 
 def build_network(arch: Optional[str], log_name: Optional[str],

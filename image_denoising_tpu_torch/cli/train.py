@@ -1,0 +1,241 @@
+"""A-domain trainer CLI — counterpart of ``image_denoising_tpu/cli/train.py``.
+
+``--loss n2n`` is the Neighbor2Neighbor self-supervised path: synthetic noise
+(``--noisetype``), the random 2×2 mask-pair sub-sampler (on the card the
+hand-written kernel ``csrc/neighbor.cu``, one launch per step) and the
+Λ-regularized loss, with Adam(``--lr``), MultiStepLR γ at
+{20,40,60,80}%·epochs−1, an epoch-0 and per-snapshot checkpoint
+(``epoch_model_XXX.pth``, reference state-dict layout), validation PNGs and
+``A_log.csv``, as the JAX CLI writes them. The log lines are the
+reference's (``Loss1=/Loss_Full=/Time=``), fetched one step late so the
+host prepares step i+1 while the card runs step i.
+
+Same flags as the JAX CLI, plus ``--device {cuda,cpu}``: ``cuda`` runs on
+the card ``--gpu_devices`` names (``cuda:N``). Parsed and refused, for
+later slices (ROADMAP.md): ``--loss structure`` (the JAX default),
+``--dtype bfloat16``, ``--remat``/``--remat_depth``, ``--parallel``,
+``--blindspot``, ``--profile_dir``, a ``--resume`` that is not a ``.pth``
+file, and several ``--gpu_devices``.
+
+Run: ``python -m image_denoising_tpu_torch.cli.train --arch UNetImproved
+--loss n2n --data_dir data``.
+"""
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--noisetype", type=str, default="gauss25")
+    parser.add_argument("--data_dir", type=str, default="data")
+    parser.add_argument("--save_model_path", type=str, default="./results")
+    parser.add_argument("--log_name", type=str, default="unet_gauss25_b4e100r02")
+    parser.add_argument("--gpu_devices", default="0", type=str,
+                        help="index N of the card to train on (cuda:N)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="'cuda': the card --gpu_devices names; 'cpu': "
+                             "the plain versions of the kernels")
+    parser.add_argument("--parallel", action="store_true",
+                        help="not ported yet")
+    parser.add_argument("--n_feature", type=int, default=48)
+    parser.add_argument("--n_channel", type=int, default=1)
+    parser.add_argument("--lr", type=float, default=3e-4)
+    parser.add_argument("--gamma", type=float, default=0.5)
+    parser.add_argument("--n_epoch", type=int, default=100)
+    parser.add_argument("--n_snapshot", type=int, default=1)
+    parser.add_argument("--batchsize", type=int, default=4)
+    parser.add_argument("--Lambda1", type=float, default=1.0)
+    parser.add_argument("--Lambda2", type=float, default=1.0)
+    parser.add_argument("--increase_ratio", type=float, default=2.0)
+    parser.add_argument("--arch", type=str, default=None,
+                        help="explicit arch; default = log_name substring dispatch")
+    parser.add_argument("--loss", type=str, default="structure",
+                        choices=["structure", "n2n"],
+                        help="n2n = documented N2N recipe; structure = "
+                             "reference train.py (not ported yet)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--max_steps_per_epoch", type=int, default=0,
+                        help="debug/bench cap; 0 = full epoch")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="reference-layout .pth to resume params from")
+    parser.add_argument("--start_epoch", type=int, default=1,
+                        help="first epoch number when resuming")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="not ported yet")
+    parser.add_argument("--profile_steps", type=int, default=5)
+    parser.add_argument("--subsampler", type=str, default="xla",
+                        choices=["xla", "pallas"],
+                        help="N2N mask-pair source. Both run the same "
+                             "counter-keyed Philox draw: the hand-written "
+                             "kernel on the card, its plain version on the "
+                             "CPU, bit-equal, so it is reproducible across "
+                             "backends")
+    from .common import add_blindspot_flag, add_dtype_flag
+
+    add_blindspot_flag(parser)
+    add_dtype_flag(parser)
+    parser.add_argument("--remat", action=argparse.BooleanOptionalAction,
+                        default=False, help="not ported yet")
+    parser.add_argument("--remat_depth", type=int, default=None,
+                        help="not ported yet")
+    opt, _ = parser.parse_known_args(argv)
+    return opt
+
+
+def _refused(opt):
+    from .common import resolve_dtype
+
+    out = []
+    if opt.loss == "structure":
+        out.append("--loss structure")
+    if resolve_dtype(opt.dtype) is not None:
+        out.append(f"--dtype {opt.dtype}")
+    out += [f"--{n}" for n in ("remat", "parallel", "blindspot") if getattr(opt, n)]
+    if opt.remat_depth is not None:
+        out.append("--remat_depth")
+    if opt.profile_dir:
+        out.append("--profile_dir")
+    if opt.resume and not opt.resume.endswith(".pth"):
+        out.append("--resume of a non-.pth checkpoint")
+    if "," in opt.gpu_devices:
+        out.append("--gpu_devices with several cards")
+    return out
+
+
+def main(argv=None):
+    opt = parse_args(argv)
+    refused = _refused(opt)
+    if refused:
+        raise NotImplementedError(
+            f"{', '.join(refused)} not ported to the PyTorch package yet "
+            "(ROADMAP.md)")
+    from ..utils.device import resolve_device
+
+    device = resolve_device(
+        "cpu" if opt.device == "cpu" else f"cuda:{int(opt.gpu_devices)}")
+    systime = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M")
+
+    from ..ckpt import save_checkpoint
+    from ..data import DenoiseDataset, validation_denoise
+    from ..ops import AugmentNoise, OperationSeed
+    from ..train import (create_train_state, make_n2n_train_step, multistep_lr,
+                         reference_milestones, set_learning_rate)
+    from .common import build_network, load_params, save_png
+
+    dataset = DenoiseDataset(opt.data_dir)
+    valid = validation_denoise(opt.data_dir)
+
+    torch.manual_seed(opt.seed)
+    network = build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature)
+    if opt.resume:
+        load_params(opt.resume, network)
+        print(f"Resumed params from {opt.resume}")
+    network = network.to(device)
+
+    state = create_train_state(network, lr=opt.lr)
+    milestones = reference_milestones(opt.n_epoch)
+    aug = AugmentNoise(opt.noisetype)
+    step_fn = make_n2n_train_step(
+        network, state, noise_fn=aug.add_train_noise,
+        increase_ratio=opt.increase_ratio, n_epoch=opt.n_epoch,
+        lambda1=opt.Lambda1, lambda2=opt.Lambda2,
+    )
+    opseeds = OperationSeed(opt.seed)
+
+    save_model_path = os.path.join(opt.save_model_path, opt.log_name, systime)
+    save_checkpoint(network, save_model_path, "model", 0)
+    print("init finish")
+    print(f"Batchsize={opt.batchsize}, number of epoch={opt.n_epoch}")
+
+    rng = np.random.default_rng(opt.seed)
+
+    def flush_metrics(p):
+        # reference log format: the n2n path reports its rec term as Loss1;
+        # the epoch mean + A_log.csv record it (train.py:365-377,434). Under
+        # lag-1, Time spans step i's prep start → its metric fetch, which
+        # lands after step i+1 is queued: the pipelined per-step interval.
+        ep, i, st0, m = p
+        loss = float(m["loss"])
+        l1_part = float(m["loss_rec"])
+        losses.append(l1_part)
+        print(
+            f"{ep:04d} {i:05d} Loss1={l1_part:.6f}, "
+            f"Loss_Full={loss:.6f}, Time={time.time() - st0:.4f}"
+        )
+
+    for epoch in range(opt.start_epoch, opt.n_epoch + 1):
+        epoch_st = time.time()
+        lr = multistep_lr(opt.lr, milestones, opt.gamma, epoch)
+        set_learning_rate(state, lr)
+        print(f"LearningRate of Epoch {epoch} = {lr}")
+
+        losses = []
+        pending = None
+        for it, (clean, noisy) in enumerate(
+            dataset.batches(opt.batchsize, rng, shuffle=True, drop_last=True)
+        ):
+            if opt.max_steps_per_epoch and it >= opt.max_steps_per_epoch:
+                break
+            st = time.time()
+            metrics = step_fn(clean, noisy, opseeds.next(), epoch)
+            # lag-1 logging: fetch the previous step's metrics only after
+            # queueing this one
+            if pending is not None:
+                flush_metrics(pending)
+            pending = (epoch, it, st, metrics)
+        if pending is not None:
+            flush_metrics(pending)
+
+        train_time = time.time() - epoch_st
+        mean_loss = float(np.mean(losses)) if losses else float("nan")
+        print(f"Training Time/Epoch:{train_time} \n Mean loss:{mean_loss}")
+
+        if epoch % opt.n_snapshot == 0 or epoch == opt.n_epoch:
+            eval_st = time.time()
+            save_checkpoint(network, save_model_path, "model", epoch)
+            validation_path = os.path.join(save_model_path, "validation")
+            os.makedirs(validation_path, exist_ok=True)
+
+            for i in range(len(valid[0])):
+                clean_np, noisy_np = valid[0][i], valid[1][i]
+                clean_name = os.path.basename(valid[2][i]).split(".")[0]
+                noise_name = os.path.basename(valid[3][i]).split(".")[0]
+                x = np.asarray(noisy_np, np.float32)
+                if x.ndim == 2:
+                    x = x[..., None]
+                with torch.no_grad():
+                    pred = network(
+                        torch.from_numpy(x).to(device).permute(2, 0, 1)[None] / 255.0)
+                pred = pred[0].permute(1, 2, 0).cpu().numpy()
+                pred = np.clip(pred, 0, 1).squeeze()
+                pred255 = np.clip(pred * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+                if i == 0 and epoch == opt.n_snapshot:
+                    save_png(np.asarray(clean_np).astype(np.uint8),
+                             os.path.join(validation_path,
+                                          f"{clean_name}_{i:03d}-{epoch:03d}_clean.png"))
+                    save_png(np.asarray(noisy_np).astype(np.uint8),
+                             os.path.join(validation_path,
+                                          f"{noise_name}_{i:03d}-{epoch:03d}_noisy.png"))
+                if i == 0:
+                    save_png(pred255,
+                             os.path.join(validation_path,
+                                          f"{noise_name}_{i:03d}-{epoch:03d}_denoised.png"))
+
+            with open(os.path.join(validation_path, "A_log.csv"), "a") as f:
+                f.write(f"epoch{epoch}, loss_{mean_loss}, train_time_{train_time}\n")
+            print(f"Evaluation Time/Epoch:{time.time() - eval_st}")
+
+    return state
+
+
+if __name__ == "__main__":
+    main()

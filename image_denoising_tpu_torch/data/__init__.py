@@ -1,3 +1,3 @@
-from .pairs import list_pairs, load_image_f32, validation_denoise
+from .pairs import DenoiseDataset, list_pairs, load_image_f32, validation_denoise
 
-__all__ = ["list_pairs", "load_image_f32", "validation_denoise"]
+__all__ = ["DenoiseDataset", "list_pairs", "load_image_f32", "validation_denoise"]

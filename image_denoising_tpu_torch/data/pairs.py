@@ -2,17 +2,18 @@
 
 Directory contract (reference ``train.py:208-228``): ``data_dir/clean/*`` and
 ``data_dir/noise/*``, sorted filenames pairing 1:1, decoded on the host into
-float32 [0,255].
+float32 [0,255]. ``DenoiseDataset`` keeps them resident and yields
+shuffled NHWC batches; /255 runs on the device inside the train step.
 """
 from __future__ import annotations
 
 import glob
 import os
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
 
-__all__ = ["list_pairs", "load_image_f32", "validation_denoise"]
+__all__ = ["list_pairs", "load_image_f32", "validation_denoise", "DenoiseDataset"]
 
 
 def list_pairs(data_dir: str) -> Tuple[List[str], List[str]]:
@@ -46,3 +47,50 @@ def validation_denoise(data_dir: str):
     images_clean = [load_image_f32(p) for p in clean_paths]
     images_noise = [load_image_f32(p) for p in noise_paths]
     return images_clean, images_noise, clean_paths, noise_paths
+
+
+def _ensure_nhwc(img: np.ndarray) -> np.ndarray:
+    return img[..., None] if img.ndim == 2 else img
+
+
+class DenoiseDataset:
+    """Full-image pair dataset with shuffled batching.
+
+    Yields (clean, noisy) NHWC float32 in [0,255], decoded once and kept
+    resident. The train CLI's copy of the JAX ``DenoiseDataset``; its
+    ``convert_l`` (train_opt.py) comes with the HPO trainer.
+    """
+
+    def __init__(self, data_dir: str):
+        self.clean_paths, self.noise_paths = list_pairs(data_dir)
+        if not self.clean_paths:
+            raise RuntimeError(f"no images under {data_dir}/clean")
+        self._pairs = [
+            (_ensure_nhwc(load_image_f32(c)), _ensure_nhwc(load_image_f32(n)))
+            for c, n in zip(self.clean_paths, self.noise_paths)
+        ]
+        print(f"fetch {len(self.clean_paths)} samples for training")
+
+    def __len__(self) -> int:
+        return len(self.clean_paths)
+
+    def get(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        return self._pairs[idx]
+
+    def batches(
+        self,
+        batch_size: int,
+        rng: np.random.Generator,
+        shuffle: bool = True,
+        drop_last: bool = True,
+    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        order = np.arange(len(self))
+        if shuffle:
+            rng.shuffle(order)
+        n_full = len(order) // batch_size
+        end = n_full * batch_size if drop_last else len(order)
+        for s in range(0, end, batch_size):
+            idxs = order[s : s + batch_size]
+            cleans = np.stack([self.get(i)[0] for i in idxs])
+            noisys = np.stack([self.get(i)[1] for i in idxs])
+            yield cleans, noisys

@@ -1,3 +1,19 @@
 from .fused_block import FusedChainWeights, fused_rdb_chain, fused_rdb_chain_reference
+from .neighbor import (generate_mask_pair, generate_subimages, subsample_pair,
+                       subsample_pair_fused)
+from .noise import AugmentNoise
+from .rng import OperationSeed, philox4x32_10, split_seed
 
-__all__ = ["FusedChainWeights", "fused_rdb_chain", "fused_rdb_chain_reference"]
+__all__ = [
+    "AugmentNoise",
+    "FusedChainWeights",
+    "OperationSeed",
+    "fused_rdb_chain",
+    "fused_rdb_chain_reference",
+    "generate_mask_pair",
+    "generate_subimages",
+    "philox4x32_10",
+    "split_seed",
+    "subsample_pair",
+    "subsample_pair_fused",
+]

@@ -22,7 +22,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "build", "load_fused_block", "load_retrieval"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "build", "load_fused_block", "load_neighbor",
+           "load_retrieval"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -104,5 +105,17 @@ def load_retrieval() -> ctypes.CDLL:
     fn = lib.idt_top1_l2
     i, p = ctypes.c_int, ctypes.c_void_p
     fn.argtypes = [i, p, p, p, i, i, i, p, p, p]
+    fn.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_neighbor() -> ctypes.CDLL:
+    """The N2N sub-sampler library (csrc/neighbor.cu), built on first call."""
+    path, _ = build("neighbor.cu")
+    lib = ctypes.CDLL(str(path))
+    fn = lib.idt_subsample_pair
+    i, p = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [i, p, i, i, i, i, ctypes.c_uint64, p, p, p, p, p]
     fn.restype = i
     return lib

@@ -34,16 +34,19 @@ def test_port_modules_import_no_jax():
     for mod in ("cli.evaluation_704", "cli.evaluation_704_iqsl_memory",
                 "memory.bank", "memory.retrieval", "adapters.wrappers",
                 "adapters.memory_adapters", "adapters.output_adapter",
-                "eval.tiled"):
+                "eval.tiled", "cli.train", "ops.neighbor", "ops.rng",
+                "ops.noise", "losses.n2n", "losses.pixel", "train.schedule",
+                "train.state", "train.steps"):
         assert f"image_denoising_tpu_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
 
 def _entry_points():
-    from image_denoising_tpu_torch.cli import evaluation_704, evaluation_704_iqsl_memory
+    from image_denoising_tpu_torch.cli import evaluation_704, evaluation_704_iqsl_memory, train
     from image_denoising_tpu_torch.eval import tiled
     from image_denoising_tpu_torch.memory import build_memory_bank
     from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
+    from image_denoising_tpu_torch.ops.neighbor import generate_mask_pair
 
     frame = np.zeros((32, 32), np.uint8)
     return {
@@ -65,6 +68,9 @@ def _entry_points():
         "evaluation_704_iqsl_memory": lambda: evaluation_704_iqsl_memory.main(
             ["--data_dir", "missing", "--base_ckpt", "b.pth",
              "--adapter_ckpt", "a.pth"]),
+        "train": lambda: train.main(["--loss", "n2n", "--data_dir", "missing"]),
+        # the draw of subsample_pair_fused's plain version
+        "generate_mask_pair": lambda: generate_mask_pair(0, (1, 1, 4, 4)),
     }
 
 
@@ -72,10 +78,26 @@ def _entry_points():
                                   "denoise_tiled_pyramid", "evaluation_704",
                                   "hann_runner", "hann_runner_frames",
                                   "denoise_tiled_hann", "build_memory_bank",
-                                  "evaluation_704_iqsl_memory"])
+                                  "evaluation_704_iqsl_memory", "train",
+                                  "generate_mask_pair"])
 def test_entry_points_default_to_cuda(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+def test_subsample_pair_fused_runs_the_kernel_or_raises():
+    """The N2N sub-sampler's wrapper takes its plain version only for a CPU
+    tensor: any other tensor goes to the kernel, which takes CUDA tensors
+    only, and nothing falls back."""
+    from image_denoising_tpu_torch.ops import neighbor
+
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        neighbor.subsample_pair_fused(0, torch.zeros((1, 1, 4, 4), device="meta"))
+    img = torch.zeros((1, 1, 4, 4))
+    before = neighbor.subsample_pair_fused.launches
+    assert torch.equal(neighbor.subsample_pair_fused(0, img)[2][0],
+                       neighbor.subsample_pair(0, img)[2][0])
+    assert neighbor.subsample_pair_fused.launches == before

@@ -179,3 +179,94 @@ def test_e6_cli_on_card_matches_cpu(cuda, tmp_path):
     assert abs(gpu["psnr"] - cpu["psnr"]) < 0.01
     for k in ("iou_dark", "iou_mid", "iou_bright"):
         assert abs(gpu[k] - cpu[k]) < 1e-3, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_subsample_pair_kernel_matches_plain_version(cuda, c, dtype):
+    """Bit-equal maps and sub-images; 26 cells per row (no multiple of a
+    warp) and 3 images."""
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair, subsample_pair_fused
+
+    img = torch.rand((3, c, 38, 52), generator=torch.Generator().manual_seed(c)).to(cuda, dtype)
+    before = subsample_pair_fused.launches
+    got = subsample_pair_fused(2 ** 40 + 3, img)
+    torch.cuda.synchronize()
+    assert subsample_pair_fused.launches == before + 1
+    want = subsample_pair(2 ** 40 + 3, img)
+    for g, w in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        assert g.dtype == w.dtype and g.device.type == "cuda"
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="even"):
+        subsample_pair_fused(0, img[..., :51])
+
+
+def _png_pairs(root, count, size, seed):
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for sub in ("clean", "noise"):
+        (root / sub).mkdir()
+    for i in range(count):
+        clean = rng.integers(0, 256, (size, size)).astype(np.uint8)
+        noisy = np.clip(clean + rng.normal(0, 25, clean.shape), 0, 255).astype(np.uint8)
+        Image.fromarray(clean).save(root / "clean" / f"f{i}.png")
+        Image.fromarray(noisy).save(root / "noise" / f"f{i}.png")
+
+
+@pytest.mark.cuda
+def test_n2n_step_on_card_matches_cpu(cuda):
+    """Two N2N steps at n_feature 8 on 64² frames, without synthetic noise
+    (the card's and the CPU's generators differ; the Philox maps do not),
+    from one init: the card (kernel, cuDNN) against the CPU (plain version).
+    Losses within rtol 1e-4: the sums run in another order, and Adam carries
+    the first step's rounding into the second."""
+    import copy
+
+    import numpy as np
+
+    from image_denoising_tpu_torch.models import ImprovedUNet
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair_fused
+    from image_denoising_tpu_torch.train import create_train_state, make_n2n_train_step
+
+    torch.manual_seed(6)
+    cpu_model = ImprovedUNet(1, 1, 8)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    rng = np.random.default_rng(6)
+    batches = [np.clip(rng.normal(128, 60, (2, 64, 64, 1)), 0, 255).round().astype(np.float32)
+               for _ in range(2)]
+    losses = {}
+    for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        step = make_n2n_train_step(model, create_train_state(model), noise_fn=None)
+        losses[name] = [float(step(None, b, 40 + i, 1)["loss"]) for i, b in enumerate(batches)]
+    assert subsample_pair_fused.launches >= 2
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_cli_on_card(cuda, tmp_path):
+    """The port's train CLI on the card for 2 steps at n_feature 8: one
+    kernel launch per step, finite losses, checkpoints and A_log.csv."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from image_denoising_tpu_torch.cli import train
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair_fused
+
+    _png_pairs(tmp_path, 4, 64, 9)
+    before = subsample_pair_fused.launches
+    state = train.main(["--data_dir", str(tmp_path), "--save_model_path", str(tmp_path / "out"),
+                        "--loss", "n2n", "--arch", "UNetImproved", "--n_feature", "8",
+                        "--n_epoch", "1", "--batchsize", "2"])
+    assert subsample_pair_fused.launches == before + 2 and state.step == 2
+    assert next(state.model.parameters()).device.type == "cuda"
+    (run_dir,) = glob.glob(str(tmp_path / "out" / "*" / "*"))
+    assert {"epoch_model_000.pth", "epoch_model_001.pth"} <= set(os.listdir(run_dir))
+    with open(os.path.join(run_dir, "validation", "A_log.csv")) as f:
+        row = f.read().strip()
+    assert row.startswith("epoch1, loss_")
+    assert np.isfinite(float(row.split("loss_")[1].split(",")[0]))
