@@ -7,14 +7,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device  — the card's name and power limit.
   2. build   — nvcc builds csrc/fused_block.cu, csrc/retrieval.cu and
                csrc/neighbor.cu for sm_90a, all at once (seconds printed).
-  3. kernels — each kernel against its plain PyTorch version (TF32 off):
+  3. kernels — each kernel against its plain PyTorch version (TF32 off),
+               with its route (wgmma bf16, wgmma s8, 3xTF32 for float32,
+               CUDA cores) and the earlier CUDA-core kernel's time (PERF.md):
                fused_rdb_chain at the 9 chain shapes of E2 (B=8 tiles of
                352²) and of E6 (B=8 tiles of 128², down to the 8×8
-               bottleneck), in float32 and bfloat16; top1_l2_retrieval on
+               bottleneck), in float32 and bfloat16, with the blocks of
+               each launch; top1_l2_retrieval on
                seeded device banks of N=105,125 rows of D=16,384 in float32,
                bfloat16 and int8, with B=400 and B=8 queries, a duplicated
-               row (the first must win) and a bank padded to 512 rows (no
-               padded row may win); subsample_pair at N=4 352² frames, C=1
+               row (the first must win), near ties that one TF32 product
+               gets wrong and a bank padded to 512 rows (no padded row may
+               win); subsample_pair at N=4 352² frames, C=1
                float32 (the training shape) and C=3 float32 and bfloat16:
                selectors and sub-images bit-equal, only the 8 listed pairs,
                each within 0.005 of 1/8, same seed same maps, another seed
@@ -78,10 +82,26 @@ BF16_MAX_LEVELS, BF16_MEAN_LEVELS = 8, 1.0
 # against the yardstick (PERF.md): limits 1.5 times those readings
 E6_BF16_MAX_LEVELS, E6_BF16_MEAN_LEVELS = 12, 1.5
 GROWTH, N_GROWTH = 32, 4
+# the chain kernel's device functions (csrc/fused_block.cu), as the profiler names them
+CHAIN_KERNELS = ("chain_conv_kernel<", "chain_finish_kernel<")
 HBM_BYTES_PER_S = 3.35e12
 # H100 SXM dense peaks (NVIDIA data sheet): f32 on the CUDA cores, bf16 and
-# int8 on the tensor cores — the rate for the type of the kernel's inputs
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+# int8 on the tensor cores, and float32 as 3xTF32 (three TF32 products on the
+# tensor cores at 495 TFLOP/s) — the rate of the route a kernel runs
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
+            "tf32x3": 495e12 / 3}
+# the tensor-core route of each kernel and input type: (name, PEAK_OPS key)
+ROUTES = {"float32": ("3xTF32", "tf32x3"), "bfloat16": ("wgmma bf16", "bfloat16"),
+          "int8": ("wgmma s8", "int8")}
+# the CUDA-core kernels these replaced, as PERF.md records them (NVIDIA H100
+# 80GB HBM3, 700 W): per 8-tile chunk of the 9 chain calls at E2 and E6, and
+# per retrieval at B = 400 and B = 8. Not measured by this script, so they
+# appear in the [kernels] log lines only, never in the kernels result line
+EARLIER_CHAIN_MS = {("E2", "float32"): 60.39, ("E2", "bfloat16"): 59.06,
+                    ("E6", "float32"): 14.15, ("E6", "bfloat16"): 13.81}
+EARLIER_TOP1_MS = {("float32", 400): 42.09, ("bfloat16", 400): 41.17,
+                   ("int8", 400): 13.51, ("float32", 8): 7.06,
+                   ("bfloat16", 8): 7.03, ("int8", 8): 2.25}
 # (name, H, Cin, nf, lead) of the 9 level blocks at n_feature 48
 CHAIN_LEVELS = [
     ("down0", 1, 2, 48, True), ("down1", 2, 48, 96, True),
@@ -122,9 +142,12 @@ TRAIN_LOSS_RTOL = 1e-3
 # high multiplies, 4 xors and 2 key adds, plus the table look-ups
 PHILOX_OPS_PER_CELL = 10 * 10 + 8
 
-# retrieval check: a duplicated bank row (dup_hi := dup_lo) and queries
-# that sit near no row, where float32 rankings come closest to a tie
+# retrieval check: a duplicated bank row (dup_hi := dup_lo), queries that
+# sit near no row, where float32 rankings come closest to a tie, and queries
+# whose two nearest rows (near_tie_rows, from row TIE_ROW on) are twice the
+# float32 tolerance apart
 DUP_LO, DUP_HI, N_FAR = 1234, 98765, 6
+N_TIE, TIE_ROW, TIE_S = 6, 50000, 0.6
 
 
 def log(msg: str) -> None:
@@ -150,10 +173,10 @@ def time_ms(fn, warmup: int = 1, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(ops: float, nbytes: float, dname: str):
-    """(bound_ms, bound_by): the larger of operations over the peak for the
-    inputs' type and bytes over the memory rate."""
-    t_ops = ops / PEAK_OPS[dname] * 1e3
+def bound(ops: float, nbytes: float, peak: str):
+    """(bound_ms, bound_by): the larger of operations over the peak of the
+    kernel's route (a ``PEAK_OPS`` key) and bytes over the memory rate."""
+    t_ops = ops / PEAK_OPS[peak] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -198,12 +221,13 @@ def phase_chain(seed: int, shapes, label: str, reps: int = 5):
     import torch
 
     from image_denoising_tpu_torch.ops.fused_block import (
-        fused_rdb_chain, fused_rdb_chain_reference)
+        chain_conv_plans, fused_rdb_chain, fused_rdb_chain_reference)
 
     rng = np.random.default_rng(seed)
     results = {}
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
+        route, peak = ROUTES[dname]
         rows = []
         for name, h, cin, nf, lead in shapes:
             x = torch.from_numpy(
@@ -227,8 +251,9 @@ def phase_chain(seed: int, shapes, label: str, reps: int = 5):
             ms = time_ms(lambda: fused_rdb_chain(x, wts), reps=reps)
             plain_ms = time_ms(lambda: fused_rdb_chain_reference(x, wts), reps=reps)
             flops, nbytes = chain_work(h, cin, nf, lead, x.element_size())
-            bound_ms, bound_by = bound(flops, nbytes, dname)
-            row = dict(name=name, h=h, cin=cin, nf=nf, lead=lead,
+            bound_ms, bound_by = bound(flops, nbytes, peak)
+            blocks = {conv: p["blocks"] for conv, p in chain_conv_plans(B, h, h, cin, wts)}
+            row = dict(name=name, h=h, cin=cin, nf=nf, lead=lead, blocks=blocks,
                        max_abs_err=err, tol=tol, max_abs_ref=scale,
                        ms=ms, plain_ms=plain_ms, gflop=flops / 1e9,
                        mbytes=nbytes / 1e6, bound_ms=bound_ms, bound_by=bound_by,
@@ -237,11 +262,17 @@ def phase_chain(seed: int, shapes, label: str, reps: int = 5):
             log(f"[kernels] chain {label} {dname:8s} {name:6s} B={B} {h}x{h} "
                 f"{cin}->{nf}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
                 f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.3f} ms "
-                f"({bound_by}) {row['tflops']:.2f} TFLOP/s")
+                f"({bound_by}) {row['tflops']:.2f} TFLOP/s; {route}; blocks per "
+                f"launch {list(blocks.values())}")
             if not err <= tol:
                 raise AssertionError(f"{label} {dname} {name}: max_abs_err {err} > {tol}")
             del x, wts
         results[dname] = rows
+        ms = sum(r["ms"] for r in rows)
+        log(f"[kernels] chain {label} {dname:8s} the 9 calls of one {B}-tile chunk: "
+            f"{ms:.3f} ms on the {route} route (the CUDA-core kernel: "
+            f"{EARLIER_CHAIN_MS[label, dname]} ms, PERF.md); bound "
+            f"{sum(r['bound_ms'] for r in rows):.3f} ms")
     return results
 
 
@@ -275,6 +306,28 @@ def _f64_top1(q, bank, rows: int = 8192):
     return best[:, 0], best[:, 1], arg, dist
 
 
+def f32_pick_tol(d: int, qn: float, bn: float) -> float:
+    """The float32 tolerance on the float64 distance excess of a pick, for
+    queries and rows of norms at most ``qn`` and ``bn``: float32 sums of D
+    products in sequence err by ≲ √D·2⁻²⁴·Σ|q b| per q·b, doubled in the
+    distance; Σ|q b| ≤ ‖q‖‖b‖; a 16× margin."""
+    return 16 * d ** 0.5 * 2.0 ** -24 * 2 * qn * bn
+
+
+def near_tie_rows(q, gap: float, s: float = TIE_S):
+    """Two bank rows for each query of ``q`` (float32 ``[k, D]``, entries
+    ≥ 0): A = (1 − s)·q and B = (1 + s′)·q, B nearer than A by ``gap`` in
+    ‖b‖² − 2q·b. q·B exceeds q·A by about 2s‖q‖², and a product that reads
+    float32 as TF32 (the tensor cores drop 13 mantissa bits, each product
+    shrinks by ~2⁻¹⁰) overstates B's distance more than A's by some
+    2⁻⁹·s‖q‖²: far more than ``gap``, so it picks A."""
+    import torch
+
+    qd = q.double()
+    s2 = torch.sqrt(s * s - gap / (qd * qd).sum(1, keepdim=True))
+    return ((1 - s) * qd).float(), ((1 + s2) * qd).float()
+
+
 def phase_retrieval(seed: int):
     """top1_l2_retrieval against its plain version at the E6 bank shape."""
     import torch
@@ -290,9 +343,17 @@ def phase_retrieval(seed: int):
     q32 = bank32[picks] + 0.1 * torch.randn((E6_TILES, d), generator=g, device="cuda")
     q32[0] = bank32[DUP_LO]                      # an exact copy of both rows
     q32[1 : 1 + N_FAR] = torch.rand((N_FAR, d), generator=g, device="cuda")
+    tie = slice(1 + N_FAR, 1 + N_FAR + N_TIE)
+    q32[tie] = torch.rand((N_TIE, d), generator=g, device="cuda")
+    # the rows of norm (1 + s′)‖q‖ may set the tolerance's largest row norm
+    bn = max(float(bank32.norm(dim=1).max()), (1 + TIE_S) * float(q32[tie].norm(dim=1).max()))
+    gap = 2 * f32_pick_tol(d, float(q32.norm(dim=1).max()), bn)
+    a_rows, b_rows = near_tie_rows(q32[tie], gap)
+    bank32[TIE_ROW : TIE_ROW + 2 * N_TIE : 2] = a_rows
+    bank32[TIE_ROW + 1 : TIE_ROW + 2 * N_TIE : 2] = b_rows
 
     regimes = {}
-    bank8 = (torch.round(bank32 * 255.0) - 128.0).to(torch.int8)
+    bank8 = torch.clamp(torch.round(bank32 * 255.0) - 128.0, -128, 127).to(torch.int8)
     regimes["int8"] = (bank8, (bank8.int() ** 2).sum(1, dtype=torch.int32),
                        torch.clamp(torch.round(q32 * 255.0) - 128.0, -128, 127)
                        .to(torch.int8))
@@ -313,6 +374,7 @@ def phase_retrieval(seed: int):
         mism_plain = int((idx != ref).sum())
         if dname == "int8":
             tol, excess, mism_gap = 0.0, 0.0, mism_plain
+            ties = int((idx[tie] == ref[tie]).sum())
             if mism_plain:
                 raise AssertionError(f"int8: {mism_plain} indices differ from the "
                                      "exact plain version")
@@ -322,13 +384,11 @@ def phase_retrieval(seed: int):
             best, second, arg, dist = _f64_top1(qk, bank)
             excess_all = dist(idx.long()) - best
             excess = float(excess_all.max())
-            # f32 sums of D products in sequence: error ≲ √D·2⁻²⁴·Σ|q b| per
-            # q·b, doubled in the distance; Σ|q b| ≤ ‖q‖‖b‖; 16× margin
-            qn = float(qk.float().norm(dim=1).max())
-            bn = float(bank.float().norm(dim=1).max())
-            tol = 16 * d ** 0.5 * 2.0 ** -24 * 2 * qn * bn
+            tol = f32_pick_tol(d, float(qk.float().norm(dim=1).max()),
+                               float(bank.float().norm(dim=1).max()))
             decisive = (second - best) > tol
             mism_gap = int(((idx.long() != arg) & decisive).sum())
+            ties = int((idx[tie].long() == arg[tie]).sum())
             if not excess <= tol or mism_gap:
                 raise AssertionError(
                     f"{dname}: largest f64 excess {excess:.4g} (tol {tol:.4g}); "
@@ -340,6 +400,7 @@ def phase_retrieval(seed: int):
             raise AssertionError(f"{dname}: the padded bank changed the picks")
         del bp, sp, idx_p
 
+        route, peak = ROUTES[dname]
         rows = []
         for b in (E6_TILES, 8):
             qb = q[:b].contiguous()
@@ -348,20 +409,22 @@ def phase_retrieval(seed: int):
             library_ms = time_ms(_library_top1(qb, bank, sqn), reps=3)
             item = bank.element_size()
             nbytes = (b * d + n * d) * item + n * 4 + b * 4
-            bound_ms, bound_by = bound(2.0 * b * n * d, nbytes, dname)
+            bound_ms, bound_by = bound(2.0 * b * n * d, nbytes, peak)
             rows.append(dict(batch=b, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              tops=2.0 * b * n * d / ms / 1e9))
             log(f"[kernels] top1 {dname:8s} B={b:3d} N={n} D={d}: kernel {ms:.3f} ms "
                 f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms bound "
-                f"{bound_ms:.3f} ms ({bound_by}) {rows[-1]['tops']:.2f} TOP/s")
+                f"{bound_ms:.3f} ms ({bound_by}) {rows[-1]['tops']:.2f} TOP/s; {route} "
+                f"(the CUDA-core kernel: {EARLIER_TOP1_MS[dname, b]} ms, PERF.md)")
         results[dname] = dict(max_f64_excess=excess, tol=tol,
                               mismatched_vs_plain=mism_plain,
                               mismatched_where_gap_exceeds_tol=mism_gap,
-                              rows=rows)
+                              near_ties_right=ties, rows=rows)
         log(f"[kernels] top1 {dname:8s}: duplicate row {DUP_LO} wins; padded bank "
             f"agrees; vs plain {mism_plain} of {E6_TILES} indices differ; largest "
-            f"f64 excess {excess:.4g} (tol {tol:.4g})")
+            f"f64 excess {excess:.4g} (tol {tol:.4g}); {ties} of {N_TIE} near ties "
+            "pick the best row")
         del bank, sqn, q, regimes[dname]
         torch.cuda.empty_cache()
     return results
@@ -479,7 +542,8 @@ def phase_main(seed: int):
         out[dname]["profile"] = prof = profile_burst(run, bursts[0])
         log(f"[main] {dname:8s} one burst under torch.profiler: wall "
             f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms "
-            f"(share {prof['busy_share']}); top kernels {prof['top_kernels_ms'][:3]}")
+            f"(share {prof['busy_share']}); {chain_share(prof, sec / BURSTS)}; top "
+            f"kernels {prof['top_kernels_ms'][:3]}")
     return out
 
 
@@ -654,7 +718,8 @@ def phase_memory(seed: int):
         out[dname]["profile"] = prof = profile_burst(run, bursts[0])
         log(f"[memory] {dname:8s} one burst under torch.profiler: wall "
             f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms "
-            f"(share {prof['busy_share']}); top kernels {prof['top_kernels_ms'][:3]}")
+            f"(share {prof['busy_share']}); {chain_share(prof, sec / BURSTS)}; top "
+            f"kernels {prof['top_kernels_ms'][:3]}")
         y_prof = profile_burst(runner(y_call, plain_pre_tile), bursts[0])
         out[dname]["module_profile"] = y_prof
         log(f"[memory] {dname:8s} yardstick burst under torch.profiler: wall "
@@ -1064,9 +1129,20 @@ def profile_window(fn, top: int = 5):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    chain_us = sum(t for n, t in by_name.items() if any(k in n for k in CHAIN_KERNELS))
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                 busy_share=busy_us / 1e3 / wall_ms if spans else None,
+                chain_ms=chain_us / 1e3,
                 top_kernels_ms=[(n[:80], t / 1e3) for n, t in names])
+
+
+def chain_share(prof, burst_s: float) -> str:
+    """The chain kernel's device time in a profiled burst, as a share of
+    that burst's wall and of a timed burst's (``burst_s``, profiler off)."""
+    prof["chain_share_of_timed_burst"] = prof["chain_ms"] / (burst_s * 1e3)
+    return (f"chain kernel {prof['chain_ms']:.1f} ms (share "
+            f"{prof['chain_ms'] / prof['wall_ms']:.3f} of this wall, "
+            f"{prof['chain_share_of_timed_burst']:.3f} of a timed burst's)")
 
 
 def main(argv=None) -> int:
@@ -1125,8 +1201,8 @@ def main(argv=None) -> int:
     for dname, rows in chain_e2.items():
         e6_rows = chain_e6[dname]
         summary.append(dict(
-            name="fused_rdb_chain", dtype=dname, route="cuda", source=CHAIN_SOURCE,
-            replaces=CHAIN_REPLACES,
+            name="fused_rdb_chain", dtype=dname, route="cuda", design=ROUTES[dname][0],
+            source=CHAIN_SOURCE, replaces=CHAIN_REPLACES,
             launches=main_path[dname]["launches"]
             + memory[dname]["launches"]["fused_rdb_chain"],
             launches_by_path={"E2": main_path[dname]["launches"],
@@ -1146,8 +1222,8 @@ def main(argv=None) -> int:
                     if dname == "int8" else
                     memory[f"{dname}_bank"]["launches"]["top1_l2_retrieval"])
         summary.append(dict(
-            name="top1_l2_retrieval", dtype=dname, route="cuda", source=TOP1_SOURCE,
-            replaces=TOP1_REPLACES, launches=launches,
+            name="top1_l2_retrieval", dtype=dname, route="cuda", design=ROUTES[dname][0],
+            source=TOP1_SOURCE, replaces=TOP1_REPLACES, launches=launches,
             max_abs_err=res["max_f64_excess"],
             mismatched_indices=res["mismatched_vs_plain"],
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
@@ -1155,7 +1231,8 @@ def main(argv=None) -> int:
             b8={k: small[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}))
     sub = subsample["c1_float32"]
     summary.append(dict(
-        name="subsample_pair", dtype="float32", route="cuda", source=SUB_SOURCE,
+        name="subsample_pair", dtype="float32", route="cuda", design="CUDA cores",
+        source=SUB_SOURCE,
         replaces=SUB_REPLACES, launches=train["launches"],
         launches_by_path={"N2N train": train["launches"], "train CLI": train_cli["launches"]},
         max_abs_err=max(r["max_abs_err"] for r in subsample.values()),
@@ -1173,7 +1250,9 @@ def main(argv=None) -> int:
                        summary=summary),
                   f, indent=1)
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
-        f"of one {B}-tile E2 chunk (e6: of one E6 chunk); library_ms is null: no "
+        f"of one {B}-tile E2 chunk (e6: of one E6 chunk); design is the route "
+        "inside the kernel; "
+        "float32 bounds count three TF32 products; library_ms is null: no "
         "single PyTorch call computes the chain. top1_l2_retrieval: B=400 (b8: "
         "B=8); library_ms is torch.mm (torch._int_mm for int8) plus argmin, two "
         "calls, as no single PyTorch call computes top-1 L2; max_abs_err is the "

@@ -1,4 +1,5 @@
-// Direct-convolution kernel for the ImprovedUNet level-block chain on Hopper.
+// Implicit-GEMM convolution for the ImprovedUNet level-block chain, on
+// Hopper's tensor cores.
 //
 // Replaces: image_denoising_tpu/ops/fused_block_pallas.py::fused_rdb_chain
 // (the Pallas TPU kernel, body _chain_kernel). One level block is
@@ -7,51 +8,82 @@
 //   -> 1x1 local-feature-fusion conv + bias + residual add
 //   -> [ResBlock conv0, 3x3, no bias]
 // with SAME zero padding. The Python wrapper (ops/fused_block.py) launches
-// this kernel once per conv of the chain (6 or 7 launches per chain).
+// this kernel once per conv of the chain, every conv reading a channel
+// prefix of ONE NHWC feature buffer and writing at its own channel offset,
+// so the dense concat never materialises. Every conv accumulates in f32;
+// each stored value is rounded once to the working type, as _chain_kernel
+// does.
 //
-// Design, and why it differs from the TPU kernel: the Pallas kernel keeps a
-// whole-image slab of every activation resident in ~116 MB of VMEM. An H100
-// block has at most 227 KB of shared memory, and at the deep levels one pixel
-// of the f32 feature buffer alone is 2 KB. So this first kernel keeps the
-// TPU kernel's central idea and drops the residency:
-//   * every conv reads a channel prefix of ONE NHWC feature buffer of width
-//     nf + n_growth*growth and writes its output at its own channel offset,
-//     so the dense concat never materialises;
-//   * SAME padding is a predicated zero load at the image edge (no halo
-//     padding on the host, no mask pass);
-//   * accumulation is f32 on the CUDA cores; bias + LeakyReLU, or bias +
-//     residual, run in the epilogue; each stored value is rounded once to the
-//     working type (f32 or bf16), as _chain_kernel does.
-// A block computes an 8x16 pixel tile for 32 output channels; per 16-channel
-// stage it stages the (8+2)x(16+2) input halo and the 3x3x16x32 weights in
-// shared memory (29.3 KB, static). Each thread keeps 4 pixels x 8 channels of
-// f32 accumulators in registers.
+// Design. One conv is a GEMM: M = the 64 pixels of an 8x8 output tile, N =
+// an output-channel tile of NP (16 to 192, a multiple of 8), K = taps x
+// input channels. A block has one consumer warpgroup and one producer warp.
+//   * Input by TMA: a 4-D tensor map over the NHWC buffer (channel size =
+//     the prefix read, row stride = the buffer's width) loads the (8+2)^2
+//     halo of one 16-byte channel chunk (8 bf16 / 4 f32 channels) per copy.
+//     Its zero fill at negative and past-the-edge coordinates IS the SAME
+//     padding, and channels past the prefix (being written by this conv's
+//     other blocks) are never read. The chunk lands as a plane of 16-byte
+//     pixel rows: exactly the no-swizzle "core matrix" layout of wgmma, so
+//     the A operand of tap (dy, dx) is a descriptor that starts at pixel
+//     (dy, dx) of the halo, with one image row per 8-row group: im2col costs
+//     no instruction, and each core matrix is 128 contiguous bytes (no bank
+//     conflicts).
+//   * Weights are repacked once per FusedChainWeights (the wrapper) into the
+//     K-major layout [n_tile][chunk][tap][NP][16 bytes]; a K-stage (two
+//     chunks, all taps) is one contiguous bulk copy.
+//   * A ring of 2-4 stages on full/empty mbarriers, one stage's wgmma
+//     group left running while the next is issued; per stage and tap one
+//     wgmma m64nNPk16 (bf16) or three m64nNPk8 tf32 (f32: 3xTF32, the
+//     weights split into hi + lo by the wrapper, the activations in shared
+//     memory by the consumers), so f32 keeps its tolerance.
+//   * Epilogues, fused: bias + LeakyReLU; bias + residual with the LFF
+//     rounded once before the add; plain. One rounding per stored value.
+//   * Filling the card: where a launch has fewer than 132 blocks (the E6
+//     16^2 and 8^2 levels) the wrapper splits K across blocks; they write
+//     f32 partial sums and a second kernel adds them in a fixed order and
+//     runs the epilogue, so the result is deterministic (no float atomics).
 //
-// What bounds it: the chain is ~133 GFLOP per 352^2 tile in the main path's
-// shapes, at 450-1200 FLOP per byte of unique traffic in f32 (twice that in
-// bf16), far above the H100's ridge points (20 FLOP/B for f32 on the CUDA
-// cores, 295 for bf16 on the tensor cores), so it is bound by operations.
-// This kernel runs them as f32 FMAs on the CUDA cores (67 TFLOP/s peak), not
-// on the tensor cores (989 TFLOP/s bf16), and it re-reads the feature buffer
-// from L2/HBM once per conv. Work left for later:
-// a spatial tile with recomputed halos kept in shared memory across the whole
-// chain, wgmma implicit GEMM in bf16 (and 3xTF32 for f32), TMA loads with an
-// mbarrier pipeline.
+// What bounds it: the chain is ~133 GFLOP per 352^2 tile at the main path's
+// shapes, far above the ridge point, so operations: 989 TFLOP/s in bf16 and
+// 495/3 TFLOP/s for three TF32 products. Left for later: a chain-resident
+// tile that keeps the growth outputs in shared memory across convs,
+// persistent blocks, deeper K-stages, and a backward for training.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int TH = 8;        // output rows per block
-constexpr int TW = 16;       // output columns per block
-constexpr int BN = 32;       // output channels per block
-constexpr int BK = 16;       // input channels per shared-memory stage
-constexpr int NTHREADS = 128;
-constexpr int PX = 4;        // consecutive output columns per thread
-constexpr int CH = 8;        // consecutive output channels per thread
+using namespace idt;
+
+constexpr int kTile = 8;          // tile rows; a warpgroup's M of 64 is 8 x 8 pixels
+constexpr int kConsumers = 128;
+constexpr int kThreads = kConsumers + 32;
+constexpr int kMaxStages = 4;
+
+// A probe build (scripts/probe_chain.py) takes parts out to time the rest;
+// its results are wrong. The library the wrapper loads defines none.
+#ifndef IDT_PROBE_SKIP
+#define IDT_PROBE_SKIP 0
+#endif
+constexpr int kSkipMma = 1;     // issue no wgmma
+constexpr int kSkipAct = 2;     // load no activation halo
+constexpr int kSkipWeight = 4;  // copy no weights
+__host__ __device__ constexpr bool probe_keeps(int part) { return (IDT_PROBE_SKIP & part) == 0; }
+
+// M-tiles of 64 pixels per block, side by side: 8 x (8 MT) pixels share each
+// weight stage. As many as keep the accumulators at 96 floats a thread.
+__host__ __device__ constexpr int m_tiles(int np) { return np <= 48 ? 4 : (np <= 96 ? 2 : 1); }
+
+// One chunk's halo plane: (8 + 2) x (8 MT + 2) pixel rows of 16 bytes,
+// 128-byte aligned; a 1x1 conv uses the first 8 x 8 MT rows of it.
+__host__ __device__ constexpr int plane_bytes(int mt) { return ((kTile + 2) * (kTile * mt + 2) * 16 + 127) / 128 * 128; }
 
 enum Epilogue : int {
   kBiasLeaky = 0,     // out = T(leaky(acc + bias))
@@ -60,9 +92,7 @@ enum Epilogue : int {
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -73,165 +103,325 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// in:  [B, H, W, in_stride] NHWC, channels [0, cin) are read.
-// w:   [KS, KS, cin, cout] (HWIO).
-// out: [B, H, W, out_stride], channels [out_off, out_off + cout) written.
-// res: [B, H, W, res_stride], channels [0, cout) read (kBiasResidual only).
-// in and out may be the same buffer: the channel ranges are disjoint.
-template <typename T, int KS, int EPI>
-__global__ void __launch_bounds__(NTHREADS)
-conv_kernel(const T* in, int in_stride, int cin, const T* w, const T* bias,
-            const T* res, int res_stride, T* out, int out_stride, int out_off,
-            int cout, int H, int W, int tiles_w) {
-  constexpr int HALO = KS / 2;
-  constexpr int IW = TW + KS - 1;
-  constexpr int IPX = (TH + KS - 1) * IW;
-  __shared__ float s_in[BK][IPX];
-  __shared__ __align__(16) float s_w[KS * KS][BK][BN];
+struct ConvArgs {
+  const void* in;     // [batch, h, w, in_stride], channels [0, cin) read
+  const void* w_hi;   // packed weights [n_tiles][chunks][taps][NP][16 B]
+  const void* w_lo;   // f32: the TF32 remainder, same layout; else null
+  const void* bias;   // [cout] or null
+  const void* res;    // [P, res_stride], channels [0, cout) (kBiasResidual)
+  void* out;          // [P, out_stride], channels [out_off, out_off + cout)
+  float* ws;          // split K: [splits][P][cout] f32 partial sums
+  size_t pixels;      // P = batch * h * w
+  int in_stride, res_stride, out_stride, out_off, cout, cin, batch;
+  int taps, halo, k_stages, per_split, stages, epi;
+  int h, w, tiles_x, tiles_y;
+};
 
-  const int b = blockIdx.z;
-  const int ty0 = (blockIdx.x / tiles_w) * TH;
-  const int tx0 = (blockIdx.x % tiles_w) * TW;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int cg = tid & 3;          // channels n0 + cg*8 .. +8
-  const int pg = tid >> 2;         // 32 pixel groups of 4 columns
-  const int prow = pg >> 2;        // 0..7
-  const int pcol = (pg & 3) * PX;  // 0, 4, 8, 12
+template <typename T>
+__device__ __forceinline__ void store_out(const ConvArgs& a, size_t pix, int n,
+                                          float v) {
+  const T* bias = static_cast<const T*>(a.bias);
+  if (a.epi == kBiasLeaky) {
+    v += to_f32(bias[n]);
+    v = fmaxf(v, 0.2f * v);
+  } else if (a.epi == kBiasResidual) {
+    const float lff = to_f32(from_f32<T>(v + to_f32(bias[n])));
+    v = to_f32(static_cast<const T*>(a.res)[pix * a.res_stride + n]) + lff;
+  }
+  static_cast<T*>(a.out)[pix * a.out_stride + a.out_off + n] = from_f32<T>(v);
+}
 
-  float acc[PX][CH];
-#pragma unroll
-  for (int i = 0; i < PX; ++i)
-#pragma unroll
-    for (int j = 0; j < CH; ++j) acc[i][j] = 0.f;
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads)
+chain_conv_kernel(const __grid_constant__ CUtensorMap in_map, const ConvArgs a) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kChunk = 16 / sizeof(T);  // channels per 16-byte chunk
+  constexpr int MT = m_tiles(NP);
+  constexpr int kPlane = plane_bytes(MT);
+  constexpr int kABytes = 2 * kPlane;      // two chunks: one K-step
+  const uint32_t b_bytes = 2u * a.taps * NP * 16;
+  const uint32_t stage_bytes = kABytes + b_bytes * (kF32 ? 2 : 1);
 
-  const T* in_b = in + (size_t)b * H * W * in_stride;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const uint32_t lo_off = a.stages * stage_bytes;  // f32: the activations' lo, x2
+  const uint32_t bar_off = lo_off + (kF32 ? 2 * kABytes : 0);
+  const uint32_t full0 = base + bar_off, empty0 = full0 + 8 * a.stages;
 
-  for (int k0 = 0; k0 < cin; k0 += BK) {
-    for (int i = tid; i < IPX * BK; i += NTHREADS) {
-      const int k = i % BK, p = i / BK;
-      const int yy = ty0 - HALO + p / IW, xx = tx0 - HALO + p % IW;
-      float v = 0.f;
-      if (k0 + k < cin && yy >= 0 && yy < H && xx >= 0 && xx < W)
-        v = to_f32(in_b[((size_t)yy * W + xx) * in_stride + k0 + k]);
-      s_in[k][p] = v;
+  int t = blockIdx.x;
+  const int tx = t % a.tiles_x;
+  t /= a.tiles_x;
+  const int ty = t % a.tiles_y;
+  const int img = t / a.tiles_y;
+  const int x0 = tx * kTile * MT, y0 = ty * kTile;
+  const int n_tile = blockIdx.y, split = blockIdx.z;
+  const int s0 = split * a.per_split;
+  const int s1 = min(a.k_stages, s0 + a.per_split);
+  const int box_w = kTile * MT + 2 * a.halo;  // halo row length in pixels
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, kConsumers);
     }
-    for (int i = tid; i < KS * KS * BK * BN; i += NTHREADS) {
-      const int n = i % BN, k = (i / BN) % BK, t = i / (BN * BK);
-      float v = 0.f;
-      if (k0 + k < cin && n0 + n < cout)
-        v = to_f32(w[((size_t)t * cin + k0 + k) * cout + n0 + n]);
-      s_w[t][k][n] = v;
-    }
-    __syncthreads();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      const size_t tile_bytes = static_cast<size_t>(2 * a.k_stages) * a.taps * NP * 16;
+      const char* w_hi = static_cast<const char*>(a.w_hi) + n_tile * tile_bytes;
+      const char* w_lo =
+          kF32 ? static_cast<const char*>(a.w_lo) + n_tile * tile_bytes : nullptr;
+      const uint32_t a_bytes = 2u * (kTile + 2 * a.halo) * box_w * 16;
+      for (int s = s0; s < s1; ++s) {
+        const int j = s - s0, slot = j % a.stages;
+        mbar_wait(empty0 + 8 * slot, ((j / a.stages) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * slot, dst = base + slot * stage_bytes;
+        mbar_arrive_expect_tx(full, (probe_keeps(kSkipAct) ? a_bytes : 0) +
+                                        (probe_keeps(kSkipWeight) ? b_bytes * (kF32 ? 2 : 1) : 0));
+        if constexpr (probe_keeps(kSkipAct)) {
 #pragma unroll
-    for (int dy = 0; dy < KS; ++dy) {
-#pragma unroll 4
-      for (int k = 0; k < BK; ++k) {
-        float a[PX + KS - 1];
-        const float* row = &s_in[k][(prow + dy) * IW + pcol];
-#pragma unroll
-        for (int i = 0; i < PX + KS - 1; ++i) a[i] = row[i];
-#pragma unroll
-        for (int dx = 0; dx < KS; ++dx) {
-          const float4* wp =
-              reinterpret_cast<const float4*>(&s_w[dy * KS + dx][k][cg * CH]);
-          const float4 w0 = wp[0], w1 = wp[1];
-          const float bw[CH] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-          for (int i = 0; i < PX; ++i)
-#pragma unroll
-            for (int j = 0; j < CH; ++j)
-              acc[i][j] = fmaf(a[i + dx], bw[j], acc[i][j]);
+          for (int c = 0; c < 2; ++c) {
+            // past the last chunk (an odd count) load chunk 2s again: its
+            // weights are zero, and finite data times zero adds nothing
+            const int cc = (2 * s + c) * kChunk < a.cin ? 2 * s + c : 2 * s;
+            tma_load_4d(dst + c * kPlane, &in_map, full, cc * kChunk, x0 - a.halo,
+                        y0 - a.halo, img);
+          }
+        }
+        if constexpr (probe_keeps(kSkipWeight)) {
+          const size_t off = static_cast<size_t>(2 * s) * a.taps * NP * 16;
+          bulk_load(dst + kABytes, w_hi + off, b_bytes, full);
+          if (kF32) bulk_load(dst + kABytes + b_bytes, w_lo + off, b_bytes, full);
         }
       }
     }
-    __syncthreads();
-  }
+  } else {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    float acc[MT][NP / 2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < NP / 2; ++i) acc[m][i] = 0.f;
 
-  const int y = ty0 + prow;
-  if (y >= H) return;
-#pragma unroll
-  for (int i = 0; i < PX; ++i) {
-    const int x = tx0 + pcol + i;
-    if (x >= W) continue;
-    const size_t pix = ((size_t)b * H + y) * W + x;
-#pragma unroll
-    for (int j = 0; j < CH; ++j) {
-      const int n = n0 + cg * CH + j;
-      if (n >= cout) continue;
-      float v = acc[i][j];
-      if (EPI == kBiasLeaky) {
-        v += to_f32(bias[n]);
-        v = fmaxf(v, 0.2f * v);
-      } else if (EPI == kBiasResidual) {
-        const float lff = to_f32(from_f32<T>(v + to_f32(bias[n])));
-        v = to_f32(res[pix * res_stride + n]) + lff;
+    for (int s = s0; s < s1; ++s) {
+      const int j = s - s0, slot = j % a.stages;
+      mbar_wait(full0 + 8 * slot, (j / a.stages) & 1);
+      const uint32_t a_hi = base + slot * stage_bytes, b_hi = a_hi + kABytes;
+      // the lo buffers alternate: stage j - 2's products, the last to read
+      // this one, finished at the wait of stage j - 1
+      const uint32_t lo = lo_off + (j & 1) * kABytes;
+      const uint32_t a_lo = base + lo, b_lo = b_hi + b_bytes;
+      if constexpr (kF32) {
+        // the activations' TF32 split; the weights come split
+        float4* p = reinterpret_cast<float4*>(smem + slot * stage_bytes);
+        float4* l = reinterpret_cast<float4*>(smem + lo);
+        for (int i = threadIdx.x; i < kABytes / 16; i += kConsumers) {
+          float4 v = p[i], hv, lv;
+          split_tf32(v.x, hv.x, lv.x);
+          split_tf32(v.y, hv.y, lv.y);
+          split_tf32(v.z, hv.z, lv.z);
+          split_tf32(v.w, hv.w, lv.w);
+          p[i] = hv;
+          l[i] = lv;
+        }
+        fence_proxy_async();
+        named_barrier(1, kConsumers);
       }
-      out[pix * out_stride + out_off + n] = from_f32<T>(v);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+      wgmma_fence();
+      const uint32_t lbo_b = a.taps * NP * 16;
+      for (int tap = 0; tap < a.taps; ++tap) {
+        const int dy = a.halo ? tap / 3 : 0, dx = a.halo ? tap % 3 : 0;
+        const uint32_t b_off = tap * NP * 16;
+        const uint64_t db = make_desc(b_hi + b_off, lbo_b, 128, 0);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          // tap (dy, dx) of M-tile m: the window that starts at halo pixel
+          // (dy, dx + 8m), one halo row per 8 rows of M
+          const uint32_t a_off = (dy * box_w + dx + kTile * m) * 16;
+          const uint64_t da = make_desc(a_hi + a_off, kPlane, box_w * 16, 0);
+          if constexpr (!probe_keeps(kSkipMma)) {
+            continue;
+          } else if constexpr (kF32) {
+            wgmma_ss<NP, kTF32>(acc[m], da, db);
+            wgmma_ss<NP, kTF32>(acc[m], da, make_desc(b_lo + b_off, lbo_b, 128, 0));
+            wgmma_ss<NP, kTF32>(acc[m], make_desc(a_lo + a_off, kPlane, box_w * 16, 0),
+                                db);
+          } else {
+            wgmma_ss<NP, kBF16>(acc[m], da, db);
+          }
+        }
+      }
+      wgmma_commit();
+      // keep this stage's products running; the previous stage's are done
+      // and its slot goes back to the producer
+      wgmma_wait<1>();
+#pragma unroll
+      for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+      if (j > 0) mbar_arrive(empty0 + 8 * ((j - 1) % a.stages));
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+
+    // acc[m][4i + 2j + c]: pixel (y0 + 2*warp + j, x0 + 8m + lane/4),
+    // channel n_tile*NP + 8i + 2*(lane%4) + c
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int x = x0 + kTile * m + lane / 4;
+#pragma unroll
+      for (int jr = 0; jr < 2; ++jr) {
+        const int y = y0 + 2 * warp + jr;
+        if (y >= a.h || x >= a.w) continue;
+        const size_t pix = (static_cast<size_t>(img) * a.h + y) * a.w + x;
+#pragma unroll
+        for (int i = 0; i < NP / 8; ++i) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int n = n_tile * NP + 8 * i + 2 * (lane % 4) + c;
+            if (n >= a.cout) continue;
+            const float v = acc[m][4 * i + 2 * jr + c];
+            if (a.ws != nullptr) {
+              a.ws[(static_cast<size_t>(split) * a.pixels + pix) * a.cout + n] = v;
+            } else {
+              store_out<T>(a, pix, n, v);
+            }
+          }
+        }
+      }
     }
   }
 }
 
-template <typename T, int KS, int EPI>
-cudaError_t launch(const void* in, int in_stride, int cin, const void* w,
-                   const void* bias, const void* res, int res_stride, void* out,
-                   int out_stride, int out_off, int cout, int batch, int h,
-                   int wd, cudaStream_t stream) {
-  const int tiles_h = (h + TH - 1) / TH, tiles_w = (wd + TW - 1) / TW;
-  const dim3 grid(tiles_h * tiles_w, (cout + BN - 1) / BN, batch);
-  conv_kernel<T, KS, EPI><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const T*>(in), in_stride, cin, static_cast<const T*>(w),
-      static_cast<const T*>(bias), static_cast<const T*>(res), res_stride,
-      static_cast<T*>(out), out_stride, out_off, cout, h, wd, tiles_w);
+// Split K: add the partial sums in split order, then the epilogue.
+template <typename T>
+__global__ void chain_finish_kernel(const ConvArgs a, int splits) {
+  const size_t pixels = a.pixels;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= pixels * a.cout) return;
+  const size_t pix = i / a.cout;
+  const int n = static_cast<int>(i % a.cout);
+  float v = 0.f;
+  for (int z = 0; z < splits; ++z) v += a.ws[z * pixels * a.cout + i];
+  store_out<T>(a, pix, n, v);
+}
+
+template <typename T, int NP>
+cudaError_t launch(ConvArgs a, int splits, cudaStream_t s) {
+  constexpr int MT = m_tiles(NP);
+  constexpr int kABytes = 2 * plane_bytes(MT);
+  constexpr int esize = sizeof(T);
+  a.tiles_x = (a.w + kTile * MT - 1) / (kTile * MT);
+  a.tiles_y = (a.h + kTile - 1) / kTile;
+  if (static_cast<long long>(a.tiles_x) * a.tiles_y * a.batch > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.cin), static_cast<cuuint64_t>(a.w),
+                              static_cast<cuuint64_t>(a.h), static_cast<cuuint64_t>(a.batch)};
+  const cuuint64_t px = static_cast<cuuint64_t>(a.in_stride) * esize;
+  const cuuint64_t strides[3] = {px, px * a.w, px * a.w * a.h};
+  const cuuint32_t box[4] = {16 / esize, static_cast<cuuint32_t>(kTile * MT + 2 * a.halo),
+                             static_cast<cuuint32_t>(kTile + 2 * a.halo), 1};
+  CUtensorMap map;
+  if (!encode_tiled(&map,
+                    esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    4, a.in, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+
+  const int n_tiles = (a.cout + NP - 1) / NP;
+  const int b_bytes = 2 * a.taps * NP * 16 * (esize == 4 ? 2 : 1);
+  const int stage_bytes = kABytes + b_bytes;
+  const int lo = esize == 4 ? 2 * kABytes : 0;
+  int stages = (kMaxDynamicSmem - lo - 16 * kMaxStages) / stage_bytes;
+  stages = stages > kMaxStages ? kMaxStages : stages;
+  if (stages < 2) return cudaErrorInvalidConfiguration;
+  a.stages = stages;
+  const int smem = stages * stage_bytes + lo + 16 * stages;
+  auto kernel = chain_conv_kernel<T, NP>;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.tiles_x * a.tiles_y * a.batch, n_tiles, splits);
+  kernel<<<grid, kThreads, smem, s>>>(map, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t total = a.pixels * a.cout;
+  chain_finish_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(a, splits);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int ks, int epi, const void* in, int in_stride, int cin,
-                     const void* w, const void* bias, const void* res,
-                     int res_stride, void* out, int out_stride, int out_off,
-                     int cout, int batch, int h, int wd, cudaStream_t s) {
-  if (ks == 3 && epi == kBiasLeaky)
-    return launch<T, 3, kBiasLeaky>(in, in_stride, cin, w, bias, res,
-                                    res_stride, out, out_stride, out_off, cout,
-                                    batch, h, wd, s);
-  if (ks == 3 && epi == kPlain)
-    return launch<T, 3, kPlain>(in, in_stride, cin, w, bias, res, res_stride,
-                                out, out_stride, out_off, cout, batch, h, wd, s);
-  if (ks == 1 && epi == kBiasResidual)
-    return launch<T, 1, kBiasResidual>(in, in_stride, cin, w, bias, res,
-                                       res_stride, out, out_stride, out_off,
-                                       cout, batch, h, wd, s);
+cudaError_t dispatch(int np, const ConvArgs& a, int splits, cudaStream_t s) {
+  switch (np) {
+    case 16: return launch<T, 16>(a, splits, s);
+    case 32: return launch<T, 32>(a, splits, s);
+    case 48: return launch<T, 48>(a, splits, s);
+    case 64: return launch<T, 64>(a, splits, s);
+    case 96: return launch<T, 96>(a, splits, s);
+  }
+  if constexpr (sizeof(T) == 2) {
+    switch (np) {
+      case 128: return launch<T, 128>(a, splits, s);
+      case 192: return launch<T, 192>(a, splits, s);
+    }
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // One conv of the chain. dtype: 0 = float32, 1 = bfloat16. ks: 3 or 1.
-// epi: 0 bias+LeakyReLU (ks 3), 1 bias+residual (ks 1), 2 plain (ks 3).
-// Launches on `stream`, does not synchronise, returns cudaGetLastError().
+// epi: 0 bias+LeakyReLU, 1 bias+residual, 2 plain.
+// in: NHWC [batch, h, wd, in_stride], channels [0, cin) read; cin a
+// multiple of the 16-byte chunk, in_stride * element size a multiple of 16,
+// `in` 16-byte aligned. w_hi / w_lo: weights packed by the wrapper for
+// output-channel tiles of np (w_lo: float32 only). splits > 1: K split
+// across blocks into ws (splits * batch*h*wd * cout floats), then summed in
+// order. Launches on `stream`, does not synchronise, returns
+// cudaGetLastError().
 extern "C" int idt_chain_conv(int dtype, int ks, int epi, const void* in,
-                              int in_stride, int cin, const void* w,
-                              const void* bias, const void* res,
-                              int res_stride, void* out, int out_stride,
-                              int out_off, int cout, int batch, int h, int wd,
-                              void* stream) {
-  if (batch <= 0 || h <= 0 || wd <= 0 || cin <= 0 || cout <= 0 ||
-      batch > 65535)
-    return (int)cudaErrorInvalidValue;
+                              int in_stride, int cin, const void* w_hi,
+                              const void* w_lo, const void* bias, const void* res,
+                              int res_stride, void* out, int out_stride, int out_off,
+                              int cout, int np, int splits, void* ws, int batch,
+                              int h, int wd, void* stream) {
+  const int esize = dtype == 0 ? 4 : 2, chunk = 16 / esize;
+  if (batch <= 0 || h <= 0 || wd <= 0 || cin <= 0 || cout <= 0 || splits <= 0 ||
+      cin % chunk != 0 || (in_stride * esize) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(in) % 16 != 0 || (ks != 3 && ks != 1) ||
+      (splits > 1 && ws == nullptr) || (dtype == 0 && w_lo == nullptr) ||
+      (epi != kPlain && bias == nullptr) || (epi == kBiasResidual && res == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ConvArgs a{};
+  a.in = in;
+  a.w_hi = w_hi;
+  a.w_lo = w_lo;
+  a.bias = bias;
+  a.res = res;
+  a.out = out;
+  a.ws = splits > 1 ? static_cast<float*>(ws) : nullptr;
+  a.pixels = static_cast<size_t>(batch) * h * wd;
+  a.in_stride = in_stride;
+  a.res_stride = res_stride;
+  a.out_stride = out_stride;
+  a.out_off = out_off;
+  a.cout = cout;
+  a.cin = cin;
+  a.batch = batch;
+  a.taps = ks * ks;
+  a.halo = ks / 2;
+  a.k_stages = (cin / chunk + 1) / 2;
+  a.per_split = (a.k_stages + splits - 1) / splits;
+  a.epi = epi;
+  a.h = h;
+  a.w = wd;
+  if ((splits - 1) * a.per_split >= a.k_stages)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch<float>(ks, epi, in, in_stride, cin, w, bias, res,
-                          res_stride, out, out_stride, out_off, cout, batch, h,
-                          wd, s);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(ks, epi, in, in_stride, cin, w, bias, res,
-                                  res_stride, out, out_stride, out_off, cout,
-                                  batch, h, wd, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  if (dtype == 0) return static_cast<int>(dispatch<float>(np, a, splits, s));
+  if (dtype == 1) return static_cast<int>(dispatch<__nv_bfloat16>(np, a, splits, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

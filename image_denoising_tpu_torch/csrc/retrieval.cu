@@ -1,4 +1,4 @@
-// Streaming top-1 L2 retrieval over a memory bank, on Hopper.
+// Streaming top-1 L2 retrieval over a memory bank, on Hopper's tensor cores.
 //
 // Replaces: image_denoising_tpu/memory/retrieval_pallas.py::top1_l2_retrieval
 // (the Pallas TPU kernel, body _kernel). For queries q [B, D] and a bank
@@ -8,110 +8,74 @@
 // [B, N] distance matrix is never stored.
 //
 // Three regimes, picked by the bank's type:
-//   * float32 bank: float32 queries, f32 FMAs on the CUDA cores (no TF32:
-//     it would rank differently from the float32 reference), f32 norms;
-//   * bfloat16 bank: bfloat16 queries (the wrapper casts them, as the TPU
-//     kernel does), each value widened exactly to f32 in shared memory,
-//     then the f32 path;
-//   * int8 bank (centered bytes k - 128): int8 queries, __dp4a with int32
-//     accumulation and int32 norms. |2 q.b| <= 2 * D * 128 * 128 < 2^31 for
-//     D = 16384, so every distance is exact and the indices are bit-equal to
-//     any exact reference.
+//   * bfloat16 bank, bfloat16 queries: wgmma m64nNk16 bf16 -> f32;
+//   * int8 bank (centered bytes k - 128), int8 queries: wgmma m64nNk32
+//     s8 -> s32, exact: |2 q.b| <= 2 * D * 128 * 128 < 2^31 for D = 16384,
+//     so the indices are bit-equal to any exact reference;
+//   * float32 bank, float32 queries: 3xTF32. Each operand is split in
+//     shared memory into hi (rounded to TF32) + lo (the exact rest), and
+//     hi.hi + hi.lo + lo.hi run on wgmma m64nNk8 tf32 into one f32
+//     accumulator: about 2^-21 of sum |q b| from the dropped lo.lo and lo's
+//     truncation, far inside the f32 reference's rounding budget. The split
+//     costs one extra stage-sized buffer pair in shared memory (2 x 43 KB
+//     at N = 208) and no extra device-memory bytes.
 //
-// Design. A block owns BM = 64 queries x BN = 128 bank rows. It walks D in
-// stages of BK = 32 words (a word is one float, or four int8 values packed in
-// an int), staging both tiles row-major in shared memory (27.6 KB, static)
-// and prefetching the next stage's global loads into registers while it
-// computes the current one. Each of its 256 threads keeps 4 queries x 8 bank
-// rows of accumulators. The epilogue forms sqn - 2 q.b (the expression of
-// _kernel:77), turns each (distance, index) pair into a 64-bit key whose
-// unsigned order is the lexicographic order of (distance, index), reduces
-// the keys over the block's rows with warp shuffles, and folds them into a
-// per-query key with one 64-bit atomicMin per query and block. The minimum
-// key is the first minimum whatever order the blocks run in, so the result
-// is deterministic. Blocks that share a bank tile are adjacent in the grid,
-// so the bank streams from device memory about once; the queries stay in L2.
-// Bank rows past N are masked; padded rows (pad_bank_for_retrieval) carry a
-// +inf / INT32_MAX norm and never win.
+// Design. The bank is wgmma's M and the queries its N: a block owns 128
+// bank rows (two consumer warpgroups of 64) and one query tile of BN = 8 to
+// 256 columns (B = 400 runs as two tiles of 208; B = 8 as one of 8, with
+// nothing empty). A producer warp streams D in K-stages of 128 bytes per
+// row (32 f32, 64 bf16, 128 int8) with TMA: a 2-D tensor map over the bank
+// and one over the queries, 128-byte swizzle as the wgmma descriptors
+// expect, into a ring of 2-8 stages on full/empty mbarriers; it gives up
+// registers (setmaxnreg) to the consumers. TMA's zero fill covers a ragged
+// N, B and D; the epilogue masks rows past N and queries past B. Blocks
+// that share a bank tile are adjacent in the grid, so the bank streams from
+// device memory about once and the second query tile reads it from L2.
+// Epilogue: sqn - 2 q.b (the expression of _kernel:77), each (distance,
+// index) pair as a 64-bit key whose unsigned order is the lexicographic
+// order of (distance, index); a min over the accumulator fragment's rows,
+// over the warp with shuffles, over the block's 8 warps in shared memory,
+// then one 64-bit atomicMin per query and block. The minimum key is the
+// first minimum whatever order the blocks run in, so the result is
+// deterministic. Padded rows (pad_bank_for_retrieval) carry a +inf /
+// INT32_MAX norm and never win.
 //
 // What bounds it at the E6 shape (B = 400, N = 105,125, D = 16,384): 1.38
 // TFLOP (2 per multiply-add) against 6.9 GB (f32), 3.4 GB (bf16) or 1.7 GB
-// (int8) of bank. The peaks that bound the work are the tensor cores' (989
-// TFLOP/s bf16, 1979 TOP/s int8) and the CUDA cores' 67 TFLOP/s for f32, so
-// every regime is bound by operations. This first kernel runs on the CUDA
-// cores in all three. Work left for later: wgmma for bf16, s8 mma for int8,
-// TMA loads and a pipelined bank stream (warp-specialised producer).
+// (int8) of bank: operations at the tensor cores' 989 TFLOP/s (bf16), 1979
+// TOP/s (int8) and 495/3 TFLOP/s (three TF32 products); at B = 8 the bank's
+// bytes over 3.35 TB/s.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
-#include <type_traits>
+
+#include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // queries per block
-constexpr int BN = 128;       // bank rows per block
-constexpr int BK = 32;        // words per shared-memory stage
-constexpr int LD = BK + 4;    // row stride of the staged tiles, in words
-constexpr int NTHREADS = 256;
-constexpr int TM = BM / 16;   // queries per thread (rows ty + 16 i)
-constexpr int TN = BN / 16;   // bank rows per thread (rows tx + 16 j)
+using namespace idt;
 
-enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
+constexpr int kBankRows = 128;    // bank rows per block: two warpgroups of 64
+constexpr int kRowBytes = 128;    // bytes of one row in one K-stage
+constexpr int kConsumers = 256;   // two consumer warpgroups
+constexpr int kThreads = 384;     // + a producer warpgroup (one thread issues)
+constexpr int kMaxStages = 8;
+
+enum DType : int { kF32 = 0, kBf16 = 1, kI8 = 2 };
 
 template <int DT>
-struct Traits {
-  using Word = std::conditional_t<DT == kI8, int, float>;
-  using Vec = std::conditional_t<DT == kI8, int4, float4>;
-  static constexpr int kElemBytes = DT == kF32 ? 4 : (DT == kBF16 ? 2 : 1);
-  static constexpr int kElemsPerWord = DT == kI8 ? 4 : 1;
-  // words that one 16-byte global load yields
-  static constexpr int kWordsPerLoad = DT == kBF16 ? 8 : 4;
+struct Regime {
+  static constexpr int kKind = DT == kF32 ? kTF32 : (DT == kBf16 ? kBF16 : kS8);
+  static constexpr int kElemBytes = DT == kF32 ? 4 : (DT == kBf16 ? 2 : 1);
+  static constexpr int kStageElems = kRowBytes / kElemBytes;
+  using Acc = typename WgmmaAcc<kKind>::type;
 };
 
-__device__ __forceinline__ uint4 load16(const char* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-// Write one 16-byte load into shared memory as words (bf16 widens to f32).
-template <int DT>
-__device__ __forceinline__ void store_words(typename Traits<DT>::Word* dst,
-                                            uint4 raw) {
-  if constexpr (DT == kBF16) {
-    // element 2i is the low half of 32-bit word i (little endian)
-    float4* d = reinterpret_cast<float4*>(dst);
-    d[0] = make_float4(__uint_as_float(raw.x << 16),
-                       __uint_as_float(raw.x & 0xffff0000u),
-                       __uint_as_float(raw.y << 16),
-                       __uint_as_float(raw.y & 0xffff0000u));
-    d[1] = make_float4(__uint_as_float(raw.z << 16),
-                       __uint_as_float(raw.z & 0xffff0000u),
-                       __uint_as_float(raw.w << 16),
-                       __uint_as_float(raw.w & 0xffff0000u));
-  } else {
-    *reinterpret_cast<uint4*>(dst) = raw;
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ int dot4(int4 a, int4 b, int acc) {
-  acc = __dp4a(a.x, b.x, acc);
-  acc = __dp4a(a.y, b.y, acc);
-  acc = __dp4a(a.z, b.z, acc);
-  return __dp4a(a.w, b.w, acc);
-}
-
 // (distance, index) -> key whose unsigned order is the lexicographic order.
-__device__ __forceinline__ unsigned long long make_key(float sqn, float ab,
-                                                       int n) {
+__device__ __forceinline__ unsigned long long make_key(float sqn, float ab, int n) {
   float d = sqn - 2.0f * ab;
   if (d == 0.0f) d = 0.0f;  // -0 and +0 compare equal: one key for both
   unsigned u = __float_as_uint(d);
@@ -126,112 +90,146 @@ __device__ __forceinline__ unsigned long long make_key(int sqn, int ab, int n) {
   return (static_cast<unsigned long long>(u) << 32) | static_cast<unsigned>(n);
 }
 
-template <int DT>
-__global__ void __launch_bounds__(NTHREADS, 2)
-top1_kernel(const char* __restrict__ q, const char* __restrict__ bank,
-            const void* __restrict__ sqn_ptr, int B, int N, int DW,
-            int q_tiles, unsigned long long* __restrict__ keys) {
-  using T = Traits<DT>;
-  using Word = typename T::Word;
-  using Vec = typename T::Vec;
-  constexpr int VW = T::kWordsPerLoad;
-  constexpr int VPR = BK / VW;                          // loads per row
-  constexpr int WB = T::kElemsPerWord * T::kElemBytes;  // bytes per word
-  constexpr int QL = BM * VPR / NTHREADS;               // loads per thread
-  constexpr int BL = BN * VPR / NTHREADS;
-  static_assert(QL * NTHREADS == BM * VPR && BL * NTHREADS == BN * VPR, "");
+__device__ __forceinline__ unsigned long long kmin(unsigned long long a,
+                                                   unsigned long long b) {
+  return a < b ? a : b;
+}
 
-  __shared__ __align__(16) Word s_q[BM * LD];
-  __shared__ __align__(16) Word s_b[BN * LD];
-
-  const int m0 = (blockIdx.x % q_tiles) * BM;
-  const int n0 = (blockIdx.x / q_tiles) * BN;
-  const size_t row_bytes = static_cast<size_t>(DW) * WB;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-
-  uint4 rq[QL], rb[BL];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < QL; ++u) {
-      const int i = tid + u * NTHREADS, r = i / VPR, kw = k0 + (i % VPR) * VW;
-      rq[u] = (m0 + r < B && kw < DW)
-                  ? load16(q + (m0 + r) * row_bytes + static_cast<size_t>(kw) * WB)
-                  : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int u = 0; u < BL; ++u) {
-      const int i = tid + u * NTHREADS, r = i / VPR, kw = k0 + (i % VPR) * VW;
-      rb[u] = (n0 + r < N && kw < DW)
-                  ? load16(bank + (n0 + r) * row_bytes + static_cast<size_t>(kw) * WB)
-                  : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int u = 0; u < QL; ++u) {
-      const int i = tid + u * NTHREADS;
-      store_words<DT>(&s_q[(i / VPR) * LD + (i % VPR) * VW], rq[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < BL; ++u) {
-      const int i = tid + u * NTHREADS;
-      store_words<DT>(&s_b[(i / VPR) * LD + (i % VPR) * VW], rb[u]);
-    }
-  };
-
-  Word acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = Word(0);
-
-  const int stages = (DW + BK - 1) / BK;
-  load(0);
-  store();
-  __syncthreads();
-  for (int s = 0; s < stages; ++s) {
-    if (s + 1 < stages) load((s + 1) * BK);  // in flight during the FMAs
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      Vec a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        a[i] = *reinterpret_cast<const Vec*>(&s_q[(ty + 16 * i) * LD + kk]);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const Vec b = *reinterpret_cast<const Vec*>(&s_b[(tx + 16 * j) * LD + kk]);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) acc[i][j] = dot4(a[i], b, acc[i][j]);
-      }
-    }
-    __syncthreads();
-    if (s + 1 < stages) {
-      store();
-      __syncthreads();
-    }
+// Split `rows` rows of 32 floats at `p` into TF32 hi (in place) and lo.
+__device__ __forceinline__ void split_rows(float* p, float* lo, int rows, int t) {
+  float4* p4 = reinterpret_cast<float4*>(p);
+  float4* l4 = reinterpret_cast<float4*>(lo);
+  for (int i = t; i < rows * (kRowBytes / 16); i += 128) {
+    float4 v = p4[i], h, l;
+    split_tf32(v.x, h.x, l.x);
+    split_tf32(v.y, h.y, l.y);
+    split_tf32(v.z, h.z, l.z);
+    split_tf32(v.w, h.w, l.w);
+    p4[i] = h;
+    l4[i] = l;
   }
+}
 
-  const Word* sqn = static_cast<const Word*>(sqn_ptr);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    unsigned long long best = ~0ull;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) {
-        const unsigned long long key = make_key(sqn[n], acc[i][j], n);
-        best = key < best ? key : best;
+template <int DT, int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+top1_kernel(const __grid_constant__ CUtensorMap bank_map,
+            const __grid_constant__ CUtensorMap q_map, const void* __restrict__ sqn_ptr,
+            int B, int N, int k_stages, int q_tiles, int stages,
+            unsigned long long* __restrict__ keys) {
+  using R = Regime<DT>;
+  using Acc = typename R::Acc;
+  constexpr uint32_t kStageBytes = (kBankRows + BN) * kRowBytes;
+  constexpr uint32_t kQueryOff = kBankRows * kRowBytes;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;  // 128B swizzle: 1 KB aligned
+  unsigned char* smem = smem_raw + pad;
+  const uint32_t ring = raw + pad;
+  const uint32_t lo_off = stages * kStageBytes;  // f32 only: two lo buffers
+  const uint32_t bar_off = lo_off + (DT == kF32 ? 2 * kStageBytes : 0);
+  const uint32_t full0 = ring + bar_off, empty0 = full0 + 8 * stages;
+
+  const int q0 = (blockIdx.x % q_tiles) * BN;
+  const int n0 = (blockIdx.x / q_tiles) * kBankRows;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer warpgroup: one thread keeps the ring full
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      for (int s = 0; s < k_stages; ++s) {
+        const int slot = s % stages;
+        mbar_wait(empty0 + 8 * slot, ((s / stages) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * slot, dst = ring + slot * kStageBytes;
+        mbar_arrive_expect_tx(full, kStageBytes);
+        tma_load_2d(dst, &bank_map, full, s * R::kStageElems, n0);
+        tma_load_2d(dst + kQueryOff, &q_map, full, s * R::kStageElems, q0);
       }
     }
-    // the 16 lanes tx = 0..15 that share this query row are one half-warp
+  } else {
+    reg_alloc<232>();
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    Acc acc[BN / 2];
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const unsigned long long o = __shfl_xor_sync(0xffffffffu, best, off);
-      best = o < best ? o : best;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = Acc(0);
+
+    for (int s = 0; s < k_stages; ++s) {
+      const int slot = s % stages;
+      mbar_wait(full0 + 8 * slot, (s / stages) & 1);
+      const uint32_t stage = slot * kStageBytes;
+      const uint32_t a = ring + stage + wg * 64 * kRowBytes, b = ring + stage + kQueryOff;
+      uint32_t a_lo = 0, b_lo = 0;
+      if constexpr (DT == kF32) {
+        // lo buffers alternate by stage: a warpgroup writes buffer s & 1 only
+        // after both passed the barrier of stage s - 1, so after both
+        // finished stage s - 2's products, the last readers of that buffer
+        const uint32_t lo = lo_off + (s & 1) * kStageBytes;
+        a_lo = ring + lo + wg * 64 * kRowBytes;
+        b_lo = ring + lo + kQueryOff;
+        const uint32_t my_a = stage + wg * 64 * kRowBytes;
+        split_rows(reinterpret_cast<float*>(smem + my_a),
+                   reinterpret_cast<float*>(smem + lo + wg * 64 * kRowBytes), 64, t);
+        const uint32_t my_q = kQueryOff + wg * (BN / 2) * kRowBytes;
+        split_rows(reinterpret_cast<float*>(smem + stage + my_q),
+                   reinterpret_cast<float*>(smem + lo + my_q), BN / 2, t);
+        fence_proxy_async();
+        named_barrier(1, kConsumers);
+      }
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRowBytes / 32; ++kk) {
+        const uint64_t da = make_desc(a + 32 * kk, 16, 1024, 1);
+        const uint64_t db = make_desc(b + 32 * kk, 16, 1024, 1);
+        wgmma_ss<BN, R::kKind>(acc, da, db);
+        if constexpr (DT == kF32) {
+          wgmma_ss<BN, R::kKind>(acc, da, make_desc(b_lo + 32 * kk, 16, 1024, 1));
+          wgmma_ss<BN, R::kKind>(acc, make_desc(a_lo + 32 * kk, 16, 1024, 1), db);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(empty0 + 8 * slot);
     }
-    const int m = m0 + ty + 16 * i;
-    if (tx == 0 && m < B && best != ~0ull) atomicMin(&keys[m], best);
+
+    // epilogue: acc[4i + 2j + c] is bank row 16*(warp%4) + lane/4 + 8j of
+    // this warpgroup's 64, query column 8i + 2*(lane%4) + c
+    using Norm = typename R::Acc;
+    const Norm* sqn = static_cast<const Norm*>(sqn_ptr);
+    const int r0 = n0 + wg * 64 + (warp % 4) * 16 + lane / 4, r1 = r0 + 8;
+    const Norm s0 = r0 < N ? sqn[r0] : Norm(0), s1 = r1 < N ? sqn[r1] : Norm(0);
+    named_barrier(1, kConsumers);  // every product is done: the ring is free
+    auto* red = reinterpret_cast<unsigned long long*>(smem);  // [8 warps][BN]
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        unsigned long long k = ~0ull;
+        if (r0 < N) k = make_key(s0, acc[4 * i + c], r0);
+        if (r1 < N) k = kmin(k, make_key(s1, acc[4 * i + 2 + c], r1));
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) k = kmin(k, __shfl_xor_sync(0xffffffffu, k, off));
+        if (lane < 4) red[warp * BN + 8 * i + 2 * lane + c] = k;
+      }
+    }
+    named_barrier(1, kConsumers);
+    for (int col = threadIdx.x; col < BN; col += kConsumers) {
+      unsigned long long k = red[col];
+#pragma unroll
+      for (int w = 1; w < kConsumers / 32; ++w) k = kmin(k, red[w * BN + col]);
+      if (q0 + col < B && k != ~0ull) atomicMin(&keys[q0 + col], k);
+    }
   }
 }
 
@@ -241,22 +239,70 @@ __global__ void keys_to_index(const unsigned long long* __restrict__ keys,
   if (m < B) out[m] = static_cast<int>(keys[m] & 0xffffffffull);
 }
 
-template <int DT>
-cudaError_t launch(const void* q, const void* bank, const void* sqn, int b,
-                   int n, int d, unsigned long long* keys, int* out,
-                   cudaStream_t s) {
-  const int dw = d / Traits<DT>::kElemsPerWord;
-  const long long q_tiles = (b + BM - 1) / BM, n_tiles = (n + BN - 1) / BN;
-  if (q_tiles * n_tiles > INT_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * b, s);
+template <int DT, int BN>
+cudaError_t launch(const void* q, const void* bank, const void* sqn, int b, int n,
+                   int d, unsigned long long* keys, int* out, cudaStream_t s) {
+  using R = Regime<DT>;
+  const CUtensorMapDataType type =
+      DT == kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                 : (DT == kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                : CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  const cuuint64_t row_stride[1] = {static_cast<cuuint64_t>(d) * R::kElemBytes};
+  const cuuint64_t bank_dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n)};
+  const cuuint64_t q_dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(b)};
+  const cuuint32_t bank_box[2] = {R::kStageElems, kBankRows};
+  const cuuint32_t q_box[2] = {R::kStageElems, BN};
+  CUtensorMap bank_map, q_map;
+  if (!encode_tiled(&bank_map, type, 2, bank, bank_dims, row_stride, bank_box,
+                    CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_tiled(&q_map, type, 2, q, q_dims, row_stride, q_box,
+                    CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+
+  const int stage_bytes = (kBankRows + BN) * kRowBytes;
+  const int lo_bytes = DT == kF32 ? 2 * stage_bytes : 0;
+  int stages = (kMaxDynamicSmem - 1024 - lo_bytes - 16 * kMaxStages) / stage_bytes;
+  stages = stages > kMaxStages ? kMaxStages : stages;
+  if (stages < 2) return cudaErrorInvalidConfiguration;
+  const int smem = 1024 + stages * stage_bytes + lo_bytes + 16 * stages;
+  auto kernel = top1_kernel<DT, BN>;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
-  top1_kernel<DT><<<static_cast<unsigned>(q_tiles * n_tiles), NTHREADS, 0, s>>>(
-      static_cast<const char*>(q), static_cast<const char*>(bank), sqn, b, n,
-      dw, static_cast<int>(q_tiles), keys);
+
+  const long long q_tiles = (b + BN - 1) / BN, n_tiles = (n + kBankRows - 1) / kBankRows;
+  if (q_tiles * n_tiles > INT_MAX) return cudaErrorInvalidValue;
+  const int k_stages = (d + R::kStageElems - 1) / R::kStageElems;
+  err = cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * b, s);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(q_tiles * n_tiles), kThreads, smem, s>>>(
+      bank_map, q_map, sqn, b, n, k_stages, static_cast<int>(q_tiles), stages, keys);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   keys_to_index<<<(b + 255) / 256, 256, 0, s>>>(keys, out, b);
   return cudaGetLastError();
+}
+
+// The query tile: as few tiles of at most 256 as cover B, each the smallest
+// compiled width that holds its share.
+int query_tile(int b) {
+  constexpr int kWidths[] = {8, 64, 128, 208, 256};
+  const int tiles = (b + 255) / 256, need = (b + tiles - 1) / tiles;
+  for (int w : kWidths) {
+    if (need <= w) return w;
+  }
+  return 256;
+}
+
+template <int DT>
+cudaError_t dispatch(const void* q, const void* bank, const void* sqn, int b, int n,
+                     int d, unsigned long long* keys, int* out, cudaStream_t s) {
+  switch (query_tile(b)) {
+    case 8: return launch<DT, 8>(q, bank, sqn, b, n, d, keys, out, s);
+    case 64: return launch<DT, 64>(q, bank, sqn, b, n, d, keys, out, s);
+    case 128: return launch<DT, 128>(q, bank, sqn, b, n, d, keys, out, s);
+    case 208: return launch<DT, 208>(q, bank, sqn, b, n, d, keys, out, s);
+    default: return launch<DT, 256>(q, bank, sqn, b, n, d, keys, out, s);
+  }
 }
 
 }  // namespace
@@ -275,9 +321,9 @@ extern "C" int idt_top1_l2(int dtype, const void* q, const void* bank,
   auto* k = static_cast<unsigned long long*>(keys);
   auto* o = static_cast<int*>(out);
   switch (dtype) {
-    case kF32: return static_cast<int>(launch<kF32>(q, bank, sqn, b, n, d, k, o, s));
-    case kBF16: return static_cast<int>(launch<kBF16>(q, bank, sqn, b, n, d, k, o, s));
-    case kI8: return static_cast<int>(launch<kI8>(q, bank, sqn, b, n, d, k, o, s));
+    case kF32: return static_cast<int>(dispatch<kF32>(q, bank, sqn, b, n, d, k, o, s));
+    case kBf16: return static_cast<int>(dispatch<kBf16>(q, bank, sqn, b, n, d, k, o, s));
+    case kI8: return static_cast<int>(dispatch<kI8>(q, bank, sqn, b, n, d, k, o, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

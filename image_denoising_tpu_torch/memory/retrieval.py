@@ -12,8 +12,9 @@ first minimum. Three regimes, picked by the bank's dtype:
   accumulation.
 
 ``top1_l2_retrieval`` on a CUDA tensor runs ``csrc/retrieval.cu`` (one
-launch; the ``[B, N]`` distance matrix never exists); on a CPU tensor it
-runs ``top1_l2_retrieval_reference``. There is no fallback on CUDA.
+launch on the tensor cores: wgmma bf16, wgmma s8, or 3xTF32 for float32,
+fed by TMA; the ``[B, N]`` distance matrix never exists); on a CPU tensor
+it runs ``top1_l2_retrieval_reference``. There is no fallback on CUDA.
 ``top1_l2_retrieval.launches`` counts the calls that ran the kernel.
 Unlike the TPU kernel's grid, N need not be a multiple of a tile; rows
 padded by ``pad_bank_for_retrieval`` carry the worst norm and never win.

@@ -46,10 +46,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(source: str) -> tuple[Path, str]:
+def build(source: str, defines: tuple = ()) -> tuple[Path, str]:
     """Compile ``csrc/<source>`` unless an up-to-date library exists.
 
-    Returns (path of the .so, nvcc's output — empty when nothing was built).
+    ``defines`` (``NAME=value`` strings, passed as ``-D``) build a variant
+    of the source under its own name. Returns (path of the .so, nvcc's output — empty when nothing was built).
     The library is written under a temporary name and renamed into place, so
     concurrent builds never load a half-written file.
     """
@@ -59,8 +60,11 @@ def build(source: str) -> tuple[Path, str]:
             f"{src} not found: the CUDA kernels build from a checkout of the "
             "repository or an editable install (pip install -e .), not from "
             "an installed wheel")
+    # the shared headers (csrc/*.cuh) are part of every source's hash
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(flags).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if out.exists():
@@ -70,7 +74,7 @@ def build(source: str) -> tuple[Path, str]:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [_nvcc(), *flags, "-o", tmp, str(src)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
@@ -86,13 +90,14 @@ def build(source: str) -> tuple[Path, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def load_fused_block() -> ctypes.CDLL:
-    """The chain-conv library (csrc/fused_block.cu), built on first call."""
-    path, _ = build("fused_block.cu")
+def load_fused_block(defines: tuple = ()) -> ctypes.CDLL:
+    """The chain-conv library (csrc/fused_block.cu), built on first call;
+    ``defines`` select a variant (``build``), as scripts/probe_chain.py does."""
+    path, _ = build("fused_block.cu", defines)
     lib = ctypes.CDLL(str(path))
     fn = lib.idt_chain_conv
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, i, i, p, i, i, p, p, p, i, p, i, i, i, i, i, i, p]
+    fn.argtypes = [i, i, i, p, i, i, p, p, p, p, i, p, i, i, i, i, i, p, i, i, i, p]
     fn.restype = i
     return lib
 

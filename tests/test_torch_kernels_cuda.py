@@ -107,6 +107,65 @@ def test_top1_l2_retrieval_kernel_matches_plain_version(cuda, regime):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 1008])
+@pytest.mark.parametrize("b", [1, 8, 257])
+@pytest.mark.parametrize("regime", ["float32", "bfloat16", "int8"])
+def test_top1_l2_retrieval_kernel_edges(cuda, regime, b, d):
+    """The tensor-core kernel at one query (a query tile of 8 with 7 empty),
+    8 and 257 (two tiles), D = 16 (one partial K-stage) and D = 1008 (no
+    multiple of the 32/64/128-element K-stage), N = 1000 (no multiple of
+    the 128-row bank tile); the duplicated row's first copy wins and a bank
+    padded to 512 rows picks the same."""
+    q, bank, sqn = _retrieval_case(regime, cuda, b=b, d=d)
+    got = top1_l2_retrieval(q, bank, sqn)
+    torch.cuda.synchronize()
+    want = top1_l2_retrieval_reference(q, bank, sqn)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert int(got[0]) == 300
+    bp, sp = pad_bank_for_retrieval(bank, sqn, 512)
+    torch.testing.assert_close(top1_l2_retrieval(q, bp, sp), want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["lead_cin2_6x6", "split_k_16x16", "ragged_40x56"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_rdb_chain_kernel_edges(cuda, dtype, case):
+    """A 6x6 image with the Cin = 2 lead conv (x padded to one 16-byte
+    chunk; the image smaller than one 8x8 tile; nf 24, a partial channel
+    tile), a 16x16 bottleneck, and a ragged 40x56 image with the lead conv
+    at nf 48 (4 M-tiles of 8x8 side by side, so the last of the two
+    32-pixel-wide tiles of a row is partial), each with K split across
+    blocks in some of its convs: within the chain tolerances of
+    chip_smoke.py, and a second call bit-equal."""
+    from image_denoising_tpu_torch.ops.fused_block import chain_conv_plans
+
+    torch.manual_seed(7)
+    if case == "lead_cin2_6x6":
+        nf, lead, shape = 24, torch.nn.Conv2d(2, 24, 3, padding=1), (3, 6, 6, 2)
+    elif case == "split_k_16x16":
+        nf, lead, shape = 96, None, (1, 16, 16, 96)
+    else:
+        nf, lead, shape = 48, torch.nn.Conv2d(2, 48, 3, padding=1), (2, 40, 56, 2)
+    wts = FusedChainWeights.from_modules(RDB(nf), lead=lead, res=ResBlock(nf),
+                                         dtype=dtype, device=cuda)
+    x = torch.randn(*shape, device=cuda).to(dtype)
+    # every case has fewer than 132 blocks per launch: K is split
+    plans = dict(chain_conv_plans(*shape, wts))
+    assert max(p["splits"] for p in plans.values()) > 1
+    if case == "ragged_40x56":
+        assert plans["growth0"]["mt"] == 4 and shape[2] % (8 * 4) != 0
+    got = fused_rdb_chain(x, wts)
+    again = fused_rdb_chain(x, wts)
+    torch.cuda.synchronize()
+    want = fused_rdb_chain_reference(x, wts)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        scale = w.float().abs().max().item()
+        atol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 4 * 2.0 ** -7 * scale
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
 def test_eval704_cli_on_card_matches_cpu(cuda, tmp_path):
     """The port's evaluation_704 CLI on the card (burst mode, through the
     kernel) against the same CLI on the CPU (plain chain)."""
