@@ -54,6 +54,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                share of one profiled step. Then cli/train.main (--loss n2n,
                1 epoch of 2 steps) on 8 seeded 352² PNG pairs: checkpoints
                and A_log.csv written, 2 launches.
+  7. structure — the structure-loss step of ImprovedUNet-48 (seeded init,
+               Adam 3e-4, α = 1, β = γ = 0.5, no guard) on batch 4 of
+               seeded 352² pairs (noisy = clean + N(0, 25)) as one fused
+               batch-8 forward: 2 warm-up and 10 timed steps, losses
+               fetched one step late, timed steps under
+               torch.cuda.set_sync_debug_mode("error"), in float32 (TF32
+               off) and bfloat16 compute; ms/step, MP/s, peak memory and
+               share of the bound (bench.py's 4.063 TFLOP over 67 or 989
+               TFLOP/s). Checks: the two-forward step's losses within
+               TRAIN_LOSS_RTOL, bf16 within JAX's envelope of f32, remat and
+               remat_depth=2 within REMAT_LOSS_RTOL at lower peak memory,
+               the guarded L1 step skipping a NaN batch bit-exactly, no
+               chain launch. One profiled step per dtype and the parts
+               alone. Then cli/train.main with its defaults and with
+               --dtype bfloat16 --remat_depth 2 --profile_dir, 2 steps each.
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Per-shape details go to the --json file.
 """
@@ -84,6 +99,9 @@ E6_BF16_MAX_LEVELS, E6_BF16_MEAN_LEVELS = 12, 1.5
 GROWTH, N_GROWTH = 32, 4
 # the chain kernel's device functions (csrc/fused_block.cu), as the profiler names them
 CHAIN_KERNELS = ("chain_conv_kernel<", "chain_finish_kernel<")
+# cuDNN's FFT convolution path: its FFT kernels and the complex GEMM between
+# them (names lower-cased)
+FFT_KERNELS = ("fft", "cf32", "cgemm")
 HBM_BYTES_PER_S = 3.35e12
 # H100 SXM dense peaks (NVIDIA data sheet): f32 on the CUDA cores, bf16 and
 # int8 on the tensor cores, and float32 as 3xTF32 (three TF32 products on the
@@ -138,6 +156,14 @@ PAIR_FREQ_TOL = 0.005  # 5.3 binomial standard deviations at 123,904 cells
 # runs' losses differ only by the order of cuDNN's backward sums, which Adam
 # carries into the next steps
 TRAIN_LOSS_RTOL = 1e-3
+# the structure step: XLA's count of the fused batch-8 step's work
+# (bench.py:73), and the losses of the remat runs against the plain run's
+# (recomputation repeats the same ops; cuDNN may pick other algorithms)
+STRUCT_FLOP_PER_STEP = 4.0633e12
+REMAT_LOSS_RTOL = 1e-3
+# bf16 losses against f32 (tests/test_bf16_compute.py:89-92): step 1
+# absolute, every step relative
+BF16_STEP1_ABS, BF16_REL = 5e-3, 0.15
 # integer operations of one cell's draw: 10 Philox rounds of 2 multiplies, 2
 # high multiplies, 4 xors and 2 key adds, plus the table look-ups
 PHILOX_OPS_PER_CELL = 10 * 10 + 8
@@ -1026,9 +1052,198 @@ def phase_train(seed: int):
                 profile=prof)
 
 
+def struct_pair(seed: int):
+    """One batch of 4 seeded 352² uint8 pairs, NHWC: smooth clean frames,
+    noisy = clean + N(0, 25), clipped."""
+    import numpy as np
+
+    clean = n2n_frames(seed + 2, TRAIN_B)[..., None]
+    rng = np.random.default_rng(seed + 13)
+    noisy = np.clip(clean + rng.normal(0, 25, clean.shape), 0, 255).astype(np.uint8)
+    return clean, noisy
+
+
+def _train_tensors(state):
+    """Every parameter, Adam moment and Adam step count of a train state."""
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    return params + [t for p in params for t in state.optimizer.state[p].values()]
+
+
+def phase_structure(seed: int):
+    """The structure-loss step of ImprovedUNet-48 at batch 4 of 352²."""
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.losses import structure_loss
+    from image_denoising_tpu_torch.models import ImprovedUNet
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+    from image_denoising_tpu_torch.train import (create_train_state, make_l1_train_step,
+                                                 make_structure_train_step, to_nchw01)
+    from image_denoising_tpu_torch.train.steps import _guarded_update
+
+    torch.manual_seed(seed)
+    init = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).state_dict()
+    clean, noisy = struct_pair(seed)
+    mp = TRAIN_B * TRAIN_FRAME ** 2 / 1e6
+    fused_rdb_chain.launches = 0
+
+    def run(dtype=None, remat=False, remat_depth=None, fused=True):
+        model = ImprovedUNet(1, 1, NF, dtype=dtype, remat=remat, remat_depth=remat_depth)
+        model.load_state_dict(init)
+        model = model.to("cuda")
+        state = create_train_state(model, lr=3e-4)
+        step = make_structure_train_step(model, state, fused=fused)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, pending = [], None
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            if i == TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            # the step must not wait for the card: any op that would
+            # raises here (the loss is fetched outside, one step late)
+            torch.cuda.set_sync_debug_mode("error" if i >= TRAIN_WARMUP else 0)
+            try:
+                m = step(clean, noisy)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if pending is not None:
+                losses.append(float(pending["loss"]))
+            pending = m
+        losses.append(float(pending["loss"]))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"structure: non-finite loss {losses}")
+        return dict(model=model, state=state, step=step, losses=losses,
+                    ms=step_s * 1e3, mps=mp / step_s,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    def release(r):
+        for k in ("model", "state", "step"):
+            r.pop(k, None)
+        torch.cuda.empty_cache()
+
+    def rel_diff(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    def parts(r):
+        """forward (with autograd), forward+backward and Adam, and Adam with
+        the guard, each alone on this run's batch."""
+        model, state = r["model"], r["state"]
+        dev = torch.device("cuda")
+        c01, n01 = to_nchw01(clean, dev), to_nchw01(noisy, dev)
+        both = torch.cat([n01, c01], 0)
+
+        def fwd_bwd():
+            out = model(both)
+            loss = structure_loss(out[:TRAIN_B], out[TRAIN_B:], c01)
+            loss.backward()
+            return loss
+
+        out = dict(forward_ms=time_ms(lambda: model(both), reps=3),
+                   forward_backward_ms=time_ms(fwd_bwd, reps=3))
+        loss = fwd_bwd().detach()
+        out["adam_ms"] = time_ms(state.optimizer.step)
+        out["adam_guard_ms"] = time_ms(lambda: _guarded_update(
+            state, loss, grad_clip=None, max_loss_skip=5.0, max_grad_norm=20.0))
+        state.optimizer.zero_grad(set_to_none=True)
+        return out
+
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        r = run(dtype=torch.bfloat16 if dname == "bfloat16" else None)
+        bound_ms = STRUCT_FLOP_PER_STEP / PEAK_OPS[dname] * 1e3
+        r.update(bound_ms=bound_ms, share_of_bound=bound_ms / r["ms"], parts=parts(r))
+        r["profile"] = prof = profile_window(
+            lambda r=r: float(r["step"](clean, noisy)["loss"]))
+        p = r["parts"]
+        log(f"[structure] {dname:8s} step, ImprovedUNet-{NF}, batch {TRAIN_B}x"
+            f"{TRAIN_FRAME}^2 as one batch-{2 * TRAIN_B} forward: {r['ms']:.2f} ms/step, "
+            f"{r['mps']:.4f} MP/s of input frames, peak memory {r['peak_gb']:.2f} GB, "
+            f"{r['share_of_bound']:.4f} of the {bound_ms:.2f} ms bound; timed steps "
+            f"under set_sync_debug_mode('error')")
+        log(f"[structure] {dname:8s} parts, each alone: forward {p['forward_ms']:.2f} ms, "
+            f"forward+backward {p['forward_backward_ms']:.2f} ms, Adam {p['adam_ms']:.3f} "
+            f"ms, Adam with the guard {p['adam_guard_ms']:.3f} ms")
+        log(f"[structure] {dname:8s} one step under torch.profiler: wall "
+            f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms "
+            f"(share {prof['busy_share']}); cuDNN FFT-path kernels "
+            f"{prof['fft_ms']:.1f} ms; top kernels {prof['top_kernels_ms'][:3]}")
+        release(r)
+        out[dname] = r
+    f32, bf16 = out["float32"]["losses"], out["bfloat16"]["losses"]
+    step1, rel = abs(bf16[0] - f32[0]), rel_diff(bf16, f32)
+    log(f"[structure] losses f32 {[round(x, 6) for x in f32]}; bf16 "
+        f"{[round(x, 6) for x in bf16]}: step 1 |d| {step1:.3g} (limit "
+        f"{BF16_STEP1_ABS}), largest relative {rel:.3g} (limit {BF16_REL})")
+    if not (step1 < BF16_STEP1_ABS and rel < BF16_REL):
+        raise AssertionError("structure: bf16 losses outside the envelope of f32")
+    out["bf16_vs_f32"] = dict(step1_abs=step1, max_rel=rel)
+
+    for name, kw, limit in (("two_forwards", dict(fused=False), TRAIN_LOSS_RTOL),
+                            ("remat", dict(remat=True), REMAT_LOSS_RTOL),
+                            ("remat_depth2", dict(remat=True, remat_depth=2),
+                             REMAT_LOSS_RTOL)):
+        r = run(**kw)
+        release(r)
+        r["max_rel_loss_diff"] = d = rel_diff(r["losses"], f32)
+        log(f"[structure] float32 {name}: {r['ms']:.2f} ms/step, peak memory "
+            f"{r['peak_gb']:.2f} GB (fused, no remat: {out['float32']['peak_gb']:.2f}); "
+            f"losses within {d:.3g} of the fused run's (limit {limit})")
+        if not d <= limit:
+            raise AssertionError(f"structure {name}: losses differ by {d} > {limit}")
+        if name != "two_forwards" and not r["peak_gb"] < out["float32"]["peak_gb"]:
+            raise AssertionError(f"structure {name}: peak memory {r['peak_gb']} GB not "
+                                 "below the run without remat")
+        out[name] = r
+
+    # the guarded L1 step at full width: a batch it takes, then one with a
+    # NaN pixel that it must skip without touching any state
+    model = ImprovedUNet(1, 1, NF)
+    model.load_state_dict(init)
+    model = model.to("cuda")
+    state = create_train_state(model, lr=3e-4)
+    step = make_l1_train_step(model, state, guards=True, grad_clip=1.0)
+    c01, n01 = clean.astype(np.float32) / 255.0, noisy.astype(np.float32) / 255.0
+    bad = c01.copy()
+    bad[1, 100, 200, 0] = np.nan
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        good_m = step(c01, n01)
+        before = [t.clone() for t in _train_tensors(state)]
+        bad_m = step(bad, n01)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    same = all(torch.equal(_bits(a), _bits(b))
+               for a, b in zip(before, _train_tensors(state)))
+    guard = dict(good_ok=bool(good_m["ok"]), good_grad_norm=float(good_m["grad_norm"]),
+                 bad_ok=bool(bad_m["ok"]), skipped=int(state.skipped), step=int(state.step),
+                 state_bit_equal=same)
+    log(f"[structure] guarded L1 step (guards, grad_clip 1.0) at batch {TRAIN_B}x"
+        f"{TRAIN_FRAME}^2 under set_sync_debug_mode('error'): clean batch ok "
+        f"{guard['good_ok']} (grad norm {guard['good_grad_norm']:.4g}), NaN batch ok "
+        f"{guard['bad_ok']}; skipped {guard['skipped']}, step {guard['step']}; "
+        f"parameters and Adam state bit-equal across the skip: {same}")
+    if not (guard["good_ok"] and not guard["bad_ok"] and guard["skipped"] == 1
+            and guard["step"] == 1 and same):
+        raise AssertionError(f"structure: the guard did not skip exactly: {guard}")
+    out["guard"] = guard
+    del model, state, step, before
+    torch.cuda.empty_cache()
+
+    out["chain_launches"] = fused_rdb_chain.launches
+    if fused_rdb_chain.launches:
+        raise AssertionError(f"structure: {fused_rdb_chain.launches} chain launches; "
+                             "the trainer runs the module")
+    return out
+
+
 def phase_train_cli(seed: int):
-    """cli/train.main with --loss n2n for 1 epoch of 2 steps on 8 seeded
-    352² PNG pairs in a temporary directory under build/."""
+    """cli/train.main for 1 epoch of 2 steps on 8 seeded 352² PNG pairs in a
+    temporary directory under build/: --loss n2n, then the default
+    (structure), then --dtype bfloat16 --remat_depth 2 --profile_dir."""
     import glob
     import tempfile
 
@@ -1038,6 +1253,7 @@ def phase_train_cli(seed: int):
 
     from image_denoising_tpu_torch.cli import train as train_cli
     from image_denoising_tpu_torch.models import ImprovedUNet
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
     from image_denoising_tpu_torch.ops.neighbor import subsample_pair_fused
 
     build_dir = os.path.join(REPO, "build")
@@ -1051,31 +1267,49 @@ def phase_train_cli(seed: int):
             noisy = np.clip(c + rng.normal(0, 25, c.shape), 0, 255).astype(np.uint8)
             Image.fromarray(c).save(os.path.join(data, "clean", f"sem{i:03d}.png"))
             Image.fromarray(noisy).save(os.path.join(data, "noise", f"sem{i:03d}.png"))
-        subsample_pair_fused.launches = 0
-        t0 = time.perf_counter()
-        train_cli.main(["--data_dir", data, "--save_model_path", os.path.join(tmp, "out"),
-                        "--loss", "n2n", "--arch", "UNetImproved", "--n_epoch", "1",
-                        "--max_steps_per_epoch", "2", "--batchsize", str(TRAIN_B),
-                        "--seed", str(seed)])
-        sec = time.perf_counter() - t0
-        launches = subsample_pair_fused.launches
-        if launches != 2:
-            raise AssertionError(f"train CLI: {launches} sub-sampler launches, want 2")
-        (run_dir,) = glob.glob(os.path.join(tmp, "out", "*", "*"))
-        for name in ("epoch_model_000.pth", "epoch_model_001.pth"):
-            ImprovedUNet(1, 1, NF).load_state_dict(
-                torch.load(os.path.join(run_dir, name), weights_only=True), strict=True)
-        with open(os.path.join(run_dir, "validation", "A_log.csv")) as f:
-            a_log = f.read().strip()
-        mean_loss = float(a_log.split("loss_")[1].split(",")[0])
-        if not (a_log.startswith("epoch1,") and np.isfinite(mean_loss)):
-            raise AssertionError(f"train CLI: A_log.csv reads {a_log!r}")
-        if len(glob.glob(os.path.join(run_dir, "validation", "*_denoised.png"))) != 1:
-            raise AssertionError("train CLI: no validation PNG")
-    log(f"[train] cli.train.main --loss n2n, 1 epoch of 2 steps at batch {TRAIN_B} "
-        f"of {TRAIN_FRAME}^2, validation of 8 frames: {sec:.2f} s; checkpoints "
-        f"000/001 load strict; A_log.csv {a_log!r}; sub-sampler launches {launches}")
-    return dict(seconds=sec, launches=launches, a_log=a_log)
+        trace_dir = os.path.join(tmp, "structure_trace")
+        runs = (("n2n", ["--loss", "n2n"]), ("structure", []),
+                ("structure_bf16_remat", ["--dtype", "bfloat16", "--remat_depth", "2",
+                                          "--profile_dir", trace_dir]))
+        out = {}
+        for name, extra in runs:
+            subsample_pair_fused.launches = 0
+            fused_rdb_chain.launches = 0
+            t0 = time.perf_counter()
+            train_cli.main(["--data_dir", data, "--save_model_path", os.path.join(tmp, name),
+                            "--arch", "UNetImproved", "--n_epoch", "1",
+                            "--max_steps_per_epoch", "2", "--batchsize", str(TRAIN_B),
+                            "--seed", str(seed)] + extra)
+            sec = time.perf_counter() - t0
+            launches = subsample_pair_fused.launches
+            want = 2 if name == "n2n" else 0  # one per N2N step
+            if launches != want or fused_rdb_chain.launches:
+                raise AssertionError(f"train CLI {name}: {launches} sub-sampler launches "
+                                     f"(want {want}), {fused_rdb_chain.launches} chain "
+                                     "launches (want 0)")
+            (run_dir,) = glob.glob(os.path.join(tmp, name, "*", "*"))
+            for ckpt in ("epoch_model_000.pth", "epoch_model_001.pth"):
+                ImprovedUNet(1, 1, NF).load_state_dict(
+                    torch.load(os.path.join(run_dir, ckpt), weights_only=True), strict=True)
+            with open(os.path.join(run_dir, "validation", "A_log.csv")) as f:
+                a_log = f.read().strip()
+            mean_loss = float(a_log.split("loss_")[1].split(",")[0])
+            if not (a_log.startswith("epoch1,") and np.isfinite(mean_loss)):
+                raise AssertionError(f"train CLI {name}: A_log.csv reads {a_log!r}")
+            if len(glob.glob(os.path.join(run_dir, "validation", "*_denoised.png"))) != 1:
+                raise AssertionError(f"train CLI {name}: no validation PNG")
+            traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+            if "--profile_dir" in extra and not traces:
+                raise AssertionError(f"train CLI {name}: no trace in {trace_dir}")
+            out[name] = dict(seconds=sec, launches=launches, a_log=a_log)
+            tag = "[train]" if name == "n2n" else "[structure]"
+            log(f"{tag} cli.train.main {' '.join(extra[:4]) or '(defaults: structure)'}, "
+                f"1 epoch of 2 steps at batch {TRAIN_B} of {TRAIN_FRAME}^2, validation of "
+                f"8 frames: {sec:.2f} s; checkpoints 000/001 load strict; A_log.csv "
+                f"{a_log!r}; sub-sampler launches {launches}"
+                + (f"; trace {os.path.basename(traces[0])}" if traces else ""))
+    return dict(out["n2n"], structure=out["structure"],
+                structure_bf16_remat=out["structure_bf16_remat"])
 
 
 def _preds(out):
@@ -1130,9 +1364,10 @@ def profile_window(fn, top: int = 5):
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     chain_us = sum(t for n, t in by_name.items() if any(k in n for k in CHAIN_KERNELS))
+    fft_us = sum(t for n, t in by_name.items() if any(k in n.lower() for k in FFT_KERNELS))
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                 busy_share=busy_us / 1e3 / wall_ms if spans else None,
-                chain_ms=chain_us / 1e3,
+                chain_ms=chain_us / 1e3, fft_ms=fft_us / 1e3,
                 top_kernels_ms=[(n[:80], t / 1e3) for n, t in names])
 
 
@@ -1195,6 +1430,7 @@ def main(argv=None) -> int:
     main_path = phase_main(args.seed)
     memory = phase_memory(args.seed)
     train = phase_train(args.seed)
+    structure = phase_structure(args.seed)
     train_cli = phase_train_cli(args.seed)
 
     summary = []
@@ -1247,7 +1483,7 @@ def main(argv=None) -> int:
                        kernels=dict(chain_e2=chain_e2, chain_e6=chain_e6, top1=top1,
                                     subsample=subsample),
                        main=main_path, memory=memory, train=train, train_cli=train_cli,
-                       summary=summary),
+                       structure=structure, summary=summary),
                   f, indent=1)
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
         f"of one {B}-tile E2 chunk (e6: of one E6 chunk); design is the route "

@@ -56,9 +56,12 @@ def resolve_dtype(name: Optional[str]):
 
 
 def build_network(arch: Optional[str], log_name: Optional[str],
-                  n_channel: int, n_feature: int) -> ImprovedUNet:
+                  n_channel: int, n_feature: int, dtype: Optional[torch.dtype] = None,
+                  remat: bool = False, remat_depth: Optional[int] = None) -> ImprovedUNet:
     """Explicit ``--arch`` wins; otherwise the reference ``--log_name``
-    substring dispatch (``train.py:298-314``). Only UNetImproved is ported."""
+    substring dispatch (``train.py:298-314``). Only UNetImproved is ported.
+    ``dtype`` is the compute dtype (parameters stay float32); ``remat`` and
+    ``remat_depth`` recompute blocks in backward (``ImprovedUNet``)."""
     if arch:
         name = arch
     elif log_name:
@@ -74,7 +77,8 @@ def build_network(arch: Optional[str], log_name: Optional[str],
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (only UNetImproved); "
             "see ROADMAP.md")
-    return ImprovedUNet(in_nc=n_channel, out_nc=n_channel, n_feature=n_feature)
+    return ImprovedUNet(in_nc=n_channel, out_nc=n_channel, n_feature=n_feature,
+                        dtype=dtype, remat=remat, remat_depth=remat_depth)
 
 
 def load_params(ckpt_path: str, model: torch.nn.Module) -> torch.nn.Module:

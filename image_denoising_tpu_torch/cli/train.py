@@ -1,28 +1,35 @@
 """A-domain trainer CLI — counterpart of ``image_denoising_tpu/cli/train.py``.
 
-``--loss n2n`` is the Neighbor2Neighbor self-supervised path: synthetic noise
-(``--noisetype``), the random 2×2 mask-pair sub-sampler (on the card the
-hand-written kernel ``csrc/neighbor.cu``, one launch per step) and the
-Λ-regularized loss, with Adam(``--lr``), MultiStepLR γ at
-{20,40,60,80}%·epochs−1, an epoch-0 and per-snapshot checkpoint
-(``epoch_model_XXX.pth``, reference state-dict layout), validation PNGs and
-``A_log.csv``, as the JAX CLI writes them. The log lines are the
-reference's (``Loss1=/Loss_Full=/Time=``), fetched one step late so the
-host prepares step i+1 while the card runs step i.
+The default, ``--loss structure``, is the reference trainer: full-frame
+pairs, one concatenated forward of noisy and clean, the Structure loss
+(α·L1 + 0.5·TV + 0.5·consistency, α = ``--Lambda1``); its log's ``Loss1``
+is L1(network(noisy), clean). ``--loss n2n`` is the Neighbor2Neighbor
+self-supervised path: synthetic noise (``--noisetype``), the random 2×2
+mask-pair sub-sampler (on the card the hand-written kernel
+``csrc/neighbor.cu``, one launch per step) and the Λ-regularized loss.
+Both train with Adam(``--lr``), MultiStepLR γ at {20,40,60,80}%·epochs−1,
+and write an epoch-0 and per-snapshot checkpoint (``epoch_model_XXX.pth``,
+reference state-dict layout), validation PNGs and ``A_log.csv``, as the JAX
+CLI does. The log lines are the reference's (``Loss1=/Loss_Full=/Time=``),
+fetched one step late so the host prepares step i+1 while the card runs
+step i.
 
 Same flags as the JAX CLI, plus ``--device {cuda,cpu}``: ``cuda`` runs on
-the card ``--gpu_devices`` names (``cuda:N``). Parsed and refused, for
-later slices (ROADMAP.md): ``--loss structure`` (the JAX default),
-``--dtype bfloat16``, ``--remat``/``--remat_depth``, ``--parallel``,
-``--blindspot``, ``--profile_dir``, a ``--resume`` that is not a ``.pth``
-file, and several ``--gpu_devices``.
+the card ``--gpu_devices`` names (``cuda:N``). ``--dtype bfloat16``
+computes in bfloat16 with float32 parameters; ``--remat`` /
+``--remat_depth`` recompute blocks in backward; ``--profile_dir`` writes a
+``torch.profiler`` trace of the first ``--profile_steps`` steps. Parsed
+and refused, for later slices (ROADMAP.md): ``--parallel``,
+``--blindspot``, a ``--resume`` that is not a ``.pth`` file, and several
+``--gpu_devices``.
 
 Run: ``python -m image_denoising_tpu_torch.cli.train --arch UNetImproved
---loss n2n --data_dir data``.
+--data_dir data``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import os
 import time
@@ -59,8 +66,8 @@ def parse_args(argv=None):
                         help="explicit arch; default = log_name substring dispatch")
     parser.add_argument("--loss", type=str, default="structure",
                         choices=["structure", "n2n"],
-                        help="n2n = documented N2N recipe; structure = "
-                             "reference train.py (not ported yet)")
+                        help="structure = reference train.py; n2n = "
+                             "documented N2N recipe")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max_steps_per_epoch", type=int, default=0,
                         help="debug/bench cap; 0 = full epoch")
@@ -69,7 +76,9 @@ def parse_args(argv=None):
     parser.add_argument("--start_epoch", type=int, default=1,
                         help="first epoch number when resuming")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="not ported yet")
+                        help="write a torch.profiler trace of the first "
+                             "training steps of the first epoch to this "
+                             "directory")
     parser.add_argument("--profile_steps", type=int, default=5)
     parser.add_argument("--subsampler", type=str, default="xla",
                         choices=["xla", "pallas"],
@@ -83,26 +92,24 @@ def parse_args(argv=None):
     add_blindspot_flag(parser)
     add_dtype_flag(parser)
     parser.add_argument("--remat", action=argparse.BooleanOptionalAction,
-                        default=False, help="not ported yet")
+                        default=False,
+                        help="recompute the RDB/Res/Up blocks during backward "
+                             "(torch.utils.checkpoint): less device memory, "
+                             "more time")
     parser.add_argument("--remat_depth", type=int, default=None,
-                        help="not ported yet")
+                        help="recompute only the blocks of the N "
+                             "highest-resolution levels. Implies --remat. "
+                             "Default: all levels when --remat.")
     opt, _ = parser.parse_known_args(argv)
+    if opt.remat_depth is not None:
+        # a depth without --remat would be a silent no-op: asking for a
+        # depth is asking for remat, as in the JAX CLI
+        opt.remat = True
     return opt
 
 
 def _refused(opt):
-    from .common import resolve_dtype
-
-    out = []
-    if opt.loss == "structure":
-        out.append("--loss structure")
-    if resolve_dtype(opt.dtype) is not None:
-        out.append(f"--dtype {opt.dtype}")
-    out += [f"--{n}" for n in ("remat", "parallel", "blindspot") if getattr(opt, n)]
-    if opt.remat_depth is not None:
-        out.append("--remat_depth")
-    if opt.profile_dir:
-        out.append("--profile_dir")
+    out = [f"--{n}" for n in ("parallel", "blindspot") if getattr(opt, n)]
     if opt.resume and not opt.resume.endswith(".pth"):
         out.append("--resume of a non-.pth checkpoint")
     if "," in opt.gpu_devices:
@@ -126,15 +133,19 @@ def main(argv=None):
     from ..ckpt import save_checkpoint
     from ..data import DenoiseDataset, validation_denoise
     from ..ops import AugmentNoise, OperationSeed
-    from ..train import (create_train_state, make_n2n_train_step, multistep_lr,
+    from ..train import (create_train_state, make_n2n_train_step,
+                         make_structure_train_step, multistep_lr,
                          reference_milestones, set_learning_rate)
-    from .common import build_network, load_params, save_png
+    from ..utils.profiling import trace
+    from .common import build_network, load_params, resolve_dtype, save_png
 
     dataset = DenoiseDataset(opt.data_dir)
     valid = validation_denoise(opt.data_dir)
 
     torch.manual_seed(opt.seed)
-    network = build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature)
+    network = build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature,
+                            dtype=resolve_dtype(opt.dtype), remat=opt.remat,
+                            remat_depth=opt.remat_depth)
     if opt.resume:
         load_params(opt.resume, network)
         print(f"Resumed params from {opt.resume}")
@@ -142,12 +153,15 @@ def main(argv=None):
 
     state = create_train_state(network, lr=opt.lr)
     milestones = reference_milestones(opt.n_epoch)
-    aug = AugmentNoise(opt.noisetype)
-    step_fn = make_n2n_train_step(
-        network, state, noise_fn=aug.add_train_noise,
-        increase_ratio=opt.increase_ratio, n_epoch=opt.n_epoch,
-        lambda1=opt.Lambda1, lambda2=opt.Lambda2,
-    )
+    if opt.loss == "structure":
+        step_fn = make_structure_train_step(network, state, alpha=opt.Lambda1)
+    else:
+        aug = AugmentNoise(opt.noisetype)
+        step_fn = make_n2n_train_step(
+            network, state, noise_fn=aug.add_train_noise,
+            increase_ratio=opt.increase_ratio, n_epoch=opt.n_epoch,
+            lambda1=opt.Lambda1, lambda2=opt.Lambda2,
+        )
     opseeds = OperationSeed(opt.seed)
 
     save_model_path = os.path.join(opt.save_model_path, opt.log_name, systime)
@@ -156,15 +170,18 @@ def main(argv=None):
     print(f"Batchsize={opt.batchsize}, number of epoch={opt.n_epoch}")
 
     rng = np.random.default_rng(opt.seed)
+    profiler = contextlib.ExitStack()
+    profiling = False
 
     def flush_metrics(p):
-        # reference log format: the n2n path reports its rec term as Loss1;
-        # the epoch mean + A_log.csv record it (train.py:365-377,434). Under
+        # reference log format: Loss1 = plain L1(net(noisy), clean)
+        # (train.py:369-373); the n2n path reports its rec term instead. The
+        # epoch mean + A_log.csv record it (train.py:365-377,434). Under
         # lag-1, Time spans step i's prep start → its metric fetch, which
         # lands after step i+1 is queued: the pipelined per-step interval.
         ep, i, st0, m = p
         loss = float(m["loss"])
-        l1_part = float(m["loss_rec"])
+        l1_part = float(m["l1"] if "l1" in m else m["loss_rec"])
         losses.append(l1_part)
         print(
             f"{ep:04d} {i:05d} Loss1={l1_part:.6f}, "
@@ -184,8 +201,18 @@ def main(argv=None):
         ):
             if opt.max_steps_per_epoch and it >= opt.max_steps_per_epoch:
                 break
+            if opt.profile_dir and epoch == opt.start_epoch and it == 0:
+                profiler.enter_context(trace(opt.profile_dir))
+                profiling = True
+            if profiling and it == opt.profile_steps:
+                profiler.close()
+                profiling = False
+                print(f"profiler trace written to {opt.profile_dir}")
             st = time.time()
-            metrics = step_fn(clean, noisy, opseeds.next(), epoch)
+            if opt.loss == "structure":
+                metrics = step_fn(clean, noisy)
+            else:
+                metrics = step_fn(clean, noisy, opseeds.next(), epoch)
             # lag-1 logging: fetch the previous step's metrics only after
             # queueing this one
             if pending is not None:
@@ -193,6 +220,11 @@ def main(argv=None):
             pending = (epoch, it, st, metrics)
         if pending is not None:
             flush_metrics(pending)
+
+        if profiling:
+            profiler.close()
+            profiling = False
+            print(f"profiler trace written to {opt.profile_dir}")
 
         train_time = time.time() - epoch_st
         mean_loss = float(np.mean(losses)) if losses else float("nan")
@@ -214,7 +246,7 @@ def main(argv=None):
                 with torch.no_grad():
                     pred = network(
                         torch.from_numpy(x).to(device).permute(2, 0, 1)[None] / 255.0)
-                pred = pred[0].permute(1, 2, 0).cpu().numpy()
+                pred = pred[0].permute(1, 2, 0).float().cpu().numpy()
                 pred = np.clip(pred, 0, 1).squeeze()
                 pred255 = np.clip(pred * 255.0 + 0.5, 0, 255).astype(np.uint8)
 

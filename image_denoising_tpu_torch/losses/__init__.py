@@ -1,4 +1,5 @@
 from .n2n import n2n_regularized_loss
-from .pixel import l1_loss, l2_loss
+from .pixel import gradient_loss, l1_loss, l1fft_loss, l2_loss, structure_loss
 
-__all__ = ["l1_loss", "l2_loss", "n2n_regularized_loss"]
+__all__ = ["gradient_loss", "l1_loss", "l1fft_loss", "l2_loss",
+           "n2n_regularized_loss", "structure_loss"]

@@ -8,26 +8,62 @@ init, as the reference does. The module tree is named after the reference,
 so a state dict from ``ckpt/pth_export.py::params_to_state_dict`` loads with
 ``strict=True``: ``noise_estimator.{0,2}``, ``downs.{i}.{0,2,3}``,
 ``bottle.{0,1}``, ``ups.{i}.{conv_ps,fuse,rdb,res}``, ``final``.
+
+``dtype`` (compute dtype) and ``remat`` / ``remat_depth`` follow the flax
+module's semantics and change no parameter or key: parameters stay
+float32, each conv casts its input and weight to the compute dtype (so
+gradients reach the float32 parameters through the cast), GroupNorm takes
+its statistics in float32 and returns the compute dtype, and concatenating
+the float32 input with bfloat16 maps promotes to float32, as
+``jnp.concatenate`` does. ``torch.autocast`` is not used: its per-op lists
+differ from flax's (GroupNorm's and sigmoid's output dtypes).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import LEAKY_SLOPE, gn_groups, leaky_relu, max_pool_2x2, pixel_shuffle
 
-__all__ = ["GroupNorm", "ResBlock", "RDB", "UpBlock", "ImprovedUNet"]
+__all__ = ["Conv2d", "GroupNorm", "ResBlock", "RDB", "UpBlock", "ImprovedUNet"]
 
 
-def _conv3(cin: int, cout: int, bias: bool = True) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1, bias=bias)
+class Conv2d(nn.Conv2d):
+    """SAME conv that computes in ``compute_dtype`` when one is set (flax
+    ``nn.Conv(dtype=...)``): input, weight and bias cast to it."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, bias: bool = True):
+        super().__init__(cin, cout, kernel, padding=kernel // 2, bias=bias)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm with the reference group-count fallback (eps 1e-5)."""
+    """GroupNorm with the reference group-count fallback (eps 1e-5); with a
+    ``compute_dtype``, statistics and affine in float32, output in it."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, channels: int, groups: int = 32):
         super().__init__(gn_groups(channels, groups), channels, eps=1e-5)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                            self.eps).to(dt)
 
 
 class ResBlock(nn.Module):
@@ -36,10 +72,10 @@ class ResBlock(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.block = nn.Sequential(
-            _conv3(channels, channels, bias=False),
+            Conv2d(channels, channels, bias=False),
             GroupNorm(channels),
             nn.LeakyReLU(LEAKY_SLOPE),
-            _conv3(channels, channels, bias=False),
+            Conv2d(channels, channels, bias=False),
             GroupNorm(channels),
         )
 
@@ -53,9 +89,9 @@ class RDB(nn.Module):
     def __init__(self, channels: int, growth: int = 32, layers: int = 4):
         super().__init__()
         self.convs = nn.ModuleList(
-            _conv3(channels + i * growth, growth) for i in range(layers)
+            Conv2d(channels + i * growth, growth) for i in range(layers)
         )
-        self.lff = nn.Conv2d(channels + layers * growth, channels, 1)
+        self.lff = Conv2d(channels + layers * growth, channels, 1)
 
     def forward(self, x):
         feats = [x]
@@ -69,8 +105,8 @@ class UpBlock(nn.Module):
 
     def __init__(self, in_ch: int, skip_ch: int, out_ch: int):
         super().__init__()
-        self.conv_ps = _conv3(in_ch, out_ch * 4)
-        self.fuse = _conv3(out_ch + skip_ch, out_ch)
+        self.conv_ps = Conv2d(in_ch, out_ch * 4)
+        self.fuse = Conv2d(out_ch + skip_ch, out_ch)
         self.rdb = RDB(out_ch)
         self.res = ResBlock(out_ch)
 
@@ -85,24 +121,36 @@ class ImprovedUNet(nn.Module):
 
     Widths at n_feature=48: down levels 48, 96, 192, 384; bottleneck 384;
     up blocks 192, 96, 48, 24 with concat inputs 576, 288, 144, 72.
+
+    ``dtype``: compute dtype (None: float32); setting the attribute later
+    switches every conv and GroupNorm. ``remat``: recompute blocks during
+    backward (``torch.utils.checkpoint``, non-reentrant) instead of keeping
+    their activations. At resolution level L (H/2^L) the RDB and ResBlock
+    of ``downs[L]`` are recomputed, ``ups[i]`` as a whole at level
+    depth−1−i, and the bottleneck's at level ``depth``, when ``remat`` and
+    (``remat_depth`` is None or L < ``remat_depth``). The down levels' lead
+    conv is never recomputed. Both are read at forward time.
     """
 
     def __init__(self, in_nc: int = 3, out_nc: int = 3, n_feature: int = 48,
-                 depth: int = 4, noise: bool = True):
+                 depth: int = 4, noise: bool = True,
+                 dtype: Optional[torch.dtype] = None, remat: bool = False,
+                 remat_depth: Optional[int] = None):
         super().__init__()
         self.in_nc, self.out_nc = in_nc, out_nc
         self.n_feature, self.depth, self.noise = n_feature, depth, noise
+        self.remat, self.remat_depth = remat, remat_depth
         if noise:
             self.noise_estimator = nn.Sequential(
-                _conv3(in_nc, n_feature), nn.LeakyReLU(LEAKY_SLOPE),
-                _conv3(n_feature, 1), nn.Sigmoid(),
+                Conv2d(in_nc, n_feature), nn.LeakyReLU(LEAKY_SLOPE),
+                Conv2d(n_feature, 1), nn.Sigmoid(),
             )
         cin = in_nc + (1 if noise else 0)
         widths = [n_feature * 2 ** i for i in range(depth)]
         self.downs = nn.ModuleList()
         for nf in widths:
             self.downs.append(nn.Sequential(
-                _conv3(cin, nf), nn.LeakyReLU(LEAKY_SLOPE), RDB(nf), ResBlock(nf),
+                Conv2d(cin, nf), nn.LeakyReLU(LEAKY_SLOPE), RDB(nf), ResBlock(nf),
             ))
             cin = nf
         self.bottle = nn.Sequential(RDB(cin), ResBlock(cin))
@@ -110,7 +158,27 @@ class ImprovedUNet(nn.Module):
         for skip in reversed(widths):
             self.ups.append(UpBlock(cin, skip, cin // 2))
             cin //= 2
-        self.final = _conv3(cin + in_nc, out_nc)
+        self.final = Conv2d(cin + in_nc, out_nc)
+        self.dtype = dtype
+
+    @property
+    def dtype(self) -> Optional[torch.dtype]:
+        return self._dtype
+
+    @dtype.setter
+    def dtype(self, dt: Optional[torch.dtype]) -> None:
+        self._dtype = dt
+        for m in self.modules():
+            if isinstance(m, (Conv2d, GroupNorm)):
+                m.compute_dtype = dt
+
+    def _block(self, block: nn.Module, level: int, *args):
+        """``block(*args)`` at resolution ``level``, recomputed in backward
+        when ``remat`` reaches that level."""
+        if (self.remat and (self.remat_depth is None or level < self.remat_depth)
+                and torch.is_grad_enabled()):
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
     def forward(self, x):
         div = 2 ** self.depth
@@ -125,11 +193,13 @@ class ImprovedUNet(nn.Module):
             x = torch.cat([x, self.noise_estimator(x)], 1)
         orig = x[:, : self.in_nc]
         skips = []
-        for down in self.downs:
-            x = down(x)
+        for level, (lead, act, rdb, res) in enumerate(self.downs):
+            x = act(lead(x))
+            x = self._block(res, level, self._block(rdb, level, x))
             skips.append(x)
             x = max_pool_2x2(x)
-        x = self.bottle(x)
-        for up, skip in zip(self.ups, reversed(skips)):
-            x = up(x, skip)
+        rdb, res = self.bottle
+        x = self._block(res, self.depth, self._block(rdb, self.depth, x))
+        for i, (up, skip) in enumerate(zip(self.ups, reversed(skips))):
+            x = self._block(up, self.depth - 1 - i, x, skip)
         return torch.sigmoid(self.final(torch.cat([x, orig], 1)))

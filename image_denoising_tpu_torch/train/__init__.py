@@ -1,12 +1,15 @@
 from .schedule import hpo_milestones, multistep_lr, reference_milestones
 from .state import TrainState, create_train_state, set_learning_rate
-from .steps import make_n2n_train_step, to_nchw01
+from .steps import (make_l1_train_step, make_n2n_train_step,
+                    make_structure_train_step, to_nchw01)
 
 __all__ = [
     "TrainState",
     "create_train_state",
     "hpo_milestones",
+    "make_l1_train_step",
     "make_n2n_train_step",
+    "make_structure_train_step",
     "multistep_lr",
     "reference_milestones",
     "set_learning_rate",

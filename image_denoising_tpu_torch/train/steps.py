@@ -1,15 +1,18 @@
 """Train steps (counterpart of ``image_denoising_tpu/train/steps.py``).
 
-``make_n2n_train_step`` is the Neighbor2Neighbor step of ``steps.py:144-200``
-in eager PyTorch: [synthetic noise] → one call to the sub-sampler kernel →
-no-grad f(noisy) → f(sub1) → regularized loss → backward → Adam. Both
-forwards run the module (cuDNN on the card): the chain kernel has no
-backward, as in JAX. The step returns its metrics as device tensors, so
-the caller decides when to wait for them.
+Each factory returns ``step(...) -> metrics`` over a ``TrainState``, in
+eager PyTorch: /255 on the device → forward(s) → loss → backward → Adam.
+The metrics are device tensors, so the caller decides when to wait for
+them (the CLI fetches them one step late).
 
-The bad-batch guard (``_guarded_update``) and the structure and L1 steps
-come with the structure-trainer slice (ROADMAP.md): the N2N step uses no
-guard, as in JAX.
+``_guarded_update`` is the bad-batch guard of ``steps.py:33-55``: it
+keeps or drops the whole update on the device, with no host sync, as
+JAX's ``lax.cond`` does. The N2N step uses no guard, as in JAX.
+
+``make_n2n_train_step`` is the Neighbor2Neighbor step of ``steps.py:144-200``:
+[synthetic noise] → one call to the sub-sampler kernel → no-grad f(noisy)
+→ f(sub1) → regularized loss → backward → Adam. Every forward runs the
+module (cuDNN on the card): the chain kernel has no backward, as in JAX.
 """
 from __future__ import annotations
 
@@ -18,25 +21,133 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..losses import n2n_regularized_loss
+from ..losses import l1_loss, n2n_regularized_loss, structure_loss
 from ..ops.neighbor import generate_subimages, subsample_pair_fused
 from ..ops.rng import split_seed
 from .state import TrainState
 
-__all__ = ["make_n2n_train_step", "to_nchw01"]
+__all__ = ["make_l1_train_step", "make_n2n_train_step", "make_structure_train_step",
+           "to_nchw01"]
 
 
-def to_nchw01(batch255, device: torch.device) -> torch.Tensor:
-    """NHWC frames in [0,255] (numpy or tensor) → NCHW float32 in [0,1] on
-    ``device``; /255 runs on the device. Host arrays go through pinned
-    memory, so the copy does not wait for the work queued before it."""
-    t = torch.as_tensor(batch255)
+def to_nchw01(batch, device: torch.device, scale: float = 255.0) -> torch.Tensor:
+    """NHWC frames in [0, scale] (numpy or tensor) → NCHW float32 in [0,1]
+    on ``device``; the division runs on the device. Host arrays go through
+    pinned memory, so the copy does not wait for the work queued before it."""
+    t = torch.as_tensor(batch)
     if t.device != device:
         if device.type == "cuda" and t.device.type == "cpu":
             t = t.pin_memory().to(device, non_blocking=True)
         else:
             t = t.to(device)
-    return t.permute(0, 3, 1, 2).float().contiguous() / 255.0
+    return t.permute(0, 3, 1, 2).float().contiguous() / scale
+
+
+@torch.no_grad()
+def _guarded_update(state: TrainState, loss: torch.Tensor, *,
+                    grad_clip: Optional[float], max_loss_skip: Optional[float],
+                    max_grad_norm: Optional[float]):
+    """Apply the gradients on the parameters only when the loss and their
+    global norm pass the guards; else count a skip. Returns (norm, ok).
+
+    ok = loss finite [and ≤ max_loss_skip], norm finite [and ≤
+    10·max_grad_norm]; ``grad_clip`` scales the gradients by
+    min(1, clip/(norm + 1e-12)) first. Adam steps unconditionally, then
+    every parameter, moment and Adam step count is set back to its copy
+    from before the step where ``ok`` is false: a rejected batch changes
+    none of them, bit for bit, and nothing waits for the host.
+    """
+    opt = state.optimizer
+    params = [p for g in opt.param_groups for p in g["params"] if p.grad is not None]
+    grads = [p.grad for p in params]
+    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+    if max_loss_skip is not None:
+        ok &= loss <= max_loss_skip
+    if max_grad_norm is not None:
+        ok &= gnorm <= max_grad_norm * 10.0
+    if grad_clip is not None:
+        torch._foreach_mul_(grads, torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0))
+    kept = params + [opt.state[p][k] for k in ("exp_avg", "exp_avg_sq", "step")
+                     for p in params]
+    before = [t.clone() for t in kept]
+    opt.step()
+    for t, old in zip(kept, before):
+        torch.where(ok, t, old, out=t)
+    state.step += ok.to(torch.int32)
+    state.skipped += (~ok).to(torch.int32)
+    return gnorm, ok
+
+
+def make_structure_train_step(
+    model: torch.nn.Module,
+    state: TrainState,
+    alpha: float = 1.0,
+    beta: float = 0.5,
+    gamma: float = 0.5,
+    guards: bool = False,
+    grad_clip: Optional[float] = None,
+    fused: bool = True,
+):
+    """A-domain trainer step (reference ``train.py:354-368``):
+    ``step(clean255, noisy255) -> {"loss", "l1"}``, frames NHWC in [0,255].
+
+    ``fused=True`` runs network(noisy) and network(clean) as one
+    concatenated batch-2B forward and splits the output: the same function
+    (convs, pools and GroupNorm are per sample, the loss terms elementwise),
+    with every conv at twice the batch. ``fused=False`` keeps the literal
+    two forwards. ``l1`` is L1(network(noisy), clean), the log's ``Loss1``.
+    """
+    device = next(model.parameters()).device
+
+    def step(clean255, noisy255):
+        clean01 = to_nchw01(clean255, device)
+        noisy01 = to_nchw01(noisy255, device)
+        if fused:
+            b = noisy01.shape[0]
+            both = model(torch.cat([noisy01, clean01], 0))
+            pred_n, pred_c = both[:b], both[b:]
+        else:
+            pred_n = model(noisy01)
+            pred_c = model(clean01)
+        loss = structure_loss(pred_n, pred_c, clean01, alpha, beta, gamma)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if guards or grad_clip is not None:
+            _guarded_update(state, loss, grad_clip=grad_clip,
+                            max_loss_skip=5.0 if guards else None,
+                            max_grad_norm=20.0 if guards else None)
+        else:
+            state.optimizer.step()
+            state.step += 1
+        return {"loss": loss.detach(), "l1": l1_loss(pred_n.detach(), clean01)}
+
+    return step
+
+
+def make_l1_train_step(model: torch.nn.Module, state: TrainState, guards: bool = True,
+                       grad_clip: Optional[float] = 1.0, inputs_01: bool = True):
+    """HPO trainer step (reference ``train_opt.py:118-160``): L1 loss and the
+    full guard set; ``step(clean, noisy) -> {"loss", "grad_norm", "ok"}``.
+
+    ``inputs_01``: the frames are already [0,1] floats (train_opt's
+    dataset); else [0,255].
+    """
+    device = next(model.parameters()).device
+    scale = 1.0 if inputs_01 else 255.0
+
+    def step(clean, noisy):
+        clean01 = to_nchw01(clean, device, scale)
+        noisy01 = to_nchw01(noisy, device, scale)
+        loss = l1_loss(model(noisy01), clean01)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        gnorm, ok = _guarded_update(state, loss, grad_clip=grad_clip,
+                                    max_loss_skip=5.0 if guards else None,
+                                    max_grad_norm=20.0 if guards else None)
+        return {"loss": loss.detach(), "grad_norm": gnorm, "ok": ok}
+
+    return step
 
 
 def make_n2n_train_step(

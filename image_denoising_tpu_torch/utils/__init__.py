@@ -1,3 +1,4 @@
 from .device import resolve_device
+from .profiling import trace
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "trace"]

@@ -36,7 +36,7 @@ def test_port_modules_import_no_jax():
                 "adapters.memory_adapters", "adapters.output_adapter",
                 "eval.tiled", "cli.train", "ops.neighbor", "ops.rng",
                 "ops.noise", "losses.n2n", "losses.pixel", "train.schedule",
-                "train.state", "train.steps"):
+                "train.state", "train.steps", "ckpt.io", "utils.profiling"):
         assert f"image_denoising_tpu_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
@@ -69,6 +69,7 @@ def _entry_points():
             ["--data_dir", "missing", "--base_ckpt", "b.pth",
              "--adapter_ckpt", "a.pth"]),
         "train": lambda: train.main(["--loss", "n2n", "--data_dir", "missing"]),
+        "train_structure": lambda: train.main(["--data_dir", "missing"]),
         # the draw of subsample_pair_fused's plain version
         "generate_mask_pair": lambda: generate_mask_pair(0, (1, 1, 4, 4)),
     }
@@ -79,7 +80,7 @@ def _entry_points():
                                   "hann_runner", "hann_runner_frames",
                                   "denoise_tiled_hann", "build_memory_bank",
                                   "evaluation_704_iqsl_memory", "train",
-                                  "generate_mask_pair"])
+                                  "train_structure", "generate_mask_pair"])
 def test_entry_points_default_to_cuda(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():

@@ -329,3 +329,52 @@ def test_train_cli_on_card(cuda, tmp_path):
         row = f.read().strip()
     assert row.startswith("epoch1, loss_")
     assert np.isfinite(float(row.split("loss_")[1].split(",")[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guards", [False, True])
+def test_structure_step_on_card_matches_cpu(cuda, guards):
+    """Two structure steps at n_feature 8 on 64² frames: the card (cuDNN,
+    TF32 off, a ``capturable`` Adam) against the CPU, losses within rtol
+    1e-4 (sums in another order, one Adam step apart). With guards, a NaN
+    batch between them is skipped on both; on the card under
+    ``set_sync_debug_mode("error")``, leaving every parameter and Adam
+    tensor equal."""
+    import copy
+
+    import numpy as np
+
+    from image_denoising_tpu_torch.models import ImprovedUNet
+    from image_denoising_tpu_torch.train import create_train_state, make_structure_train_step
+
+    torch.manual_seed(7)
+    cpu_model = ImprovedUNet(1, 1, 8)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(2):
+        clean = rng.integers(0, 256, (2, 64, 64, 1)).astype(np.float32)
+        batches.append((clean, np.clip(clean + rng.normal(0, 25, clean.shape), 0, 255)))
+    bad = batches[0][0].copy()
+    bad[0, 3, 5, 0] = np.nan
+    losses = {}
+    for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        state = create_train_state(model)
+        step = make_structure_train_step(model, state, guards=guards)
+        losses[name] = [float(step(*batches[0])["loss"])]
+        if guards:
+            def tensors():
+                return list(model.parameters()) + [
+                    t for s in state.optimizer.state.values() for t in s.values()]
+
+            before = [t.clone() for t in tensors()]
+            torch.cuda.set_sync_debug_mode("error" if name == "cuda" else 0)
+            try:
+                step(bad, batches[0][1])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert all(torch.equal(a, b) for a, b in zip(before, tensors()))
+            assert int(state.skipped) == 1
+        losses[name].append(float(step(*batches[1])["loss"]))
+        assert int(state.step) == 2
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -1,6 +1,7 @@
-"""The port's train CLI (``--loss n2n``) on the CPU: the reference outputs and
-log lines, a ``.pth`` the JAX package reads, ``--resume``, and the flags
-that wait for later slices."""
+"""The port's train CLI on the CPU: the reference outputs and log lines of
+``--loss n2n``, a ``.pth`` the JAX package reads, ``--resume``, what the
+structure-loss slice's flags do, the JAX CLI's losses from the same
+weights and frames, and the flags that wait for later slices."""
 import glob
 import os
 import re
@@ -118,25 +119,129 @@ def test_resume_starts_from_the_checkpoint(run, data_dir, tmp_path):
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
+STEP_LINE = re.compile(r"^(\d{4}) (\d{5}) Loss1=(\d+\.\d{6}), Loss_Full=(\d+\.\d{6}), "
+                       r"Time=\d+\.\d{4}$", re.M)
+
+
+def _first_step_losses(data_dir, run_dir, **flags):
+    """(L1, structure loss) of the CLI's first step, recomputed: the epoch-0
+    checkpoint in a model built with the run's flags, on the first batch of
+    the seed-0 shuffle, as ``make_structure_train_step`` computes them."""
+    from image_denoising_tpu_torch.data import DenoiseDataset
+    from image_denoising_tpu_torch.losses import l1_loss, structure_loss
+
+    model = ImprovedUNet(1, 1, 8, **flags)
+    model.load_state_dict(torch.load(os.path.join(run_dir, "epoch_model_000.pth"),
+                                     weights_only=True), strict=True)
+    clean, noisy = next(DenoiseDataset(data_dir).batches(2, np.random.default_rng(0),
+                                                         shuffle=True, drop_last=True))
+    c, n = (torch.from_numpy(a).permute(0, 3, 1, 2) / 255.0 for a in (clean, noisy))
+    with torch.no_grad():
+        both = model(torch.cat([n, c], 0))
+    return float(l1_loss(both[:2], c)), float(structure_loss(both[:2], both[2:], c))
+
+
 @pytest.mark.parametrize("flags", [
     [],                                    # the default --loss structure
     ["--loss", "structure"],
     ["--dtype", "bfloat16"],
     ["--remat"],
     ["--remat_depth", "2"],
+    ["--profile_dir", "trace"],
+])
+def test_train_cli_accepts_the_structure_slice_flags(data_dir, tmp_path, capsys, flags):
+    """One structure-loss step on the CPU with each flag of this slice: the
+    logged Loss1/Loss_Full are the recomputed L1 and Structure loss of the
+    model the flags build (rtol 1e-5: the same ops, one batch), the model
+    computes in bfloat16 with float32 parameters, recomputes the blocks the
+    remat flags name, or the trace file is written."""
+    if "--profile_dir" in flags:
+        flags = ["--profile_dir", str(tmp_path / "trace")]
+    state = train.main(["--device", "cpu", "--arch", "UNetImproved", "--n_feature", "8",
+                        "--batchsize", "2", "--n_epoch", "1", "--max_steps_per_epoch", "1",
+                        "--data_dir", data_dir, "--save_model_path", str(tmp_path / "out")]
+                       + flags)
+    model = state.model
+    want_flags = dict(dtype=torch.bfloat16 if "--dtype" in flags else None,
+                      remat="--remat" in flags or "--remat_depth" in flags,
+                      remat_depth=2 if "--remat_depth" in flags else None)
+    assert (model.dtype, model.remat, model.remat_depth) == tuple(want_flags.values())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    with torch.no_grad():
+        out = model(torch.rand(1, 1, 32, 32))
+    assert out.dtype == (want_flags["dtype"] or torch.float32)
+    assert int(state.step) == 1 and int(state.skipped) == 0
+    (run_dir,) = glob.glob(str(tmp_path / "out" / "*" / "*"))
+    assert sorted(os.listdir(run_dir)) == ["epoch_model_000.pth", "epoch_model_001.pth",
+                                           "validation"]
+    ((_, _, l1, full),) = STEP_LINE.findall(capsys.readouterr().out)
+    want_l1, want_full = _first_step_losses(data_dir, run_dir, **want_flags)
+    np.testing.assert_allclose([float(l1), float(full)], [want_l1, want_full], rtol=1e-5)
+    if "--profile_dir" in flags:
+        assert glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+
+
+@pytest.mark.parametrize("flags", [
     ["--parallel"],
     ["--blindspot"],
-    ["--profile_dir", "trace"],
     ["--resume", "model.ckpt"],
     ["--gpu_devices", "0,1"],
 ])
 def test_train_cli_refuses_flags_of_later_slices(data_dir, tmp_path, flags):
-    args = ["--device", "cpu", "--data_dir", data_dir, "--save_model_path", str(tmp_path)]
-    if flags[:1] != ["--loss"] and flags:
-        args += ["--loss", "n2n"]
+    args = ["--device", "cpu", "--loss", "n2n", "--data_dir", data_dir,
+            "--save_model_path", str(tmp_path)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(args + flags)
     assert os.listdir(tmp_path) == []
+
+
+@pytest.fixture(scope="module")
+def data_dir64(tmp_path_factory):
+    """5 seeded 64² pairs: a 4×4 bottleneck, where the packages' gradients
+    agree to float32 rounding (at 32² GroupNorm groups are too small)."""
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("structdata")
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[0:64, 0:64]
+    for sub in ("clean", "noise"):
+        (root / sub).mkdir()
+    for i in range(5):
+        clean = (120 + 60 * np.sin(xx / 7.0 + i) + 30 * np.cos(yy / 9.0)).clip(0, 255)
+        noisy = np.clip(clean + rng.normal(0, 25, clean.shape), 0, 255)
+        Image.fromarray(clean.astype(np.uint8)).save(root / "clean" / f"sem{i:02d}.png")
+        Image.fromarray(noisy.astype(np.uint8)).save(root / "noise" / f"sem{i:02d}.png")
+    return str(root)
+
+
+def test_structure_cli_matches_the_jax_cli(data_dir64, tmp_path, capsys):
+    """Both CLIs with their default structure loss, resumed from one
+    JAX-param ``.pth``, on the same frames and seed: 2 steps at batch 2.
+    The batch order is the same shuffle of the same seed; the logged
+    Loss1/Loss_Full agree within rtol 1e-4 (float32 sums in another order,
+    one Adam step apart at step 2; readings: equal in all 6 printed
+    decimals)."""
+    from image_denoising_tpu.ckpt.pth_export import export_pth
+    from image_denoising_tpu.cli import train as jax_train_cli
+
+    from _torch_port_helpers import seeded_improved_unet_params
+
+    _, params = seeded_improved_unet_params(8, seed=21)
+    pth = export_pth(params, "UNetImproved", str(tmp_path / "start.pth"))
+    common = ["--arch", "UNetImproved", "--n_feature", "8", "--batchsize", "2",
+              "--n_epoch", "1", "--max_steps_per_epoch", "2", "--seed", "0",
+              "--resume", pth, "--data_dir", data_dir64]
+    lines = {}
+    for name, main, extra in (("port", train.main, ["--device", "cpu"]),
+                              ("jax", jax_train_cli.main, [])):
+        main(common + extra + ["--save_model_path", str(tmp_path / name)])
+        lines[name] = STEP_LINE.findall(capsys.readouterr().out)
+    assert [s[:2] for s in lines["port"]] == [s[:2] for s in lines["jax"]] == [
+        ("0001", "00000"), ("0001", "00001")]
+    got = np.array([[float(a), float(b)] for _, _, a, b in lines["port"]])
+    want = np.array([[float(a), float(b)] for _, _, a, b in lines["jax"]])
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert np.all(got[:, 0] < got[:, 1])  # Loss1 is the L1 part of Loss_Full
 
 
 def test_train_cli_refuses_other_architectures(data_dir, tmp_path):
