@@ -12,13 +12,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                CUDA cores) and the earlier CUDA-core kernel's time (PERF.md):
                fused_rdb_chain at the 9 chain shapes of E2 (B=8 tiles of
                352²) and of E6 (B=8 tiles of 128², down to the 8×8
-               bottleneck), in float32 and bfloat16, with the blocks of
-               each launch; top1_l2_retrieval on
+               bottleneck), and of the finetune path (B=4 tiles of 128², a
+               whole 704² frame), in float32 and bfloat16, with the blocks
+               of each launch; top1_l2_retrieval on
                seeded device banks of N=105,125 rows of D=16,384 in float32,
-               bfloat16 and int8, with B=400 and B=8 queries, a duplicated
+               bfloat16 and int8, with B=400, 8 and 4 queries (B=1-4 held to
+               the same limits), a duplicated
                row (the first must win), near ties that one TF32 product
                gets wrong and a bank padded to 512 rows (no padded row may
-               win); subsample_pair at N=4 352² frames, C=1
+               win); the launch floor (an empty kernel issued back to back);
+               subsample_pair at N=4 352² frames, C=1
                float32 (the training shape) and C=3 float32 and bfloat16:
                selectors and sub-images bit-equal, only the 8 listed pairs,
                each within 0.005 of 1/8, same seed same maps, another seed
@@ -69,6 +72,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                chain launch. One profiled step per dtype and the parts
                alone. Then cli/train.main with its defaults and with
                --dtype bfloat16 --remat_depth 2 --profile_dir, 2 steps each.
+  8. finetune — the B-domain loop: ImprovedUNet-48 (seeded) written as a
+               .ckpt and read back (bit-equal forward); the memory finetune
+               step at the launcher preset (scripts/finetune_memory.sh:
+               batch 4 of 128² patches of the 5 E6 pairs, hyper_gated_fft
+               hidden 16, λ_grad = λ_iqsl = 0.1, thresholds from the clean
+               frames) against a stride-4 bank of N = 105,125 in float32 and
+               in E6's int8/uint8: 2 warm-up and 10 timed steps under
+               torch.cuda.set_sync_debug_mode("error"), 9 chain launches and
+               1 retrieval launch each; the same 12 steps with the plain
+               retrieval and the module base within TRAIN_LOSS_RTOL (int8
+               indices bit-equal); base bit-equal after; ms/step, MP/s,
+               parts, peak GB, one profiled step's busy share and kernel
+               launches. Then cli.finetune, cli.finetune_iqsl and
+               cli.finetune_memory for 1 epoch of --patches_per_image 2 (a
+               tail batch) over the .ckpt base, and the E6 CLI serving the
+               adapter_only .ckpt the memory finetuner wrote.
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Per-shape details go to the --json file.
 """
@@ -168,6 +187,14 @@ BF16_STEP1_ABS, BF16_REL = 5e-3, 0.15
 # high multiplies, 4 xors and 2 key adds, plus the table look-ups
 PHILOX_OPS_PER_CELL = 10 * 10 + 8
 
+# the memory finetune step at the launcher preset (scripts/finetune_memory.sh):
+# batch 4 of 128² patches, 16 patches per image, hidden 16, Adam 1e-4,
+# λ_grad = λ_iqsl = 0.1, IQSL quantiles 0.2 / 0.8, τ 0.1; the queries a step
+# retrieves (4, and 1-3 in a tail batch)
+FT_B, FT_PATCHES, FT_LR, FT_LAMBDA = 4, 16, 1e-4, 0.1
+FT_QUERY_COUNTS = (1, 2, 3, 4)
+FT_EMPTY_LAUNCHES = 2000  # empty kernels issued back to back for the floor
+
 # retrieval check: a duplicated bank row (dup_hi := dup_lo), queries that
 # sit near no row, where float32 rankings come closest to a tie, and queries
 # whose two nearest rows (near_tie_rows, from row TIE_ROW on) are twice the
@@ -241,8 +268,8 @@ def random_chain(rng, cin, nf, lead, dtype):
         t((3, 3, nf, nf), 9 * nf))
 
 
-def phase_chain(seed: int, shapes, label: str, reps: int = 5):
-    """fused_rdb_chain against its plain version at ``shapes``, batch B."""
+def phase_chain(seed: int, shapes, label: str, reps: int = 5, batch: int = B):
+    """fused_rdb_chain against its plain version at ``shapes``, batch ``batch``."""
     import numpy as np
     import torch
 
@@ -257,14 +284,14 @@ def phase_chain(seed: int, shapes, label: str, reps: int = 5):
         rows = []
         for name, h, cin, nf, lead in shapes:
             x = torch.from_numpy(
-                rng.standard_normal((B, h, h, cin)).astype("float32")).to("cuda", dt)
+                rng.standard_normal((batch, h, h, cin)).astype("float32")).to("cuda", dt)
             wts = random_chain(rng, cin, nf, lead, dt)
             got = fused_rdb_chain(x, wts)
             want = fused_rdb_chain_reference(x, wts)
             torch.cuda.synchronize()
             err, scale = 0.0, 0.0
             for g, w in zip(got, want):
-                assert g.shape == w.shape == (B, h, h, nf) and g.dtype == dt
+                assert g.shape == w.shape == (batch, h, h, nf) and g.dtype == dt
                 assert torch.isfinite(g.float()).all()
                 err = max(err, (g.float() - w.float()).abs().max().item())
                 scale = max(scale, w.float().abs().max().item())
@@ -276,16 +303,16 @@ def phase_chain(seed: int, shapes, label: str, reps: int = 5):
             del got, want
             ms = time_ms(lambda: fused_rdb_chain(x, wts), reps=reps)
             plain_ms = time_ms(lambda: fused_rdb_chain_reference(x, wts), reps=reps)
-            flops, nbytes = chain_work(h, cin, nf, lead, x.element_size())
+            flops, nbytes = chain_work(h, cin, nf, lead, x.element_size(), batch)
             bound_ms, bound_by = bound(flops, nbytes, peak)
-            blocks = {conv: p["blocks"] for conv, p in chain_conv_plans(B, h, h, cin, wts)}
+            blocks = {conv: p["blocks"] for conv, p in chain_conv_plans(batch, h, h, cin, wts)}
             row = dict(name=name, h=h, cin=cin, nf=nf, lead=lead, blocks=blocks,
                        max_abs_err=err, tol=tol, max_abs_ref=scale,
                        ms=ms, plain_ms=plain_ms, gflop=flops / 1e9,
                        mbytes=nbytes / 1e6, bound_ms=bound_ms, bound_by=bound_by,
                        tflops=flops / ms / 1e9)
             rows.append(row)
-            log(f"[kernels] chain {label} {dname:8s} {name:6s} B={B} {h}x{h} "
+            log(f"[kernels] chain {label} {dname:8s} {name:6s} B={batch} {h}x{h} "
                 f"{cin}->{nf}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
                 f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.3f} ms "
                 f"({bound_by}) {row['tflops']:.2f} TFLOP/s; {route}; blocks per "
@@ -295,10 +322,11 @@ def phase_chain(seed: int, shapes, label: str, reps: int = 5):
             del x, wts
         results[dname] = rows
         ms = sum(r["ms"] for r in rows)
-        log(f"[kernels] chain {label} {dname:8s} the 9 calls of one {B}-tile chunk: "
-            f"{ms:.3f} ms on the {route} route (the CUDA-core kernel: "
-            f"{EARLIER_CHAIN_MS[label, dname]} ms, PERF.md); bound "
-            f"{sum(r['bound_ms'] for r in rows):.3f} ms")
+        earlier = EARLIER_CHAIN_MS.get((label, dname))
+        log(f"[kernels] chain {label} {dname:8s} the 9 calls of one {batch}-tile chunk: "
+            f"{ms:.3f} ms on the {route} route"
+            + (f" (the CUDA-core kernel: {earlier} ms, PERF.md)" if earlier else "")
+            + f"; bound {sum(r['bound_ms'] for r in rows):.3f} ms")
     return results
 
 
@@ -419,6 +447,24 @@ def phase_retrieval(seed: int):
                 raise AssertionError(
                     f"{dname}: largest f64 excess {excess:.4g} (tol {tol:.4g}); "
                     f"{mism_gap} indices differ where the f64 gap exceeds tol")
+        # the finetune step's query counts: B = 4 and a tail batch's 1-3,
+        # each held to the same limits (wgmma's N is the query count)
+        small_b = {}
+        for b in FT_QUERY_COUNTS:
+            idx_b = top1_l2_retrieval(q[:b].contiguous(), bank, sqn)
+            if dname == "int8":
+                ok, ex = torch.equal(idx_b, ref[:b]), 0.0
+            else:
+                picks = idx.long().clone()
+                picks[:b] = idx_b.long()
+                ex = float((dist(picks)[:b] - best[:b]).max())
+                ok = ex <= tol and not int(((idx_b.long() != arg[:b]) & decisive[:b]).sum())
+            small_b[b] = dict(max_f64_excess=ex, same_as_b400=bool(torch.equal(idx_b, idx[:b])))
+            if not ok:
+                raise AssertionError(f"{dname}: B={b} picks outside the limits "
+                                     f"(f64 excess {ex:.4g}, tol {tol:.4g})")
+        log(f"[kernels] top1 {dname:8s} B=1,2,3,4: within the limits; the same "
+            f"picks as at B=400: {[v['same_as_b400'] for v in small_b.values()]}")
         # padded to 512 rows: no padded row may win, the picks do not move
         bp, sp = pad_bank_for_retrieval(bank, sqn, 512)
         idx_p = top1_l2_retrieval(q, bp, sp)
@@ -428,7 +474,7 @@ def phase_retrieval(seed: int):
 
         route, peak = ROUTES[dname]
         rows = []
-        for b in (E6_TILES, 8):
+        for b in (E6_TILES, 8, FT_B):
             qb = q[:b].contiguous()
             ms = time_ms(lambda: top1_l2_retrieval(qb, bank, sqn), reps=5)
             plain_ms = time_ms(lambda: top1_l2_retrieval_reference(qb, bank, sqn), reps=3)
@@ -439,14 +485,15 @@ def phase_retrieval(seed: int):
             rows.append(dict(batch=b, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              tops=2.0 * b * n * d / ms / 1e9))
+            earlier = EARLIER_TOP1_MS.get((dname, b))
             log(f"[kernels] top1 {dname:8s} B={b:3d} N={n} D={d}: kernel {ms:.3f} ms "
                 f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms bound "
-                f"{bound_ms:.3f} ms ({bound_by}) {rows[-1]['tops']:.2f} TOP/s; {route} "
-                f"(the CUDA-core kernel: {EARLIER_TOP1_MS[dname, b]} ms, PERF.md)")
+                f"{bound_ms:.3f} ms ({bound_by}) {rows[-1]['tops']:.2f} TOP/s; {route}"
+                + (f" (the CUDA-core kernel: {earlier} ms, PERF.md)" if earlier else ""))
         results[dname] = dict(max_f64_excess=excess, tol=tol,
                               mismatched_vs_plain=mism_plain,
                               mismatched_where_gap_exceeds_tol=mism_gap,
-                              near_ties_right=ties, rows=rows)
+                              near_ties_right=ties, rows=rows, small_batches=small_b)
         log(f"[kernels] top1 {dname:8s}: duplicate row {DUP_LO} wins; padded bank "
             f"agrees; vs plain {mism_plain} of {E6_TILES} indices differ; largest "
             f"f64 excess {excess:.4g} (tol {tol:.4g}); {ties} of {N_TIE} near ties "
@@ -1248,9 +1295,9 @@ def phase_train_cli(seed: int):
     import tempfile
 
     import numpy as np
-    import torch
     from PIL import Image
 
+    from image_denoising_tpu_torch.ckpt import load_checkpoint
     from image_denoising_tpu_torch.cli import train as train_cli
     from image_denoising_tpu_torch.models import ImprovedUNet
     from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
@@ -1288,9 +1335,10 @@ def phase_train_cli(seed: int):
                                      f"(want {want}), {fused_rdb_chain.launches} chain "
                                      "launches (want 0)")
             (run_dir,) = glob.glob(os.path.join(tmp, name, "*", "*"))
-            for ckpt in ("epoch_model_000.pth", "epoch_model_001.pth"):
+            for ckpt in ("epoch_model_000.ckpt", "epoch_model_001.ckpt"):
                 ImprovedUNet(1, 1, NF).load_state_dict(
-                    torch.load(os.path.join(run_dir, ckpt), weights_only=True), strict=True)
+                    load_checkpoint(os.path.join(run_dir, ckpt), arch="UNetImproved"),
+                    strict=True)
             with open(os.path.join(run_dir, "validation", "A_log.csv")) as f:
                 a_log = f.read().strip()
             mean_loss = float(a_log.split("loss_")[1].split(",")[0])
@@ -1310,6 +1358,351 @@ def phase_train_cli(seed: int):
                 + (f"; trace {os.path.basename(traces[0])}" if traces else ""))
     return dict(out["n2n"], structure=out["structure"],
                 structure_bf16_remat=out["structure_bf16_remat"])
+
+
+def phase_launch_floor():
+    """The card's least time per launch: an empty sm_90a kernel
+    (csrc/neighbor.cu) issued back to back from C, timed with CUDA events,
+    and its device time from torch.profiler."""
+    import ctypes
+
+    import torch
+
+    from image_denoising_tpu_torch.ops._build import load_neighbor
+
+    lib = load_neighbor()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch(n):
+        if lib.idt_empty_launches(n, stream) != 0:
+            raise AssertionError("the empty kernel did not launch")
+
+    launch(100)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    launch(FT_EMPTY_LAUNCHES)
+    end.record()
+    end.synchronize()
+    per_launch_ms = start.elapsed_time(end) / FT_EMPTY_LAUNCHES
+    device_ms = kernel_device_ms(lambda: launch(1), "empty_kernel")
+    log(f"[kernels] launch floor: an empty sm_90a kernel issued {FT_EMPTY_LAUNCHES} times "
+        f"back to back from C takes {per_launch_ms * 1e3:.3f} us per launch; its device "
+        f"time {device_ms * 1e3:.3f} us (torch.profiler)")
+    return dict(back_to_back_ms=per_launch_ms, device_ms=device_ms)
+
+
+def _write_pairs(root, clean, noise):
+    """PNG pairs under root/clean and root/noise, as the CLIs read them."""
+    from PIL import Image
+
+    for sub, frames in (("clean", clean), ("noise", noise)):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i, f in enumerate(frames):
+            Image.fromarray(f).save(os.path.join(root, sub, f"sem{i:03d}.png"))
+
+
+def phase_finetune(seed: int):
+    """The B-domain loop on the card: a .ckpt base written and read back, 12
+    memory finetune steps at the launcher preset with a float32 and E6's
+    int8/uint8 bank, each against the same steps with the plain retrieval
+    and the module base, and short runs of the three finetune CLIs with the
+    E6 CLI serving the adapter the memory finetuner wrote."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.adapters import (DenoiserWithMemoryAdapter,
+                                                    build_memory_adapter, wrappers)
+    from image_denoising_tpu_torch.ckpt import load_checkpoint, save_checkpoint
+    from image_denoising_tpu_torch.data import DenoisePatchDataset
+    from image_denoising_tpu_torch.losses import estimate_intensity_thresholds
+    from image_denoising_tpu_torch.memory import MemoryBank, build_memory_bank_from_frames
+    from image_denoising_tpu_torch.memory.retrieval import (top1_l2_retrieval,
+                                                            top1_l2_retrieval_reference)
+    from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+    from image_denoising_tpu_torch.train import create_train_state, make_memory_finetune_step
+
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp_ctx = tempfile.TemporaryDirectory(dir=build_dir)
+    tmp = tmp_ctx.name
+    clean, noise, _ = e6_frames(seed)
+    data = os.path.join(tmp, "data")
+    _write_pairs(data, clean, noise)
+    t1, t2 = estimate_intensity_thresholds(data)
+    iqsl_cfg = {"t1": t1, "t2": t2, "tau": 0.1, "margin": 0.0, "ce_factor": 0.5}
+    out = dict(iqsl_thresholds=(t1, t2))
+
+    # the base through the port's .ckpt writer and reader
+    torch.manual_seed(seed)
+    model = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).eval()
+    base_ckpt = save_checkpoint(model, os.path.join(tmp, "base"), "model", 1)
+    back = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF)
+    back.load_state_dict(load_checkpoint(base_ckpt, arch="UNetImproved"), strict=True)
+    back = back.eval()
+    same_sd = all(torch.equal(_bits(a), _bits(b)) for a, b in
+                  zip(model.state_dict().values(), back.state_dict().values()))
+    x_probe = torch.rand((FT_B, 1, E6_TILE, E6_TILE), device="cuda")
+    fwd = make_fused_forward(model, device="cuda")
+    same_fwd = torch.equal(_bits(fwd(x_probe)),
+                           _bits(make_fused_forward(back, device="cuda")(x_probe)))
+    with torch.inference_mode():
+        module_cuda = copy.deepcopy(model).to("cuda")
+        same_module = torch.equal(_bits(module_cuda(x_probe)),
+                                  _bits(copy.deepcopy(back).to("cuda")(x_probe)))
+    log(f"[finetune] base ImprovedUNet-{NF} (seeded) written as "
+        f"{os.path.basename(base_ckpt)} ({os.path.getsize(base_ckpt)} bytes) and read "
+        f"back: state dict bit-equal {same_sd}, fused forward bit-equal {same_fwd}, "
+        f"module forward bit-equal {same_module}; IQSL thresholds t1={t1:.6f} t2={t2:.6f}")
+    if not (same_sd and same_fwd and same_module):
+        raise AssertionError("finetune: the .ckpt round trip changed the base")
+
+    # the banks: E6's int8/uint8 bank, and the float32 one from the same bytes
+    t0 = time.perf_counter()
+    bank8 = build_memory_bank_from_frames(clean, noise, E6_TILE, E6_STRIDE,
+                                          bank_dtype="int8", clean_dtype="uint8",
+                                          device="cuda")
+    torch.cuda.synchronize()
+    n = E6_BANK_ROWS
+    assert tuple(bank8.noise_flat.shape) == (n, PATCH_D)
+    log(f"[finetune] bank: {n} patches of {E6_TILE}^2 at stride {E6_STRIDE}, int8 noise + "
+        f"uint8 clean ({time.perf_counter() - t0:.2f} s on the host and copy); the "
+        "float32 + float32 bank is made on the card from the same bytes after the "
+        "int8 runs")
+
+    dataset = DenoisePatchDataset(data, patch_size=E6_TILE, patches_per_image=FT_PATCHES)
+    stream = dataset.batches(FT_B, np.random.default_rng(seed))
+    batches = [next(stream) for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    base_before = [t.clone() for t in model.state_dict().values()]
+    probe_before = fwd(x_probe).clone()
+    module_call = torch.inference_mode()(lambda t: module_cuda(t))
+    mp = FT_B * E6_TILE ** 2 / 1e6
+
+    def run(bank, base_call, retrieval):
+        """12 steps from one adapter init: (losses, indices per step, step
+        seconds, peak GB, launches, state, step, adapter)."""
+        torch.manual_seed(seed)
+        adapter = build_memory_adapter("hyper_gated_fft", 1, E6_HIDDEN).to("cuda")
+        state = create_train_state(adapter, lr=FT_LR)
+        step = make_memory_finetune_step(DenoiserWithMemoryAdapter(base_call, adapter), state,
+                                         lambda_grad=FT_LAMBDA, lambda_iqsl=FT_LAMBDA,
+                                         iqsl_cfg=iqsl_cfg)
+        picked = []
+
+        def recording(q, b, sq):
+            idx = retrieval(q, b, sq)
+            picked.append(idx)
+            return idx
+
+        wrappers.top1_l2_retrieval = recording
+        losses, pending = [], None
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for i, (c, nz) in enumerate(batches):
+                if i == TRAIN_WARMUP:
+                    torch.cuda.synchronize()
+                    fused_rdb_chain.launches = 0
+                    top1_l2_retrieval.launches = 0
+                    t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error" if i >= TRAIN_WARMUP else 0)
+                try:
+                    m = step(c, nz, bank.noise_flat, bank.clean, bank.sq_norms)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                if pending is not None:
+                    losses.append([float(pending[k]) for k in ("loss", "l1", "grad", "iqsl")])
+                pending = m
+            losses.append([float(pending[k]) for k in ("loss", "l1", "grad", "iqsl")])
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+        finally:
+            wrappers.top1_l2_retrieval = top1_l2_retrieval
+        launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
+                        top1_l2_retrieval=top1_l2_retrieval.launches)
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"finetune: non-finite losses {losses}")
+        return dict(losses=losses, picked=picked, ms=step_s * 1e3, mps=mp / step_s,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+                    state=state, step=step, adapter=adapter)
+
+    # int8 first, then the float32 bank in its place: each run's peak holds
+    # its own bank only
+    bank = bank8
+    for name in ("int8", "float32"):
+        if name == "float32":
+            noise32 = (bank.noise_flat.float() + 128.0) / 255.0
+            bank = MemoryBank(noise32, wrappers._clean01(bank.clean), (noise32 ** 2).sum(1),
+                              E6_TILE, E6_STRIDE)
+            del noise32, bank8
+            torch.cuda.empty_cache()
+        bank_gb = sum(t.numel() * t.element_size()
+                      for t in (bank.noise_flat, bank.clean, bank.sq_norms)) / 1e9
+        r = run(bank, fwd, top1_l2_retrieval)
+        want = dict(fused_rdb_chain=9 * TRAIN_STEPS, top1_l2_retrieval=TRAIN_STEPS)
+        if r["launches"] != want:
+            raise AssertionError(f"finetune {name}: launches {r['launches']}, want {want}")
+        y = run(bank, module_call, top1_l2_retrieval_reference)
+        if y["launches"] != dict(fused_rdb_chain=0, top1_l2_retrieval=0):
+            raise AssertionError(f"finetune {name}: the plain run launched {y['launches']}")
+        got, ref = np.asarray(r["losses"]), np.asarray(y["losses"])
+        rel = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-12)))
+        idx_diff = [int((a != b).sum()) for a, b in zip(r["picked"], y["picked"])]
+        log(f"[finetune] {name} bank: losses (total, l1, grad, iqsl) of the "
+            f"{TRAIN_WARMUP}+{TRAIN_STEPS} steps within {rel:.3g} relative of the plain "
+            f"retrieval + module base run (limit {TRAIN_LOSS_RTOL}); retrieved indices "
+            f"differ in {sum(idx_diff)} of {FT_B * len(batches)}")
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"finetune {name}: losses differ by {rel}")
+        if name == "int8" and sum(idx_diff):
+            raise AssertionError(f"finetune int8: indices differ from the plain run "
+                                 f"{idx_diff}")
+
+        # the step's parts, each alone on the last batch
+        c, nz = batches[-1]
+        dev = torch.device("cuda")
+        clean01 = torch.from_numpy(c).to(dev).permute(0, 3, 1, 2).contiguous()
+        noisy01 = torch.from_numpy(nz).to(dev).permute(0, 3, 1, 2).contiguous()
+        adapter, state = r["adapter"], r["state"]
+        with torch.inference_mode():
+            base_out = fwd(noisy01).float()
+            mem = wrappers.select_memory_patch(noisy01.permute(0, 2, 3, 1), bank.noise_flat,
+                                               bank.clean, bank.sq_norms).permute(0, 3, 1, 2)
+        base_out, mem = base_out.clone(), mem.clone()
+
+        def adapter_fwd_bwd():
+            from image_denoising_tpu_torch.train.finetune_steps import _total_loss
+
+            loss, _ = _total_loss(adapter(noisy01, base_out, mem), clean01, FT_LAMBDA,
+                                  FT_LAMBDA, iqsl_cfg)
+            loss.backward()
+
+        parts = dict(
+            base_forward_ms=time_ms(lambda: fwd(noisy01), reps=5),
+            retrieval_ms=time_ms(lambda: wrappers.select_memory_patch(
+                noisy01.permute(0, 2, 3, 1), bank.noise_flat, bank.clean, bank.sq_norms),
+                reps=5),
+            adapter_forward_backward_loss_ms=time_ms(adapter_fwd_bwd, reps=5),
+            adam_ms=time_ms(state.optimizer.step, reps=5))
+        state.optimizer.zero_grad(set_to_none=True)
+        prof = profile_window(lambda: float(r["step"](
+            c, nz, bank.noise_flat, bank.clean, bank.sq_norms)["loss"]))
+        counts = prof["launch_counts"]
+        chain_dev = sum(v for k, v in counts.items() if any(x in k for x in CHAIN_KERNELS))
+        top1_dev = sum(v for k, v in counts.items() if "top1_kernel" in k)
+        if not (chain_dev > 0 and top1_dev > 0):
+            raise AssertionError(f"finetune {name}: the profiled step ran chain "
+                                 f"{chain_dev} and retrieval {top1_dev} kernels")
+        log(f"[finetune] {name} bank, step of ImprovedUNet-{NF} base + hyper_gated_fft "
+            f"(hidden {E6_HIDDEN}) at batch {FT_B}x{E6_TILE}^2, N={n}: {r['ms']:.2f} ms/step, "
+            f"{r['mps']:.4f} MP/s of input, peak memory {r['peak_gb']:.2f} GB (the bank "
+            f"{bank_gb:.2f} GB of it; plain "
+            f"retrieval + module base: {y['ms']:.2f} ms/step); timed steps under "
+            f"set_sync_debug_mode('error'); launches per step: chain "
+            f"{r['launches']['fused_rdb_chain'] / TRAIN_STEPS:g}, retrieval "
+            f"{r['launches']['top1_l2_retrieval'] / TRAIN_STEPS:g}")
+        log(f"[finetune] {name} bank parts, each alone: base forward "
+            f"{parts['base_forward_ms']:.3f} ms, retrieval {parts['retrieval_ms']:.3f} ms, "
+            f"adapter forward+backward+loss {parts['adapter_forward_backward_loss_ms']:.3f} "
+            f"ms, Adam {parts['adam_ms']:.3f} ms")
+        log(f"[finetune] {name} bank, one step under torch.profiler: wall "
+            f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms (share "
+            f"{prof['busy_share']}); device launches of the chain kernel's functions "
+            f"{chain_dev}, of the retrieval kernel {top1_dev}; chain {prof['chain_ms']:.2f} "
+            f"ms; top kernels {prof['top_kernels_ms'][:3]}")
+        out[name] = dict(ms_per_step=r["ms"], mps=r["mps"], peak_gb=r["peak_gb"],
+                         bank_gb=bank_gb,
+                         launches=r["launches"], losses=r["losses"],
+                         plain_losses=y["losses"], plain_ms_per_step=y["ms"],
+                         max_rel_loss_diff=rel, index_differences=idx_diff, parts=parts,
+                         profile=prof, profiled_chain_launches=chain_dev,
+                         profiled_retrieval_launches=top1_dev)
+        del r, y, adapter, state
+        torch.cuda.empty_cache()
+
+    same_base = all(torch.equal(_bits(a), _bits(b))
+                    for a, b in zip(base_before, model.state_dict().values()))
+    same_probe = torch.equal(_bits(probe_before), _bits(fwd(x_probe)))
+    log(f"[finetune] base parameters bit-equal before and after the runs: {same_base}; "
+        f"its fused forward bit-equal: {same_probe}")
+    if not (same_base and same_probe):
+        raise AssertionError("finetune: the frozen base changed")
+    del bank, module_cuda
+    torch.cuda.empty_cache()
+    out["cli"] = _finetune_clis(data, base_ckpt, tmp, seed)
+    tmp_ctx.cleanup()
+    return out
+
+
+def _finetune_clis(data, base_ckpt, tmp, seed):
+    """The three finetune CLIs for 1 epoch of --patches_per_image 2 (10
+    patches: batches of 4, 4 and a tail of 2) over the .ckpt base, then the
+    E6 CLI serving the adapter finetune_memory wrote."""
+    import glob
+
+    import numpy as np
+
+    from image_denoising_tpu_torch.ckpt import load_params_tree
+    from image_denoising_tpu_torch.cli import (evaluation_704_iqsl_memory, finetune,
+                                               finetune_iqsl, finetune_memory)
+    from image_denoising_tpu_torch.memory.retrieval import top1_l2_retrieval
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+
+    common = ["--data_dir", data, "--pretrained_ckpt", base_ckpt, "--n_epoch", "1",
+              "--patches_per_image", "2", "--seed", str(seed)]
+    bank_flags = ["--memory_stride", str(E6_STRIDE), "--bank_dtype", "int8",
+                  "--clean_bank_dtype", "uint8"]
+    runs = (("finetune", finetune.main, [], "adapter"),
+            ("finetune_iqsl", finetune_iqsl.main, [], "adapter_only"),
+            ("finetune_memory", finetune_memory.main, bank_flags, "adapter_only"))
+    out = {}
+    for name, main, extra, role in runs:
+        fused_rdb_chain.launches = 0
+        top1_l2_retrieval.launches = 0
+        save = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        state = main(common + extra + ["--save_model_path", save])
+        sec = time.perf_counter() - t0
+        launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
+                        top1_l2_retrieval=top1_l2_retrieval.launches)
+        (ckpt,) = glob.glob(os.path.join(save, "*", f"epoch_{role}_001.ckpt"))
+        tree = load_params_tree(ckpt)
+        pngs = glob.glob(os.path.join(save, "*", "val_*", "*.png"))
+        ok = (int(state.step) == 3 and launches["fused_rdb_chain"] > 0 and pngs
+              and (launches["top1_l2_retrieval"] > 0 or name != "finetune_memory")
+              and (sorted(tree) == ["adapter", "base"]) == (role == "adapter"))
+        out[name] = dict(seconds=sec, launches=launches, steps=int(state.step),
+                         checkpoint=os.path.basename(ckpt), pngs=len(pngs))
+        log(f"[finetune] cli.{name}.main, 1 epoch of 10 patches (batches 4, 4, 2) over "
+            f"the .ckpt base: {sec:.2f} s; {int(state.step)} steps; wrote "
+            f"{os.path.basename(ckpt)}; {len(pngs)} validation PNG(s); launches {launches}")
+        if not ok:
+            raise AssertionError(f"finetune CLI {name}: {out[name]}")
+        if name == "finetune_memory":
+            adapter_ckpt = ckpt
+    fused_rdb_chain.launches = 0
+    top1_l2_retrieval.launches = 0
+    t0 = time.perf_counter()
+    avg = evaluation_704_iqsl_memory.main([
+        "--data_dir", data, "--base_ckpt", base_ckpt, "--adapter_ckpt", adapter_ckpt,
+        "--frame_burst", "4", "--save_images", "none",
+        "--save_dir", os.path.join(tmp, "e6")] + bank_flags)
+    sec = time.perf_counter() - t0
+    launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
+                    top1_l2_retrieval=top1_l2_retrieval.launches)
+    out["e6"] = dict(seconds=sec, psnr=avg["psnr"], launches=launches)
+    log(f"[finetune] cli.evaluation_704_iqsl_memory.main serving "
+        f"{os.path.basename(adapter_ckpt)} over the .ckpt base ({E6_PAIRS} frames, bursts "
+        f"of 4, int8/uint8 bank): {sec:.2f} s, average PSNR {avg['psnr']:.4f} dB; "
+        f"launches {launches}")
+    if not (np.isfinite(avg["psnr"]) and all(launches.values())):
+        raise AssertionError(f"finetune: E6 CLI over the finetuned adapter: {out['e6']}")
+    return out
+
 
 
 def _preds(out):
@@ -1358,17 +1751,19 @@ def profile_window(fn, top: int = 5):
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    by_name = {}
+    by_name, counts = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+            counts[e.name] = counts.get(e.name, 0) + 1
     names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     chain_us = sum(t for n, t in by_name.items() if any(k in n for k in CHAIN_KERNELS))
     fft_us = sum(t for n, t in by_name.items() if any(k in n.lower() for k in FFT_KERNELS))
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                 busy_share=busy_us / 1e3 / wall_ms if spans else None,
                 chain_ms=chain_us / 1e3, fft_ms=fft_us / 1e3,
-                top_kernels_ms=[(n[:80], t / 1e3) for n, t in names])
+                top_kernels_ms=[(n[:80], t / 1e3) for n, t in names],
+                launch_counts=counts)
 
 
 def chain_share(prof, burst_s: float) -> str:
@@ -1425,13 +1820,23 @@ def main(argv=None) -> int:
 
     chain_e2 = phase_chain(args.seed, chain_shapes(TILE), "E2")
     chain_e6 = phase_chain(args.seed + 1, chain_shapes(E6_TILE), "E6")
+    # the finetune path's shapes: the step's base at 4 x 128^2 (split K),
+    # the output-adapter CLIs' whole-frame validation at 1 x 704^2
+    chain_ft = phase_chain(args.seed + 2, chain_shapes(E6_TILE), "FT4x128", reps=3,
+                           batch=FT_B)
+    chain_frame = phase_chain(args.seed + 3, chain_shapes(FRAME), "FT1x704", reps=3,
+                              batch=1)
     top1 = phase_retrieval(args.seed)
     subsample = phase_subsample(args.seed)
+    floor = phase_launch_floor()
     main_path = phase_main(args.seed)
     memory = phase_memory(args.seed)
     train = phase_train(args.seed)
     structure = phase_structure(args.seed)
     train_cli = phase_train_cli(args.seed)
+    fine = phase_finetune(args.seed)
+    ft_launches = {k: fine["float32"]["launches"][k] + fine["int8"]["launches"][k]
+                   for k in ("fused_rdb_chain", "top1_l2_retrieval")}
 
     summary = []
     for dname, rows in chain_e2.items():
@@ -1440,9 +1845,12 @@ def main(argv=None) -> int:
             name="fused_rdb_chain", dtype=dname, route="cuda", design=ROUTES[dname][0],
             source=CHAIN_SOURCE, replaces=CHAIN_REPLACES,
             launches=main_path[dname]["launches"]
-            + memory[dname]["launches"]["fused_rdb_chain"],
+            + memory[dname]["launches"]["fused_rdb_chain"]
+            + (ft_launches["fused_rdb_chain"] if dname == "float32" else 0),
             launches_by_path={"E2": main_path[dname]["launches"],
-                              "E6": memory[dname]["launches"]["fused_rdb_chain"]},
+                              "E6": memory[dname]["launches"]["fused_rdb_chain"],
+                              "finetune": (ft_launches["fused_rdb_chain"]
+                                           if dname == "float32" else 0)},
             max_abs_err=max(r["max_abs_err"] for r in rows + e6_rows),
             ms=sum(r["ms"] for r in rows),
             plain_ms=sum(r["plain_ms"] for r in rows),
@@ -1450,13 +1858,20 @@ def main(argv=None) -> int:
             bound_by="operations" if all(r["bound_by"] == "operations"
                                          for r in rows) else "bytes",
             library_ms=None,
-            e6={k: sum(r[k] for r in e6_rows) for k in ("ms", "plain_ms", "bound_ms")}))
+            e6={k: sum(r[k] for r in e6_rows) for k in ("ms", "plain_ms", "bound_ms")},
+            ft4x128={k: sum(r[k] for r in chain_ft[dname]) for k in ("ms", "plain_ms",
+                                                                     "bound_ms")},
+            ft1x704={k: sum(r[k] for r in chain_frame[dname]) for k in ("ms", "plain_ms",
+                                                                        "bound_ms")},
+            max_abs_err_ft=max(r["max_abs_err"] for r in chain_ft[dname]
+                               + chain_frame[dname])))
     for dname, res in top1.items():
-        big, small = res["rows"]
+        big, small, ft = res["rows"]
         launches = (memory["float32"]["launches"]["top1_l2_retrieval"]
                     + memory["bfloat16"]["launches"]["top1_l2_retrieval"]
                     if dname == "int8" else
                     memory[f"{dname}_bank"]["launches"]["top1_l2_retrieval"])
+        launches += fine[dname]["launches"]["top1_l2_retrieval"] if dname in fine else 0
         summary.append(dict(
             name="top1_l2_retrieval", dtype=dname, route="cuda", design=ROUTES[dname][0],
             source=TOP1_SOURCE, replaces=TOP1_REPLACES, launches=launches,
@@ -1464,7 +1879,8 @@ def main(argv=None) -> int:
             mismatched_indices=res["mismatched_vs_plain"],
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
             bound_by=big["bound_by"], library_ms=big["library_ms"],
-            b8={k: small[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}))
+            b8={k: small[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            b4={k: ft[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}))
     sub = subsample["c1_float32"]
     summary.append(dict(
         name="subsample_pair", dtype="float32", route="cuda", design="CUDA cores",
@@ -1474,16 +1890,18 @@ def main(argv=None) -> int:
         max_abs_err=max(r["max_abs_err"] for r in subsample.values()),
         ms=sub["ms"], plain_ms=sub["plain_ms"], bound_ms=sub["bound_ms"],
         bound_by=sub["bound_by"], library_ms=None, wrapper_ms=sub["wrapper_ms"],
+        launch_floor_ms=floor["back_to_back_ms"], empty_kernel_device_ms=floor["device_ms"],
         c3={k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms")}
             for k, r in subsample.items() if r["c"] == 3}))
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_seconds=build_s,
                        torch=torch.__version__, cuda=torch.version.cuda,
-                       kernels=dict(chain_e2=chain_e2, chain_e6=chain_e6, top1=top1,
-                                    subsample=subsample),
+                       kernels=dict(chain_e2=chain_e2, chain_e6=chain_e6,
+                                    chain_ft4x128=chain_ft, chain_ft1x704=chain_frame,
+                                    top1=top1, subsample=subsample, launch_floor=floor),
                        main=main_path, memory=memory, train=train, train_cli=train_cli,
-                       structure=structure, summary=summary),
+                       structure=structure, finetune=fine, summary=summary),
                   f, indent=1)
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
         f"of one {B}-tile E2 chunk (e6: of one E6 chunk); design is the route "
@@ -1493,10 +1911,14 @@ def main(argv=None) -> int:
         "B=8); library_ms is torch.mm (torch._int_mm for int8) plus argmin, two "
         "calls, as no single PyTorch call computes top-1 L2; max_abs_err is the "
         "largest float64 distance excess of the kernel's pick over the best row; "
-        "launches per entry from the E2 and E6 runs. subsample_pair: N=4 352^2 "
-        "C=1 f32 (c3: C=3 f32/bf16); ms is the kernel's device time "
+        "launches per entry from the E2 and E6 runs and the 10 timed steps of each "
+        "[finetune] bank (float32 entries: the float32 bank; int8: the int8 bank); "
+        "ft4x128/ft1x704: the chain at the finetune step's 4x128^2 and the "
+        "whole-frame 1x704^2; b4: retrieval at the step's B=4. subsample_pair: "
+        "N=4 352^2 C=1 f32 (c3: C=3 f32/bf16); ms is the kernel's device time "
         "(torch.profiler), wrapper_ms the per-call time of calls issued back to "
-        "back; library_ms is null: no one PyTorch call draws and gathers; "
+        "back, launch_floor_ms the per-launch time of an empty kernel issued back "
+        "to back; library_ms is null: no one PyTorch call draws and gathers; "
         "launches from the 12 N2N steps")
     log(smi)
     log(json.dumps({"kernels": summary}))

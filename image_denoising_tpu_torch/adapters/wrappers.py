@@ -36,15 +36,33 @@ __all__ = [
 
 # uint8 clean banks decode by table, not by a division on the device: the
 # table is numpy's correctly rounded float32 k/255, which is what the float32
-# bank holds (memory/bank.py), so both stores give the same floats to the bit
-_CLEAN01 = torch.from_numpy(np.arange(256, dtype=np.float32) / np.float32(255.0))
+# bank holds (memory/bank.py), so both stores give the same floats to the bit.
+# One copy per device, made at its first use: a training step copies nothing
+# from the host
+_CLEAN01 = {torch.device("cpu"): torch.from_numpy(
+    np.arange(256, dtype=np.float32) / np.float32(255.0))}
 
 
 def _clean01(mem):
     """uint8-stored clean patches → their exact k/255 floats; floats pass."""
     if mem.dtype == torch.uint8:
-        return _CLEAN01.to(mem.device)[mem.long()]
+        table = _CLEAN01.get(mem.device)
+        if table is None:
+            table = _CLEAN01[mem.device] = _CLEAN01[torch.device("cpu")].to(mem.device)
+        return table[mem.long()]
     return mem
+
+
+def _frozen_base(base_forward, x):
+    """The base's output, float32, outside autograd. A base run under
+    ``torch.inference_mode`` (``make_fused_forward``) returns an inference
+    tensor, which autograd may not save for the adapter's backward: outside
+    inference mode it is cloned into a normal tensor."""
+    with torch.no_grad():
+        out = base_forward(x).float()
+    if out.is_inference() and not torch.is_inference_mode_enabled():
+        out = out.clone()
+    return out
 
 
 def select_memory_patch(noisy, memory_noise_flat, memory_clean, sq_norms=None):
@@ -100,9 +118,7 @@ class DenoiserWithAdapter(nn.Module):
         self.adapter = adapter
 
     def forward(self, x):
-        with torch.no_grad():
-            base_out = self.base_forward(x).float()
-        return self.adapter(x, base_out)
+        return self.adapter(x, _frozen_base(self.base_forward, x))
 
 
 class DenoiserWithMemoryAdapter(nn.Module):
@@ -111,7 +127,9 @@ class DenoiserWithMemoryAdapter(nn.Module):
     ``forward(noisy, memory_noise_flat, memory_clean, bank_sq_norms)``
     retrieves each tile's clean bank patch; ``mem_clean=`` (NCHW, float or
     uint8) skips retrieval and uses the given patches — the hoisted path of
-    the tiled evaluator, which retrieves once per tile stack.
+    the tiled evaluator, which retrieves once per tile stack. In a training
+    step the batch (any size: a tail batch of 1–3 patches too) retrieves
+    inside the forward, one kernel launch per step on the card.
     """
 
     def __init__(self, base_forward: Callable, adapter: nn.Module):
@@ -121,8 +139,7 @@ class DenoiserWithMemoryAdapter(nn.Module):
 
     def forward(self, noisy, memory_noise_flat=None, memory_clean=None,
                 bank_sq_norms=None, mem_clean=None):
-        with torch.no_grad():
-            base_out = self.base_forward(noisy).float()
+        base_out = _frozen_base(self.base_forward, noisy)
         if mem_clean is None:
             if memory_noise_flat is None or memory_clean is None:
                 raise ValueError("pass the bank (memory_noise_flat, "

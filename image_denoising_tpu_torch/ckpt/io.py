@@ -1,10 +1,20 @@
 """Checkpoint saving and loading (counterpart of ``image_denoising_tpu/ckpt/io.py``).
 
-The port reads and writes reference-layout ``.pth`` state dicts (the module
-names of ``arch_unet.py``), such as the JAX package's
-``ckpt/pth_export.py::export_pth`` writes and its ``load_checkpoint(path,
-arch=...)`` reads. The JAX ``.ckpt`` msgpack format is neither read nor
-written yet (ROADMAP.md).
+The port writes the JAX package's ``.ckpt`` files: the msgpack of a flax
+params tree (``ckpt/msgpack.py``, byte-equal to flax's
+``msgpack_serialize``), with the optional meta dict in a ``.json``
+beside it. The four roles are the reference's: ``epoch_model_XXX`` (the
+A-domain trainer), ``epoch_final_XXX`` (the HPO retrain),
+``epoch_adapter_XXX`` (the ``{"base": …, "adapter": …}`` tree of a
+frozen base with its output adapter) and ``epoch_adapter_only_XXX`` (the
+adapter's own tree). Trees and state dicts cross through
+``pth_import.py::state_dict_to_params`` and
+``pth_export.py::params_to_state_dict``, which are exact inverses.
+
+``load_checkpoint`` reads a ``.ckpt`` (with ``arch=``) or a
+reference-layout ``.pth`` state dict, such as the JAX package's
+``export_pth`` writes, and returns a state dict that loads with
+``strict=True``.
 
 ``save_train_state`` / ``restore_train_state`` keep a whole train state
 (parameters, Adam moments and step counts, the ``step`` and ``skipped``
@@ -13,41 +23,104 @@ the same next step as one that was never stopped.
 """
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
-__all__ = ["checkpoint_path", "load_checkpoint", "restore_train_state",
-           "save_checkpoint", "save_train_state"]
+from . import msgpack
+from .pth_export import params_to_state_dict
+from .pth_import import state_dict_to_params
+
+__all__ = ["checkpoint_path", "load_checkpoint", "load_params_tree", "module_arch",
+           "restore_train_state", "save_checkpoint", "save_train_state",
+           "to_params"]
 
 
 def checkpoint_path(save_root: str, role: str, epoch: int) -> str:
-    return os.path.join(save_root, f"epoch_{role}_{epoch:03d}.pth")
+    return os.path.join(save_root, f"epoch_{role}_{epoch:03d}.ckpt")
 
 
-def save_checkpoint(model: torch.nn.Module, save_root: str, role: str,
-                    epoch: int) -> str:
-    """Write ``model``'s state dict (on the CPU) as
-    ``epoch_{role}_{epoch:03d}.pth``; returns the path."""
+def module_arch(module: torch.nn.Module) -> str:
+    """The ``arch`` name of a ported module: 'UNetImproved',
+    'output_adapter' or its memory-adapter variant."""
+    from ..adapters.memory_adapters import MEMORY_ADAPTERS
+    from ..adapters.output_adapter import OutputAdapter
+    from ..models.improved_unet import ImprovedUNet
+
+    if isinstance(module, ImprovedUNet):
+        return "UNetImproved"
+    if isinstance(module, OutputAdapter):
+        return "output_adapter"
+    for name, cls in MEMORY_ADAPTERS.items():
+        if type(module) is cls:
+            return name
+    raise TypeError(f"no checkpoint layout for {type(module).__name__}")
+
+
+def to_params(tree: Any) -> Any:
+    """A module, or a nested dict of modules and arrays → the JAX params
+    tree of numpy arrays (modules through their state dicts)."""
+    if isinstance(tree, torch.nn.Module):
+        return state_dict_to_params(tree.state_dict(), module_arch(tree))
+    if isinstance(tree, dict):
+        return {k: to_params(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def save_checkpoint(params_or_module: Any, save_root: str, role: str, epoch: int,
+                    meta: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``epoch_{role}_{epoch:03d}.ckpt`` (and ``.ckpt.json`` when
+    ``meta`` is given), as the JAX package does; returns the path."""
     os.makedirs(save_root, exist_ok=True)
     path = checkpoint_path(save_root, role, epoch)
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save(state, path)
+    payload = msgpack.pack(to_params(params_or_module))
+    with open(path, "wb") as f:
+        f.write(payload)
+    if meta:
+        with open(path + ".json", "w") as f:
+            json.dump(meta, f, indent=2, default=str)
     print(f"Checkpoint saved to {path}")
     return path
 
 
-def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A ``.pth`` state dict on the CPU, with any ``module.`` prefix stripped."""
-    if not path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: only .pth checkpoints load in the port; the .ckpt "
-            "msgpack format is queued in ROADMAP.md")
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    if any(k.startswith("module.") for k in state):
-        state = {k.replace("module.", "", 1): v for k, v in state.items()}
-    return state
+def load_params_tree(path: str) -> Dict[str, Any]:
+    """The params tree of a ``.ckpt`` file, as nested dicts of numpy arrays."""
+    with open(path, "rb") as f:
+        return msgpack.unpack(f.read())
+
+
+def load_checkpoint(path: str, arch: Optional[str] = None,
+                    prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A state dict on the CPU that loads into the ``arch`` module with
+    ``strict=True``.
+
+    ``.pth``: the reference-layout state dict, any ``module.`` prefix
+    stripped. Anything else is a ``.ckpt`` params tree, mapped through
+    ``params_to_state_dict(tree, arch)``. ``prefix`` picks a submodule out
+    of a wrapper checkpoint: ``"base"`` or ``"adapter"`` of an
+    ``epoch_adapter`` file.
+    """
+    if path.endswith(".pth"):
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        if any(k.startswith("module.") for k in state):
+            state = {k.replace("module.", "", 1): v for k, v in state.items()}
+        if prefix:
+            state = {k[len(prefix) + 1:]: v for k, v in state.items()
+                     if k.startswith(prefix + ".")}
+        return state
+    if arch is None:
+        raise ValueError(f"{path}: loading a .ckpt checkpoint requires arch=")
+    tree = load_params_tree(path)
+    if prefix:
+        tree = tree[prefix]
+    elif set(tree) == {"base", "adapter"}:
+        raise ValueError(f"{path} holds a base and an adapter: pass "
+                         "prefix='base' or prefix='adapter'")
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in params_to_state_dict(tree, arch).items()}
 
 
 def save_train_state(state, save_root: str, epoch: int) -> str:

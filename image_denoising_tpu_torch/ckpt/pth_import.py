@@ -1,0 +1,109 @@
+"""Reference-layout state dicts → JAX param trees.
+
+Counterpart of ``image_denoising_tpu/ckpt/pth_import.py::import_pth`` for
+the ImprovedUNet, the output adapter and the five memory-adapter
+variants, and the exact inverse of ``pth_export.py::params_to_state_dict``:
+OIHW conv weights become flax HWIO kernels, Linear weights are transposed
+into Dense kernels, GroupNorm weight/bias become ``gn`` scale/bias. A
+transpose moves bytes and rounds nothing, so state dict → tree → state
+dict gives the same arrays bit for bit. A conv carries ``bias`` exactly
+when the state dict has one (the ResBlock convs have none).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+
+from ..adapters.memory_adapters import MEMORY_ADAPTERS
+
+__all__ = ["state_dict_to_params"]
+
+
+def _np(x) -> np.ndarray:
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _conv(sd, prefix) -> Dict[str, Any]:
+    out = {"kernel": np.ascontiguousarray(np.transpose(_np(sd[f"{prefix}.weight"]),
+                                                       (2, 3, 1, 0)))}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _np(sd[f"{prefix}.bias"])
+    return {"conv": out}
+
+
+def _gn(sd, prefix) -> Dict[str, Any]:
+    return {"gn": {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}}
+
+
+def _dense(sd, prefix) -> Dict[str, Any]:
+    return {"kernel": np.ascontiguousarray(np.transpose(_np(sd[f"{prefix}.weight"]))),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _rdb(sd, prefix, layers=4) -> Dict[str, Any]:
+    p = {f"conv{i}": _conv(sd, f"{prefix}.convs.{i}") for i in range(layers)}
+    p["lff"] = _conv(sd, f"{prefix}.lff")
+    return p
+
+
+def _resblock(sd, prefix) -> Dict[str, Any]:
+    return {"conv0": _conv(sd, f"{prefix}.block.0"), "norm0": _gn(sd, f"{prefix}.block.1"),
+            "conv1": _conv(sd, f"{prefix}.block.3"), "norm1": _gn(sd, f"{prefix}.block.4")}
+
+
+def _improved_unet(sd, depth=4) -> Dict[str, Any]:
+    p: Dict[str, Any] = {}
+    if "noise_estimator.0.weight" in sd:
+        p["noise_est_conv0"] = _conv(sd, "noise_estimator.0")
+        p["noise_est_conv1"] = _conv(sd, "noise_estimator.2")
+    for i in range(depth):
+        p[f"down{i}_conv"] = _conv(sd, f"downs.{i}.0")
+        p[f"down{i}_rdb"] = _rdb(sd, f"downs.{i}.2")
+        p[f"down{i}_res"] = _resblock(sd, f"downs.{i}.3")
+    p["bottle_rdb"] = _rdb(sd, "bottle.0")
+    p["bottle_res"] = _resblock(sd, "bottle.1")
+    for i in range(depth):
+        pre = f"ups.{i}"
+        p[f"up{i}"] = {"conv_ps": _conv(sd, f"{pre}.conv_ps"), "fuse": _conv(sd, f"{pre}.fuse"),
+                       "rdb": _rdb(sd, f"{pre}.rdb"), "res": _resblock(sd, f"{pre}.res")}
+    p["final"] = _conv(sd, "final")
+    return p
+
+
+def _seq_convs(sd, prefix) -> Dict[str, Any]:
+    return {name: _conv(sd, f"{prefix}.{idx}")
+            for name, idx in (("conv0", 0), ("conv1", 2), ("conv2", 4))}
+
+
+def _memory_adapter(sd, variant: str) -> Dict[str, Any]:
+    """Flax module names of ``image_denoising_tpu/adapters/memory_adapters.py``."""
+    if variant == "memory_residual":
+        return {"body": _seq_convs(sd, "body")}
+    if variant == "lowfreq_blend":
+        # gate_conv1 is a bare flax nn.Conv (no wrapper submodule)
+        return {"gate_conv0": _conv(sd, "gate_net.0"),
+                "gate_conv1": _conv(sd, "gate_net.2")["conv"]}
+    if variant == "tone_curve":
+        return {"mlp0": _dense(sd, "mlp.0"), "mlp1": _dense(sd, "mlp.2")}
+    return {"local": _seq_convs(sd, "local_net"),
+            "hyper": {"hyper0": _dense(sd, "hyper_mlp.0"),
+                      "hyper1": _dense(sd, "hyper_mlp.2")}}
+
+
+def state_dict_to_params(sd, arch: str = "UNetImproved") -> Dict[str, Any]:
+    """Reference state dict (torch tensors or numpy arrays) → JAX param
+    tree of numpy arrays. ``arch``: 'UNetImproved', 'output_adapter' or a
+    memory-adapter variant."""
+    if arch == "UNetImproved":
+        return _improved_unet(sd)
+    if arch == "output_adapter":
+        return {"conv0": _conv(sd, "net.0"), "conv1": _conv(sd, "net.2")}
+    if arch in MEMORY_ADAPTERS:
+        return _memory_adapter(sd, arch)
+    raise NotImplementedError(
+        f"arch {arch!r} is not ported yet (UNetImproved, output_adapter and "
+        f"the memory adapters {list(MEMORY_ADAPTERS)} are); see ROADMAP.md "
+        "queue 1 item 7")

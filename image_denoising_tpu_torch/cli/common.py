@@ -1,10 +1,11 @@
-"""Shared CLI plumbing for the E2 and E6 evaluators and the trainer
-(counterpart of the parts of ``image_denoising_tpu/cli/common.py`` that
-``evaluation_704``, ``evaluation_704_iqsl_memory`` and ``train`` use).
+"""Shared CLI plumbing for the E2 and E6 evaluators, the trainer and the
+finetuners (counterpart of the parts of ``image_denoising_tpu/cli/common.py``
+that ``evaluation_704``, ``evaluation_704_iqsl_memory``, ``train`` and
+``finetune*`` use).
 
-Model construction, ``.pth`` loading, PNG writing, the per-image metrics
-file, the lazy burst stream of ``--frame_burst``, and the trainer's
-``--dtype`` and ``--blindspot`` flags.
+Model construction, ``.ckpt`` and ``.pth`` loading, PNG writing, the
+per-image metrics file, the lazy burst stream of ``--frame_burst``, and the
+trainer's ``--dtype`` and ``--blindspot`` flags.
 """
 from __future__ import annotations
 
@@ -14,8 +15,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ckpt.io import load_checkpoint
+from ..ckpt.io import load_checkpoint, module_arch
 from ..models.improved_unet import ImprovedUNet
+from ..models.registry import build_model, build_model_from_log_name
 
 __all__ = [
     "add_blindspot_flag",
@@ -28,6 +30,10 @@ __all__ = [
     "iter_bursts",
     "drain_burst",
     "make_metrics_finalize",
+    "refuse_unported",
+    "load_frozen_base",
+    "iqsl_config",
+    "run_epoch",
 ]
 
 
@@ -59,31 +65,23 @@ def build_network(arch: Optional[str], log_name: Optional[str],
                   n_channel: int, n_feature: int, dtype: Optional[torch.dtype] = None,
                   remat: bool = False, remat_depth: Optional[int] = None) -> ImprovedUNet:
     """Explicit ``--arch`` wins; otherwise the reference ``--log_name``
-    substring dispatch (``train.py:298-314``). Only UNetImproved is ported.
-    ``dtype`` is the compute dtype (parameters stay float32); ``remat`` and
-    ``remat_depth`` recompute blocks in backward (``ImprovedUNet``)."""
+    substring dispatch (``models/registry.py``). Only UNetImproved is
+    ported. ``dtype`` is the compute dtype (parameters stay float32);
+    ``remat`` and ``remat_depth`` recompute blocks in backward."""
     if arch:
-        name = arch
-    elif log_name:
-        name = next((a for a in ("UNET", "RESNET", "UNetImproved")
-                     if a in log_name), None)
-        if name is None:
-            raise ValueError(
-                f"log_name {log_name!r} matches no architecture "
-                "(need one of UNET / RESNET / UNetImproved as a substring)")
-    else:
-        raise ValueError("need --arch or --log_name to select an architecture")
-    if name != "UNetImproved":
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (only UNetImproved); "
-            "see ROADMAP.md")
-    return ImprovedUNet(in_nc=n_channel, out_nc=n_channel, n_feature=n_feature,
-                        dtype=dtype, remat=remat, remat_depth=remat_depth)
+        return build_model(arch, n_channel, n_feature, dtype=dtype, remat=remat,
+                           remat_depth=remat_depth)
+    if log_name:
+        return build_model_from_log_name(log_name, n_channel, n_feature, dtype=dtype,
+                                         remat=remat, remat_depth=remat_depth)
+    raise ValueError("need --arch or --log_name to select an architecture")
 
 
 def load_params(ckpt_path: str, model: torch.nn.Module) -> torch.nn.Module:
-    """Load a reference-layout ``.pth`` into ``model`` with ``strict=True``."""
-    model.load_state_dict(load_checkpoint(ckpt_path), strict=True)
+    """Load a ``.ckpt`` params tree or a reference-layout ``.pth`` into
+    ``model`` with ``strict=True``."""
+    model.load_state_dict(load_checkpoint(ckpt_path, arch=module_arch(model)),
+                          strict=True)
     return model
 
 
@@ -201,3 +199,72 @@ class MetricsWriter:
                 )
         print(f"Saved metrics to {path}")
         return path
+
+
+# the finetuners (cli/finetune.py, finetune_iqsl.py, finetune_memory.py)
+
+def refuse_unported(opt, flags=("parallel",)):
+    """NotImplementedError for the multi-device flags (ROADMAP.md queue 1
+    item 8), before anything is loaded."""
+    refused = [f"--{n}" for n in flags if getattr(opt, n)]
+    if "," in opt.gpu_devices:
+        refused.append("--gpu_devices with several cards")
+    if refused:
+        raise NotImplementedError(
+            f"{', '.join(refused)} not ported to the PyTorch package yet "
+            "(ROADMAP.md queue 1 item 8)")
+
+
+def load_frozen_base(opt, device):
+    """(base module, its frozen forward on ``device``): the ``--arch``
+    network with ``--pretrained_ckpt``'s weights, run by
+    ``make_fused_forward`` in the ``--dtype`` compute dtype."""
+    from ..models.fused_forward import make_fused_forward
+
+    base = load_params(opt.pretrained_ckpt,
+                       build_model(opt.arch, opt.n_channel, opt.n_feature))
+    print(f"Loaded base weights from {opt.pretrained_ckpt}")
+    dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
+    return base, make_fused_forward(base, device=device, dtype=dtype)
+
+
+def iqsl_config(opt):
+    """The IQSL settings, thresholds estimated from clean/ when λ_iqsl > 0."""
+    from ..losses import estimate_intensity_thresholds
+
+    if opt.lambda_iqsl > 0.0:
+        t1, t2 = estimate_intensity_thresholds(
+            opt.data_dir, q1=opt.iqsl_q1, q2=opt.iqsl_q2, max_images=opt.iqsl_max_images)
+        print(f"[IQSL] Estimated thresholds from clean/: t1={t1:.6f}, t2={t2:.6f}")
+    else:
+        t1 = t2 = 0.0
+        print("[IQSL] lambda_iqsl=0 → IQSL disabled.")
+    return {"t1": t1, "t2": t2, "tau": opt.iqsl_tau, "margin": opt.iqsl_margin,
+            "ce_factor": opt.iqsl_ce_factor}
+
+
+def run_epoch(step, batches, epoch, n_epoch, *bank, iqsl: bool = True):
+    """One epoch of ``step`` over ``batches`` with the CLIs' lag-1 metric
+    fetch (step i's metrics are read after step i+1 is queued) and their
+    log lines; returns the per-step L1 and IQSL values."""
+    losses_l1, losses_iqsl = [], []
+    pending = None
+
+    def flush(p):
+        i, m = p
+        losses_l1.append(float(m["l1"]))
+        losses_iqsl.append(float(m["iqsl"]))
+        if i % 10 == 0:
+            print(f"Epoch [{epoch}/{n_epoch}] Iter [{i}] L1={float(m['l1']):.6f} "
+                  f"Grad={float(m['grad']):.6f} "
+                  + (f"IQSL={float(m['iqsl']):.6f} " if iqsl else "")
+                  + f"Total={float(m['loss']):.6f}")
+
+    for i, (clean, noisy) in enumerate(batches, start=1):
+        metrics = step(clean, noisy, *bank)
+        if pending is not None:
+            flush(pending)
+        pending = (i, metrics)
+    if pending is not None:
+        flush(pending)
+    return losses_l1, losses_iqsl

@@ -11,8 +11,9 @@ names (``cuda:N``). ``--parallel``, ``--device_metrics``, ``--profile_dir``,
 and refused (not ported yet).
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation_704 --data_dir d
---checkpoint model.pth`` (a ``.pth`` from the JAX package's
-``ckpt/pth_export.py::export_pth``).
+--checkpoint model.ckpt`` (the JAX package's ``.ckpt``, or a
+reference-layout ``.pth`` such as its ``ckpt/pth_export.py::export_pth``
+writes).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--data_dir", type=str, default="./dataset/m1")
     parser.add_argument("--checkpoint", type=str, required=True,
-                        help="reference-layout .pth state dict")
+                        help=".ckpt params or reference-layout .pth state dict")
     parser.add_argument("--save_dir", type=str, default="./eval_results")
     parser.add_argument("--n_feature", type=int, default=48)
     parser.add_argument("--n_channel", type=int, default=1)

@@ -17,9 +17,11 @@ on the one card ``--gpu_devices`` names (``cuda:N``). ``--parallel``,
 ``--gpu_devices`` are parsed and refused (not ported yet).
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation_704_iqsl_memory
---data_dir d --base_ckpt b.pth --adapter_ckpt a.pth`` with ``.pth`` files
-from the JAX package's ``ckpt/pth_export.py::export_pth(params,
-"UNetImproved")`` and ``export_pth(adapter_params, variant)``.
+--data_dir d --base_ckpt b.ckpt --adapter_ckpt a.ckpt``: ``.ckpt`` files as
+either package writes them (the base an ``epoch_model`` file, the adapter
+the ``epoch_adapter_only`` file of ``cli/finetune_memory.py``), or
+reference-layout ``.pth`` files such as the JAX package's
+``ckpt/pth_export.py::export_pth`` writes.
 """
 from __future__ import annotations
 
@@ -38,9 +40,10 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--data_dir", type=str, required=True)
     parser.add_argument("--base_ckpt", type=str, required=True,
-                        help="reference-layout .pth of the base network")
+                        help=".ckpt or reference-layout .pth of the base network")
     parser.add_argument("--adapter_ckpt", type=str, required=True,
-                        help="reference-layout .pth of the adapter")
+                        help=".ckpt (adapter_only) or reference-layout .pth "
+                             "of the adapter")
     parser.add_argument("--arch", type=str, default="UNetImproved",
                         choices=["UNet", "RESNET", "UNetImproved"])
     parser.add_argument("--save_dir", type=str,
@@ -204,7 +207,8 @@ def evaluate(opt):
     fwd = make_fused_forward(base, device=device, dtype=dtype)
     adapter = build_memory_adapter(opt.adapter_variant, opt.n_channel,
                                    opt.adapter_hidden)
-    adapter.load_state_dict(load_checkpoint(opt.adapter_ckpt), strict=True)
+    adapter.load_state_dict(load_checkpoint(opt.adapter_ckpt, arch=opt.adapter_variant),
+                            strict=True)
     wrapper = DenoiserWithMemoryAdapter(fwd, adapter).to(device).eval()
     print(f"Loaded base from {opt.base_ckpt}; adapter from {opt.adapter_ckpt}")
     model_call, pre_tile_fn = make_memory_model_call(

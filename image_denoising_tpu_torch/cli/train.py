@@ -8,9 +8,10 @@ self-supervised path: synthetic noise (``--noisetype``), the random 2×2
 mask-pair sub-sampler (on the card the hand-written kernel
 ``csrc/neighbor.cu``, one launch per step) and the Λ-regularized loss.
 Both train with Adam(``--lr``), MultiStepLR γ at {20,40,60,80}%·epochs−1,
-and write an epoch-0 and per-snapshot checkpoint (``epoch_model_XXX.pth``,
-reference state-dict layout), validation PNGs and ``A_log.csv``, as the JAX
-CLI does. The log lines are the reference's (``Loss1=/Loss_Full=/Time=``),
+and write an epoch-0 and per-snapshot checkpoint (``epoch_model_XXX.ckpt``,
+the JAX package's params msgpack), validation PNGs and ``A_log.csv``, as
+the JAX CLI does. ``--resume`` takes a ``.ckpt`` or a reference-layout
+``.pth``. The log lines are the reference's (``Loss1=/Loss_Full=/Time=``),
 fetched one step late so the host prepares step i+1 while the card runs
 step i.
 
@@ -20,8 +21,7 @@ computes in bfloat16 with float32 parameters; ``--remat`` /
 ``--remat_depth`` recompute blocks in backward; ``--profile_dir`` writes a
 ``torch.profiler`` trace of the first ``--profile_steps`` steps. Parsed
 and refused, for later slices (ROADMAP.md): ``--parallel``,
-``--blindspot``, a ``--resume`` that is not a ``.pth`` file, and several
-``--gpu_devices``.
+``--blindspot`` and several ``--gpu_devices``.
 
 Run: ``python -m image_denoising_tpu_torch.cli.train --arch UNetImproved
 --data_dir data``.
@@ -72,7 +72,8 @@ def parse_args(argv=None):
     parser.add_argument("--max_steps_per_epoch", type=int, default=0,
                         help="debug/bench cap; 0 = full epoch")
     parser.add_argument("--resume", type=str, default=None,
-                        help="reference-layout .pth to resume params from")
+                        help=".ckpt params or reference-layout .pth to resume "
+                             "params from")
     parser.add_argument("--start_epoch", type=int, default=1,
                         help="first epoch number when resuming")
     parser.add_argument("--profile_dir", type=str, default=None,
@@ -110,8 +111,6 @@ def parse_args(argv=None):
 
 def _refused(opt):
     out = [f"--{n}" for n in ("parallel", "blindspot") if getattr(opt, n)]
-    if opt.resume and not opt.resume.endswith(".pth"):
-        out.append("--resume of a non-.pth checkpoint")
     if "," in opt.gpu_devices:
         out.append("--gpu_devices with several cards")
     return out

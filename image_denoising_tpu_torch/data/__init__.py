@@ -1,3 +1,5 @@
-from .pairs import DenoiseDataset, list_pairs, load_image_f32, validation_denoise
+from .pairs import (DenoiseDataset, DenoisePatchDataset, list_pairs, load_image_f32,
+                    validation_denoise)
 
-__all__ = ["DenoiseDataset", "list_pairs", "load_image_f32", "validation_denoise"]
+__all__ = ["DenoiseDataset", "DenoisePatchDataset", "list_pairs", "load_image_f32",
+           "validation_denoise"]

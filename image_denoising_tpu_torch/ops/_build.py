@@ -116,11 +116,14 @@ def load_retrieval() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def load_neighbor() -> ctypes.CDLL:
-    """The N2N sub-sampler library (csrc/neighbor.cu), built on first call."""
+    """The N2N sub-sampler library (csrc/neighbor.cu), built on first call;
+    it also holds the empty kernel that times the launch floor."""
     path, _ = build("neighbor.cu")
     lib = ctypes.CDLL(str(path))
     fn = lib.idt_subsample_pair
     i, p = ctypes.c_int, ctypes.c_void_p
     fn.argtypes = [i, p, i, i, i, i, ctypes.c_uint64, p, p, p, p, p]
     fn.restype = i
+    lib.idt_empty_launches.argtypes = [i, p]
+    lib.idt_empty_launches.restype = i
     return lib

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports no JAX, no flax and nothing of the
-JAX package, and its entry points run on CUDA unless told otherwise."""
+"""The PyTorch port stands alone: it imports no JAX, no flax, optax or
+msgpack (the GPU machine has none of them) and nothing of the JAX package,
+and its entry points run on CUDA unless told otherwise."""
 import json
 import subprocess
 import sys
@@ -22,7 +23,8 @@ def test_port_modules_import_no_jax():
             importlib.import_module(n)
         def banned(n):
             return any(n == b or n.startswith(b + ".") for b in
-                       ("jax", "jaxlib", "flax", "image_denoising_tpu"))
+                       ("jax", "jaxlib", "flax", "optax", "msgpack",
+                        "image_denoising_tpu"))
         print(json.dumps({"modules": names,
                           "banned": sorted(n for n in sys.modules if banned(n))}))
     """)
@@ -36,13 +38,18 @@ def test_port_modules_import_no_jax():
                 "adapters.memory_adapters", "adapters.output_adapter",
                 "eval.tiled", "cli.train", "ops.neighbor", "ops.rng",
                 "ops.noise", "losses.n2n", "losses.pixel", "train.schedule",
-                "train.state", "train.steps", "ckpt.io", "utils.profiling"):
+                "train.state", "train.steps", "ckpt.io", "utils.profiling",
+                "ckpt.msgpack", "ckpt.pth_import", "models.registry", "losses.iqsl",
+                "train.finetune_steps", "cli.finetune", "cli.finetune_iqsl",
+                "cli.finetune_memory", "data.pairs"):
         assert f"image_denoising_tpu_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
 
 def _entry_points():
-    from image_denoising_tpu_torch.cli import evaluation_704, evaluation_704_iqsl_memory, train
+    from image_denoising_tpu_torch.cli import (evaluation_704, evaluation_704_iqsl_memory,
+                                               finetune, finetune_iqsl, finetune_memory,
+                                               train)
     from image_denoising_tpu_torch.eval import tiled
     from image_denoising_tpu_torch.memory import build_memory_bank
     from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
@@ -70,6 +77,12 @@ def _entry_points():
              "--adapter_ckpt", "a.pth"]),
         "train": lambda: train.main(["--loss", "n2n", "--data_dir", "missing"]),
         "train_structure": lambda: train.main(["--data_dir", "missing"]),
+        "finetune": lambda: finetune.main(["--data_dir", "missing",
+                                           "--pretrained_ckpt", "b.ckpt"]),
+        "finetune_iqsl": lambda: finetune_iqsl.main(["--data_dir", "missing",
+                                                     "--pretrained_ckpt", "b.ckpt"]),
+        "finetune_memory": lambda: finetune_memory.main(["--data_dir", "missing",
+                                                         "--pretrained_ckpt", "b.ckpt"]),
         # the draw of subsample_pair_fused's plain version
         "generate_mask_pair": lambda: generate_mask_pair(0, (1, 1, 4, 4)),
     }
@@ -80,7 +93,8 @@ def _entry_points():
                                   "hann_runner", "hann_runner_frames",
                                   "denoise_tiled_hann", "build_memory_bank",
                                   "evaluation_704_iqsl_memory", "train",
-                                  "train_structure", "generate_mask_pair"])
+                                  "train_structure", "finetune", "finetune_iqsl",
+                                  "finetune_memory", "generate_mask_pair"])
 def test_entry_points_default_to_cuda(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():

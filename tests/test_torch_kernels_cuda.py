@@ -324,7 +324,7 @@ def test_train_cli_on_card(cuda, tmp_path):
     assert subsample_pair_fused.launches == before + 2 and state.step == 2
     assert next(state.model.parameters()).device.type == "cuda"
     (run_dir,) = glob.glob(str(tmp_path / "out" / "*" / "*"))
-    assert {"epoch_model_000.pth", "epoch_model_001.pth"} <= set(os.listdir(run_dir))
+    assert {"epoch_model_000.ckpt", "epoch_model_001.ckpt"} <= set(os.listdir(run_dir))
     with open(os.path.join(run_dir, "validation", "A_log.csv")) as f:
         row = f.read().strip()
     assert row.startswith("epoch1, loss_")
@@ -378,3 +378,153 @@ def test_structure_step_on_card_matches_cpu(cuda, guards):
         losses[name].append(float(step(*batches[1])["loss"]))
         assert int(state.step) == 2
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["down0_1x704", "bottle_1x44", "bottle_4x8", "down1_4x64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_rdb_chain_kernel_at_finetune_shapes(cuda, dtype, case):
+    """The finetune path's chain shapes at n_feature 48: a whole 704² frame
+    of the output-adapter CLIs' validation (its first level, Cin = 2, and
+    its 44² bottleneck) and the memory step's batch of 4 128² patches (its
+    8² bottleneck and the second level, K split across blocks): within the
+    chain tolerances of chip_smoke.py."""
+    from image_denoising_tpu_torch.ops.fused_block import chain_conv_plans
+
+    torch.manual_seed(11)
+    nf, cin, shape = {"down0_1x704": (48, 2, (1, 704, 704, 2)),
+                      "bottle_1x44": (384, 384, (1, 44, 44, 384)),
+                      "bottle_4x8": (384, 384, (4, 8, 8, 384)),
+                      "down1_4x64": (96, 48, (4, 64, 64, 48))}[case]
+    lead = None if case.startswith("bottle") else torch.nn.Conv2d(cin, nf, 3, padding=1)
+    wts = FusedChainWeights.from_modules(RDB(nf), lead=lead, res=ResBlock(nf),
+                                         dtype=dtype, device=cuda)
+    x = torch.randn(*shape, device=cuda).to(dtype)
+    if case == "bottle_4x8":
+        assert max(p["splits"] for _, p in chain_conv_plans(*shape, wts)) > 1
+    got = fused_rdb_chain(x, wts)
+    torch.cuda.synchronize()
+    want = fused_rdb_chain_reference(x, wts)
+    for g, w in zip(got, want):
+        scale = w.float().abs().max().item()
+        atol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 4 * 2.0 ** -7 * scale
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 3, 4])
+@pytest.mark.parametrize("regime", ["float32", "bfloat16", "int8"])
+def test_top1_l2_retrieval_kernel_at_finetune_batches(cuda, regime, b):
+    """The memory step's query counts: 4, and 1-3 in a tail batch, at
+    D = 16,384 (one 128² patch): the plain version's picks (decisive
+    queries, exact int8 distances)."""
+    q, bank, sqn = _retrieval_case(regime, cuda, b=b, n=3000, d=128 * 128)
+    got = top1_l2_retrieval(q, bank, sqn)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, top1_l2_retrieval_reference(q, bank, sqn), atol=0, rtol=0)
+    assert int(got[0]) == 300
+
+
+def _ft_pairs(root, count=5, size=64, seed=12):
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for sub in ("clean", "noise"):
+        (root / sub).mkdir(exist_ok=True)
+    for i in range(count):
+        clean = np.clip(120 + 60 * np.sin(xx / (6.0 + i)) + 30 * np.cos(yy / 7.0),
+                        0, 255).astype(np.uint8)
+        noisy = np.clip(clean + rng.normal(0, 15, clean.shape), 0, 255).astype(np.uint8)
+        Image.fromarray(clean).save(root / "clean" / f"f{i}.png")
+        Image.fromarray(noisy).save(root / "noise" / f"f{i}.png")
+
+
+@pytest.mark.cuda
+def test_memory_finetune_step_on_card_matches_cpu(cuda, tmp_path):
+    """Three memory finetune steps (ImprovedUNet-8 base, hyper_gated_fft,
+    int8/uint8 bank, λ_grad = λ_iqsl = 0.1) on the card, under
+    ``set_sync_debug_mode("error")``: 9 chain launches and 1 retrieval
+    launch per step, losses within rtol 1e-4 of the CPU's, and the base
+    unchanged."""
+    import numpy as np
+
+    from image_denoising_tpu_torch.adapters import (DenoiserWithMemoryAdapter,
+                                                    build_memory_adapter)
+    from image_denoising_tpu_torch.data import DenoisePatchDataset, list_pairs
+    from image_denoising_tpu_torch.memory import build_memory_bank
+    from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
+    from image_denoising_tpu_torch.train import create_train_state, make_memory_finetune_step
+
+    _ft_pairs(tmp_path)
+    clean_p, noise_p = list_pairs(str(tmp_path))
+    torch.manual_seed(12)
+    base = ImprovedUNet(1, 1, 8).eval()
+    before = {k: v.clone() for k, v in base.state_dict().items()}
+    stream = DenoisePatchDataset(str(tmp_path), 32, 4).batches(3, np.random.default_rng(1))
+    batches = [next(stream) for _ in range(3)]
+    cfg = {"t1": 0.35, "t2": 0.65}
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        bank = build_memory_bank(clean_p, noise_p, 32, 16, bank_dtype="int8",
+                                 clean_dtype="uint8", device=dev)
+        torch.manual_seed(13)
+        adapter = build_memory_adapter("hyper_gated_fft", 1, 8).to(dev)
+        state = create_train_state(adapter, lr=1e-4)
+        step = make_memory_finetune_step(
+            DenoiserWithMemoryAdapter(make_fused_forward(base, device=dev), adapter),
+            state, lambda_grad=0.1, lambda_iqsl=0.1, iqsl_cfg=cfg)
+        counts = (fused_rdb_chain.launches, top1_l2_retrieval.launches)
+        out = []
+        for c, n in batches:
+            torch.cuda.set_sync_debug_mode("error" if dev == "cuda" else 0)
+            try:
+                m = step(c, n, bank.noise_flat, bank.clean, bank.sq_norms)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out.append([float(m[k]) for k in ("loss", "l1", "grad", "iqsl")])
+        losses[dev] = out
+        if dev == "cuda":
+            assert fused_rdb_chain.launches - counts[0] == 9 * 3
+            assert top1_l2_retrieval.launches - counts[1] == 3
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    assert all(torch.equal(v, before[k]) for k, v in base.state_dict().items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cli", ["finetune", "finetune_iqsl", "finetune_memory"])
+def test_finetune_clis_on_card(cuda, tmp_path, cli):
+    """Each finetune CLI on the card for 1 epoch at n_feature 8 over a
+    ``.ckpt`` base (10 patches: a tail batch of 2): both kernels launched
+    (retrieval in the memory CLI only), its checkpoint written, and the
+    memory CLI's adapter served by the E6 CLI."""
+    import glob
+    import importlib
+
+    import numpy as np
+
+    from image_denoising_tpu_torch.ckpt import save_checkpoint
+    from image_denoising_tpu_torch.cli import evaluation_704_iqsl_memory as e6
+    from image_denoising_tpu_torch.models import ImprovedUNet
+
+    _ft_pairs(tmp_path)
+    torch.manual_seed(14)
+    base = save_checkpoint(ImprovedUNet(1, 1, 8), str(tmp_path / "base"), "model", 1)
+    main = importlib.import_module(f"image_denoising_tpu_torch.cli.{cli}").main
+    bank = ["--memory_stride", "16", "--bank_dtype", "int8", "--clean_bank_dtype", "uint8"]
+    before = (fused_rdb_chain.launches, top1_l2_retrieval.launches)
+    state = main(["--data_dir", str(tmp_path), "--pretrained_ckpt", base, "--n_feature", "8",
+                  "--patch_size", "32", "--patches_per_image", "2", "--n_epoch", "1",
+                  "--save_model_path", str(tmp_path / "out")]
+                 + (bank if cli == "finetune_memory" else []))
+    assert int(state.step) == 3 and next(state.model.parameters()).is_cuda
+    assert fused_rdb_chain.launches > before[0]
+    assert (top1_l2_retrieval.launches > before[1]) == (cli == "finetune_memory")
+    role = "adapter" if cli == "finetune" else "adapter_only"
+    (ckpt,) = glob.glob(str(tmp_path / "out" / "*" / f"epoch_{role}_001.ckpt"))
+    if cli == "finetune_memory":
+        avg = e6.main(["--data_dir", str(tmp_path), "--base_ckpt", base, "--adapter_ckpt",
+                       ckpt, "--n_feature", "8", "--patch_size", "32", "--overlap", "16",
+                       "--save_images", "none", "--save_dir", str(tmp_path / "e6")] + bank)
+        assert np.isfinite(avg["psnr"])

@@ -1,5 +1,5 @@
 """The port's train CLI on the CPU: the reference outputs and log lines of
-``--loss n2n``, a ``.pth`` the JAX package reads, ``--resume``, what the
+``--loss n2n``, a ``.ckpt`` the JAX package reads, ``--resume``, what the
 structure-loss slice's flags do, the JAX CLI's losses from the same
 weights and frames, and the flags that wait for later slices."""
 import glob
@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from image_denoising_tpu.ckpt import load_checkpoint as jax_load_checkpoint
 from image_denoising_tpu.models import ImprovedUNet as JaxImprovedUNet
+from image_denoising_tpu_torch.ckpt import load_checkpoint
 from image_denoising_tpu_torch.cli import train
 from image_denoising_tpu_torch.models import ImprovedUNet
 
@@ -59,8 +60,8 @@ def test_train_cli_writes_the_reference_outputs(run):
     run_dir, _, state = run
     assert state.step == 4
     names = sorted(os.listdir(run_dir))
-    assert names == ["epoch_model_000.pth", "epoch_model_001.pth",
-                     "epoch_model_002.pth", "validation"]
+    assert names == ["epoch_model_000.ckpt", "epoch_model_001.ckpt",
+                     "epoch_model_002.ckpt", "validation"]
     assert sorted(os.listdir(os.path.join(run_dir, "validation"))) == [
         "A_log.csv", "sem00_000-001_clean.png", "sem00_000-001_denoised.png",
         "sem00_000-001_noisy.png", "sem00_000-002_denoised.png"]
@@ -94,13 +95,13 @@ def test_checkpoint_loads_in_the_jax_package(run):
     """The port's epoch checkpoint through JAX's load_checkpoint gives the
     port's forward (float32 sums in another order: atol 1e-5)."""
     run_dir, _, state = run
-    path = os.path.join(run_dir, "epoch_model_002.pth")
-    params = jax_load_checkpoint(path, arch="UNetImproved")
+    path = os.path.join(run_dir, "epoch_model_002.ckpt")
+    params = jax_load_checkpoint(path)
     x = np.random.default_rng(0).random((1, 32, 32, 1), dtype=np.float32)
     want = np.asarray(JaxImprovedUNet(in_nc=1, out_nc=1, n_feature=8).apply(
         {"params": params}, jnp.asarray(x)))
     model = ImprovedUNet(1, 1, 8)
-    model.load_state_dict(torch.load(path, weights_only=True), strict=True)
+    model.load_state_dict(load_checkpoint(path, arch="UNetImproved"), strict=True)
     with torch.no_grad():
         got = model(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
         trained = state.model(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
@@ -110,13 +111,13 @@ def test_checkpoint_loads_in_the_jax_package(run):
 
 def test_resume_starts_from_the_checkpoint(run, data_dir, tmp_path):
     run_dir, _, _ = run
-    path = os.path.join(run_dir, "epoch_model_002.pth")
+    path = os.path.join(run_dir, "epoch_model_002.ckpt")
     train.main(ARGS + ["--data_dir", data_dir, "--n_epoch", "1",
                        "--max_steps_per_epoch", "1", "--resume", path,
                        "--save_model_path", str(tmp_path)])
-    (first,) = glob.glob(str(tmp_path / "*" / "*" / "epoch_model_000.pth"))
-    a, b = torch.load(path, weights_only=True), torch.load(first, weights_only=True)
-    assert all(torch.equal(a[k], b[k]) for k in a)
+    (first,) = glob.glob(str(tmp_path / "*" / "*" / "epoch_model_000.ckpt"))
+    with open(path, "rb") as f, open(first, "rb") as g:
+        assert f.read() == g.read()
 
 
 STEP_LINE = re.compile(r"^(\d{4}) (\d{5}) Loss1=(\d+\.\d{6}), Loss_Full=(\d+\.\d{6}), "
@@ -131,8 +132,8 @@ def _first_step_losses(data_dir, run_dir, **flags):
     from image_denoising_tpu_torch.losses import l1_loss, structure_loss
 
     model = ImprovedUNet(1, 1, 8, **flags)
-    model.load_state_dict(torch.load(os.path.join(run_dir, "epoch_model_000.pth"),
-                                     weights_only=True), strict=True)
+    model.load_state_dict(load_checkpoint(os.path.join(run_dir, "epoch_model_000.ckpt"),
+                                          arch="UNetImproved"), strict=True)
     clean, noisy = next(DenoiseDataset(data_dir).batches(2, np.random.default_rng(0),
                                                          shuffle=True, drop_last=True))
     c, n = (torch.from_numpy(a).permute(0, 3, 1, 2) / 255.0 for a in (clean, noisy))
@@ -172,7 +173,7 @@ def test_train_cli_accepts_the_structure_slice_flags(data_dir, tmp_path, capsys,
     assert out.dtype == (want_flags["dtype"] or torch.float32)
     assert int(state.step) == 1 and int(state.skipped) == 0
     (run_dir,) = glob.glob(str(tmp_path / "out" / "*" / "*"))
-    assert sorted(os.listdir(run_dir)) == ["epoch_model_000.pth", "epoch_model_001.pth",
+    assert sorted(os.listdir(run_dir)) == ["epoch_model_000.ckpt", "epoch_model_001.ckpt",
                                            "validation"]
     ((_, _, l1, full),) = STEP_LINE.findall(capsys.readouterr().out)
     want_l1, want_full = _first_step_losses(data_dir, run_dir, **want_flags)
@@ -184,7 +185,7 @@ def test_train_cli_accepts_the_structure_slice_flags(data_dir, tmp_path, capsys,
 @pytest.mark.parametrize("flags", [
     ["--parallel"],
     ["--blindspot"],
-    ["--resume", "model.ckpt"],
+    ["--arch", "RESNET"],  # a .ckpt --resume is taken now (test_resume_*)
     ["--gpu_devices", "0,1"],
 ])
 def test_train_cli_refuses_flags_of_later_slices(data_dir, tmp_path, flags):
