@@ -88,6 +88,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                cli.finetune_memory for 1 epoch of --patches_per_image 2 (a
                tail batch) over the .ckpt base, and the E6 CLI serving the
                adapter_only .ckpt the memory finetuner wrote.
+  9. serving — the serving CLIs through their main, with PyTorch's default
+               TF32 flags, over 9 seeded 704² pairs (a burst of 8 and a tail
+               of 1) and [finetune]'s base and adapters: denoise at its
+               defaults (bf16, bursts of 8, host pass inline and in 4
+               threads: the same PNGs) and at f32 / -1 / floor, byte-equal to
+               E2's PNGs; E1 in f32 within E2's limits of the per-conv
+               module's whole-frame forward, in bf16 within them of the f32
+               module and no farther from it than the module's own bf16
+               forward, and its device metrics against its host path; the
+               whole-frame forward timed alone; E2 and E3 at bursts of 8 with IoU: the
+               device metrics against the host path (PSNR 1e-3 dB, SSIM 1e-4,
+               IoU 1e-6), 4 host workers giving identical lines, metrics.txt
+               and PNGs, a --profile_dir trace; E4 and E5 per frame within
+               0.01 dB of the output adapter over the per-conv module base;
+               E6 at the [memory] preset, device metrics and 4 workers
+               likewise; ssim_torch within 1e-4 of the host SSIM; chain and
+               retrieval launches counted per run. Frames, seconds, frames/s,
+               denoise MP/s, the host pass's s/frame and the device metrics'
+               ms per burst.
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Per-shape details go to the --json file.
 """
@@ -95,9 +114,11 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import copy
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1403,12 +1424,14 @@ def _write_pairs(root, clean, noise):
             Image.fromarray(f).save(os.path.join(root, sub, f"sem{i:03d}.png"))
 
 
-def phase_finetune(seed: int):
+def phase_finetune(seed: int, keep_dir: str):
     """The B-domain loop on the card: a .ckpt base written and read back, 12
     memory finetune steps at the launcher preset with a float32 and E6's
     int8/uint8 bank, each against the same steps with the plain retrieval
     and the module base, and short runs of the three finetune CLIs with the
-    E6 CLI serving the adapter the memory finetuner wrote."""
+    E6 CLI serving the adapter the memory finetuner wrote. The base and the
+    three CLIs' checkpoints are copied into ``keep_dir`` for [serving]
+    (``out["kept"]``)."""
     import tempfile
 
     import numpy as np
@@ -1634,6 +1657,9 @@ def phase_finetune(seed: int):
     del bank, module_cuda
     torch.cuda.empty_cache()
     out["cli"] = _finetune_clis(data, base_ckpt, tmp, seed)
+    out["kept"] = {name: shutil.copy(path, os.path.join(keep_dir, f"{name}.ckpt"))
+                   for name, path in [("base", base_ckpt)] + [
+                       (k, v["path"]) for k, v in out["cli"].items() if "path" in v]}
     tmp_ctx.cleanup()
     return out
 
@@ -1676,7 +1702,7 @@ def _finetune_clis(data, base_ckpt, tmp, seed):
               and (launches["top1_l2_retrieval"] > 0 or name != "finetune_memory")
               and (sorted(tree) == ["adapter", "base"]) == (role == "adapter"))
         out[name] = dict(seconds=sec, launches=launches, steps=int(state.step),
-                         checkpoint=os.path.basename(ckpt), pngs=len(pngs))
+                         checkpoint=os.path.basename(ckpt), pngs=len(pngs), path=ckpt)
         log(f"[finetune] cli.{name}.main, 1 epoch of 10 patches (batches 4, 4, 2) over "
             f"the .ckpt base: {sec:.2f} s; {int(state.step)} steps; wrote "
             f"{os.path.basename(ckpt)}; {len(pngs)} validation PNG(s); launches {launches}")
@@ -1703,6 +1729,435 @@ def _finetune_clis(data, base_ckpt, tmp, seed):
         raise AssertionError(f"finetune: E6 CLI over the finetuned adapter: {out['e6']}")
     return out
 
+
+# [serving]: the serving CLIs over 9 seeded 704² pairs (a burst of 8 and a
+# tail of 1); the limits of the device metrics against the host path
+SERVE_FRAMES, SERVE_BURST, SERVE_WORKERS = 9, 8, 4
+DM_PSNR_TOL, DM_SSIM_TOL, DM_IOU_TOL = 1e-3, 1e-4, 1e-6
+ADAPTER_PSNR_TOL = 0.01
+_DEFAULT_TF32 = {}  # PyTorch's own TF32 flags, read before main turns them off
+
+
+@contextlib.contextmanager
+def user_tf32():
+    """PyTorch's default TF32 flags inside the block (what a user's run
+    sees), this script's own after it."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = _DEFAULT_TF32["cudnn"]
+    torch.backends.cuda.matmul.allow_tf32 = _DEFAULT_TF32["matmul"]
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def run_cli(main, args):
+    """One CLI run through its ``main`` under the default TF32 flags, with
+    the kernels' launch counts set to 0 just before and read just after.
+    Records what the CLI's modules compute per frame: its MetricsWriter's
+    lists, every PSNR it computes on the host, and each host pass's
+    seconds. Its stdout is kept apart: the lines of its frames are returned."""
+    import io
+
+    import torch
+
+    import image_denoising_tpu_torch.metrics as metrics
+    from image_denoising_tpu_torch.cli import common
+    from image_denoising_tpu_torch.memory.retrieval import top1_l2_retrieval
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+
+    rec = dict(writers=[], psnr=[], host_s=[])
+    host_psnr = metrics.calculate_psnr
+
+    class Writer(common.MetricsWriter):
+        def __init__(self):
+            super().__init__()
+            rec["writers"].append(self)
+
+    class Pool(common.HostWorkPool):
+        def submit(self, fn, *a):
+            def timed(*b):
+                t0 = time.perf_counter()
+                r = fn(*b)
+                rec["host_s"].append(time.perf_counter() - t0)
+                return r
+
+            super().submit(timed, *a)
+
+    def psnr(*a, **k):
+        v = host_psnr(*a, **k)
+        rec["psnr"].append(v)
+        return v
+
+    saved = common.MetricsWriter, common.HostWorkPool
+    common.MetricsWriter, common.HostWorkPool, metrics.calculate_psnr = Writer, Pool, psnr
+    buf = io.StringIO()
+    try:
+        with user_tf32(), contextlib.redirect_stdout(buf):
+            torch.cuda.synchronize()
+            fused_rdb_chain.launches = 0
+            top1_l2_retrieval.launches = 0
+            t0 = time.perf_counter()
+            result = main(args)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
+                            top1_l2_retrieval=top1_l2_retrieval.launches)
+    finally:
+        common.MetricsWriter, common.HostWorkPool = saved
+        metrics.calculate_psnr = host_psnr
+    w = rec["writers"][-1] if rec["writers"] else None
+    frames = dict(psnr=w.psnr, ssim=w.ssim, l1=w.l1,
+                  ious=list(zip(w.iou_dark, w.iou_mid, w.iou_bright))) if w else {}
+    return dict(result=result, seconds=sec, launches=launches, frames=frames,
+                host_psnr=rec["psnr"], host_s=rec["host_s"],
+                lines=[ln for ln in buf.getvalue().splitlines() if ln.startswith("[")])
+
+
+def serving_frames(seed: int, count: int = SERVE_FRAMES):
+    """``count`` seeded 704² uint8 pairs: a smooth pattern with texture, and
+    Gaussian noise on top."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 40)
+    yy, xx = np.mgrid[0:FRAME, 0:FRAME].astype(np.float32)
+    clean = [np.clip(128 + 70 * np.sin(xx / (13 + f) + f) * np.cos(yy / (19 + f))
+                     + rng.normal(0, 6, (FRAME, FRAME)), 0, 255).astype(np.uint8)
+             for f in range(count)]
+    noise = [np.clip(c + rng.normal(0, 20, c.shape), 0, 255).astype(np.uint8)
+             for c in clean]
+    return clean, noise
+
+
+def _read_pngs(d, suffix=".png"):
+    import numpy as np
+    from PIL import Image
+
+    return {f: np.asarray(Image.open(os.path.join(d, f)))
+            for f in sorted(os.listdir(d)) if f.endswith(suffix)}
+
+
+def _same_files(a, b):
+    names = sorted(os.listdir(a))
+    return names == sorted(os.listdir(b)) and all(
+        open(os.path.join(a, f), "rb").read() == open(os.path.join(b, f), "rb").read()
+        for f in names)
+
+
+def _dm_vs_host(dm, host, what, ssim=True, iou=False):
+    """Per-frame device metrics against the host path's; raises past the
+    limits. Returns the largest differences."""
+    import numpy as np
+
+    d = dict(psnr=max(abs(a - b) for a, b in zip(dm["psnr"], host["psnr"])))
+    if ssim:
+        d["ssim"] = max(abs(a - b) for a, b in zip(dm["ssim"], host["ssim"]))
+    if iou:
+        d["iou"] = float(np.nanmax(np.abs(np.asarray(dm["ious"]) - np.asarray(host["ious"]))))
+        same_nan = np.array_equal(np.isnan(dm["ious"]), np.isnan(host["ious"]))
+    if (len(dm["psnr"]) != len(host["psnr"]) or not d["psnr"] <= DM_PSNR_TOL
+            or (ssim and not d["ssim"] <= DM_SSIM_TOL)
+            or (iou and not (d["iou"] <= DM_IOU_TOL and same_nan))):
+        raise AssertionError(f"{what}: device metrics against the host path {d}")
+    return d
+
+
+def check_whole_frame_bf16(vs_f32, vs_same, own_bf16):
+    """E1's bf16 PNGs: within E2's bf16 limits of the float32 module, and no
+    farther from it (mean) than the per-conv module's own bf16 forward is;
+    against that bf16 module, E2's largest difference. Its mean difference
+    is not held to E2's 1.0: a bf16 output in [0.5, 1) is stored to 2^-8,
+    one uint8 level, so two bf16 forwards that round differently part by
+    about a level wherever the frame is brighter than mid-grey."""
+    ok = (vs_f32["max_level_diff"] <= BF16_MAX_LEVELS
+          and vs_f32["mean_level_diff"] <= BF16_MEAN_LEVELS
+          and vs_f32["mean_level_diff"] <= own_bf16["mean_level_diff"]
+          and vs_same["max_level_diff"] <= BF16_MAX_LEVELS)
+    if not ok:
+        raise AssertionError("E1 bfloat16: fused path too far from the per-conv "
+                             f"forward ({vs_f32}, {vs_same}; the module's own bf16 "
+                             f"{own_bf16})")
+
+
+def phase_serving(seed: int, kept):
+    """The serving CLIs through their ``main``, over 9 seeded 704² pairs and
+    [finetune]'s checkpoints (``kept``): denoise, E1, E2/E3, E4, E5 and E6,
+    each checked as the module docstring says."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.adapters import DenoiserWithAdapter, OutputAdapter
+    from image_denoising_tpu_torch.ckpt import load_checkpoint
+    from image_denoising_tpu_torch.cli import (denoise, evaluation, evaluation_704,
+                                               evaluation_704_iqsl,
+                                               evaluation_704_iqsl_memory,
+                                               evaluation_adapter, evaluation_adapter_iqsl)
+    from image_denoising_tpu_torch.eval.tiled import denoise_whole_frame, reference_tile_grid
+    from image_denoising_tpu_torch.metrics import (calculate_psnr, calculate_ssim,
+                                                   make_device_metrics, ssim_torch)
+    from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
+
+    tmp_ctx = tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build"))
+    tmp = tmp_ctx.name
+    clean, noise = serving_frames(seed)
+    data = os.path.join(tmp, "data")
+    _write_pairs(data, clean, noise)
+    n = len(clean)
+    mp = n * FRAME * FRAME / 1e6
+    base = kept["base"]
+    out = {}
+    totals = {"float32": 0, "bfloat16": 0, "int8": 0}  # chain by dtype; retrieval (int8 bank)
+
+    def save(name):
+        return ["--save_dir", os.path.join(tmp, name)]
+
+    def report(name, r, extra="", dtype="float32"):
+        totals[dtype] += r["launches"]["fused_rdb_chain"]
+        totals["int8"] += r["launches"]["top1_l2_retrieval"]
+        fps = n / r["seconds"]
+        out[name] = dict(seconds=r["seconds"], fps=fps, launches=r["launches"],
+                         host_pass_s_per_frame=(statistics.mean(r["host_s"])
+                                                if r["host_s"] else None))
+        log(f"[serving] {name}: {n} frames of {FRAME}^2, {r['seconds']:.3f} s, "
+            f"{fps:.4f} frames/s{extra}; launches {r['launches']}")
+
+    def need_chain(name, r, want=None):
+        got = r["launches"]["fused_rdb_chain"]
+        if not got or (want is not None and got != want):
+            raise AssertionError(f"{name}: {got} chain launches, want {want or '> 0'}")
+
+    # denoise at its defaults: bf16, bursts of 8 (and a tail of 1), 8-tile
+    # chunks, floor; from PNG in to PNG out, with the host pass inline and
+    # in 4 threads. 72 tiles of a burst are 9 chunks of 9 chain calls
+    net = ["--n_feature", str(NF)]
+    tiles = ["--tile", str(TILE), "--overlap", str(OVERLAP)] + net
+    dn = ["--input_dir", os.path.join(data, "noise"), "--checkpoint", base] + tiles
+    bursts = -(-n // SERVE_BURST)
+    per_burst = 9 * -(-SERVE_BURST * len(reference_tile_grid(FRAME, FRAME, TILE,
+                                                             TILE - OVERLAP)) // B)
+    for workers in (0, SERVE_WORKERS):
+        name = f"denoise_bf16_hw{workers}"
+        r = run_cli(denoise.main, dn + save(name) + ["--host_workers", str(workers)])
+        need_chain(name, r, per_burst * bursts)
+        if r["result"] != n or len(_read_pngs(os.path.join(tmp, name))) != n:
+            raise AssertionError(f"{name}: {r['result']} frames written, want {n}")
+        report(name, r, f", {mp / r['seconds']:.4f} MP/s end to end (PNG in to PNG out)",
+               "bfloat16")
+        out[name]["mps"] = mp / r["seconds"]
+    if not _same_files(os.path.join(tmp, "denoise_bf16_hw0"),
+                       os.path.join(tmp, f"denoise_bf16_hw{SERVE_WORKERS}")):
+        raise AssertionError("denoise: --host_workers 4 wrote other PNGs than 0")
+    prof = profile_window(lambda: run_cli(denoise.main, dn + save("denoise_profiled")))
+    out["denoise_profile"] = prof
+    log(f"[serving] one denoise run at its defaults under torch.profiler: wall "
+        f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms (share "
+        f"{prof['busy_share']}); chain kernel {prof['chain_ms']:.1f} ms; top kernels "
+        f"{prof['top_kernels_ms'][:3]}")
+
+    # denoise at E2's numerics against E2's own denoised PNGs, byte for byte
+    r = run_cli(denoise.main, dn + save("denoise_f32") + [
+        "--dtype", "float32", "--tile_batch", "-1", "--frame_burst", "0",
+        "--rounding", "floor"])
+    need_chain("denoise_f32", r)
+    report("denoise_f32", r, f", {mp / r['seconds']:.4f} MP/s (tile by tile)")
+    e2 = ["--data_dir", data, "--checkpoint", base] + tiles
+    r = run_cli(evaluation_704.main, e2 + save("e2_ref") + ["--save_images", "denoised"])
+    need_chain("e2_ref", r)
+    report("e2_f32_tile_by_tile", r)
+    ref = {f.rsplit("_", 2)[0] + "_denoised.png": v
+           for f, v in _read_pngs(os.path.join(tmp, "e2_ref"), "_denoised.png").items()}
+    got = _read_pngs(os.path.join(tmp, "denoise_f32"))
+    if got.keys() != ref.keys() or not all(np.array_equal(got[f], ref[f]) for f in got):
+        raise AssertionError("denoise at f32 / -1 / floor differs from E2's PNGs")
+    log(f"[serving] denoise --dtype float32 --tile_batch -1 --frame_burst 0: {n} PNGs "
+        "byte-equal to E2's *_denoised.png")
+
+    # E1: whole frames at batch 1, against the per-conv module (TF32 off)
+    torch.manual_seed(seed)
+    model = ImprovedUNet(1, 1, NF).eval()
+    model.load_state_dict(load_checkpoint(base, arch="UNetImproved"), strict=True)
+    module_preds = {}
+    x1 = torch.from_numpy(noise[0].astype(np.float32) / 255.0).to("cuda")[None, None]
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        mod = copy.deepcopy(model).to("cuda", dt)
+        module_preds[dname] = np.stack([np.clip(denoise_whole_frame(
+            lambda t, m=mod, d=dt: m(t.to(d)), f[..., None].astype(np.float32) / 255.0,
+            device="cuda") * 255.0 + 0.5, 0, 255).astype(np.uint8)[..., 0] for f in noise])
+        # E1's forward alone at 1 x 704^2: the fused path (and its set-up:
+        # weights copied and repacked) against the per-conv module
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd = make_fused_forward(model, device="cuda", dtype=dt)
+        torch.cuda.synchronize()
+        with torch.inference_mode():
+            out[f"e1_forward_{dname}"] = dict(
+                setup_ms=(time.perf_counter() - t0) * 1e3,
+                fused_ms=time_ms(lambda: fwd(x1), reps=5),
+                module_ms=time_ms(lambda m=mod, d=dt: m(x1.to(d)), reps=5))
+        with torch.inference_mode():
+            prof = profile_window(lambda: fwd(x1).cpu(), top=4)
+        out[f"e1_forward_{dname}"]["profile"] = prof
+        log(f"[serving] whole-frame forward 1x{FRAME}^2 {dname}: fused "
+            f"{out[f'e1_forward_{dname}']['fused_ms']:.2f} ms (set-up "
+            f"{out[f'e1_forward_{dname}']['setup_ms']:.1f} ms), per-conv module "
+            f"{out[f'e1_forward_{dname}']['module_ms']:.2f} ms; under torch.profiler: "
+            f"device busy {prof['device_busy_ms']:.2f} ms, chain kernel "
+            f"{prof['chain_ms']:.2f} ms, cuDNN FFT path {prof['fft_ms']:.2f} ms, top "
+            f"kernels {prof['top_kernels_ms']}")
+        del mod, fwd
+    own_bf16 = level_diff(module_preds["bfloat16"], module_preds["float32"])
+    out["module_bf16_vs_f32"] = own_bf16
+    log(f"[serving] per-conv module bfloat16 against float32, whole frames: {own_bf16}")
+    with user_tf32():
+        mod = copy.deepcopy(model).to("cuda")
+        tf32_pred = np.stack([np.clip(denoise_whole_frame(
+            mod, f[..., None].astype(np.float32) / 255.0, device="cuda") * 255.0 + 0.5,
+            0, 255
+        ).astype(np.uint8)[..., 0] for f in noise])
+        del mod
+    out["module_tf32_vs_f32"] = level_diff(tf32_pred, module_preds["float32"])
+    log(f"[serving] per-conv module float32 with PyTorch's default TF32 against TF32 "
+        f"off (why a float32 forward turns TF32 off): {out['module_tf32_vs_f32']}")
+    e1 = ["--data_dir", data, "--checkpoint", base, "--save_images", "denoised"] + net
+    for dname in ("float32", "bfloat16"):
+        name = f"e1_{dname}"
+        r = run_cli(evaluation.main, e1 + save(name) + ["--dtype", dname])
+        need_chain(name, r, 9 * n)
+        report(name, r, dtype=dname)
+        pngs = _read_pngs(os.path.join(tmp, name), "_denoised.png")
+        preds = np.stack([v[..., 0] for v in pngs.values()])
+        vs_f32 = level_diff(preds, module_preds["float32"])
+        vs_same = level_diff(preds, module_preds[dname])
+        out[name].update(vs_f32, vs_same_dtype_module=vs_same)
+        log(f"[serving] {name} denoised PNGs vs denoise_whole_frame over the per-conv "
+            f"module: float32 {vs_f32}; {dname} {vs_same}")
+        if dname == "float32":
+            check_levels(dname, vs_f32, vs_same, "E1")
+        else:
+            check_whole_frame_bf16(vs_f32, vs_same, own_bf16)
+        if dname == "float32":
+            host = r["frames"]
+    r = run_cli(evaluation.main, e1 + save("e1_dm") + ["--device_metrics"])
+    d = _dm_vs_host(r["frames"], host, "E1")
+    if r["frames"]["l1"] != host["l1"]:
+        raise AssertionError("E1: --device_metrics changed L1")
+    report("e1_float32_device_metrics", r, f"; against the host path {d}, L1 equal")
+
+    # E2 and E3 at the serving shape, host and device metrics, 0 and 4 workers
+    burst = ["--frame_burst", str(SERVE_BURST), "--tile_batch", f"-{B}", "--compute_iq_iou"]
+    for cli, main in (("e2", evaluation_704.main), ("e3", evaluation_704_iqsl.main)):
+        args = ["--data_dir", data, "--checkpoint", base] + burst + tiles
+        host = run_cli(main, args + save(f"{cli}_host"))
+        need_chain(f"{cli}_host", host, per_burst * bursts)
+        report(f"{cli}_host_metrics", host,
+               f", host pass {statistics.mean(host['host_s']):.4f} s/frame (PSNR, SSIM, "
+               "IoU and 3 PNGs per frame)")
+        dm = run_cli(main, args + save(f"{cli}_dm") + ["--device_metrics",
+                                                      "--save_images", "none"])
+        d = _dm_vs_host(dm["frames"], host["frames"], cli.upper(), iou=True)
+        report(f"{cli}_device_metrics", dm,
+               f", host pass {statistics.mean(dm['host_s']):.6f} s/frame; against "
+               f"the host path {d}")
+        # E3's pooled run is also traced; E2's is timed without the profiler
+        trace_dir = os.path.join(tmp, f"{cli}_trace")
+        prof = ["--profile_dir", trace_dir] if cli == "e3" else []
+        pooled = run_cli(main, args + save(f"{cli}_hw{SERVE_WORKERS}") + prof + [
+            "--host_workers", str(SERVE_WORKERS)])
+        report(f"{cli}_hw{SERVE_WORKERS}" + ("_profiled" if prof else ""), pooled)
+        if not (pooled["lines"] == host["lines"] and _same_files(
+                os.path.join(tmp, f"{cli}_host"), os.path.join(tmp, f"{cli}_hw{SERVE_WORKERS}"))):
+            raise AssertionError(f"{cli}: --host_workers {SERVE_WORKERS} output differs")
+        log(f"[serving] {cli} --host_workers {SERVE_WORKERS}: frame lines, metrics.txt and "
+            "PNGs identical to 0")
+        if prof:
+            traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+            if not traces:
+                raise AssertionError(f"{cli}: --profile_dir wrote no trace")
+            log(f"[serving] {cli} --profile_dir wrote {traces[0]} "
+                f"({os.path.getsize(os.path.join(trace_dir, traces[0]))} bytes)")
+
+    # the device metrics alone: one burst of 8 704² frames, and ssim_torch
+    # against the float64 host SSIM, under the default TF32 flags
+    p8 = torch.from_numpy(np.stack(noise[:B])).to("cuda")
+    c8 = torch.from_numpy(np.stack(clean[:B])).to("cuda")
+    with user_tf32():
+        score = make_device_metrics(iq_iou=True)
+        out["device_metrics_ms_per_burst"] = time_ms(lambda: score(p8, c8), reps=5)
+        s = ssim_torch(p8.float(), c8.float()).cpu().numpy()
+    host_ssim = [calculate_ssim(noise[k], clean[k]) for k in range(B)]
+    out["ssim_torch_max_diff"] = float(np.max(np.abs(s - host_ssim)))
+    log(f"[serving] device metrics (PSNR, SSIM, IoU) of one burst of {B}x{FRAME}^2: "
+        f"{out['device_metrics_ms_per_burst']:.3f} ms; ssim_torch with TF32 on within "
+        f"{out['ssim_torch_max_diff']:.3g} of the float64 host SSIM (limit {DM_SSIM_TOL})")
+    if not out["ssim_torch_max_diff"] <= DM_SSIM_TOL:
+        raise AssertionError("ssim_torch: too far from the host SSIM with TF32 on")
+
+    # E4 and E5 over [finetune]'s adapters, per frame against the output
+    # adapter over the per-conv module base, float32
+    for name, main, args, ckpts in (
+            ("e4", evaluation_adapter.main, ["--ckpt", kept["finetune"]],
+             (kept["finetune"], "base", "adapter")),
+            ("e5", evaluation_adapter_iqsl.main,
+             ["--base_ckpt", base, "--adapter_ckpt", kept["finetune_iqsl"],
+              "--compute_iq_iou"], (kept["finetune_iqsl"], "", ""))):
+        r = run_cli(main, ["--data_dir", data] + args + net + save(name))
+        need_chain(name, r, 9 * n)
+        report(name, r)
+        head = OutputAdapter(1, E6_HIDDEN)
+        head.load_state_dict(load_checkpoint(ckpts[0], arch="output_adapter",
+                                             prefix=ckpts[2]), strict=True)
+        mod = copy.deepcopy(model).to("cuda")
+        if ckpts[1]:
+            mod.load_state_dict(load_checkpoint(ckpts[0], arch="UNetImproved",
+                                                prefix=ckpts[1]), strict=True)
+        ref = DenoiserWithAdapter(mod, head).to("cuda").eval()
+        want = []
+        for f, c in zip(noise, clean):
+            with torch.inference_mode():
+                x = torch.from_numpy(f.astype(np.float32) / 255.0).to("cuda")[None, None]
+                p = ref(x)[0, 0].cpu().numpy()
+            want.append(calculate_psnr(np.clip(p * 255.0 + 0.5, 0, 255).astype(np.uint8),
+                                       c, zero_mse_psnr=99.0))
+        got = r["frames"]["psnr"] if r["frames"] else r["host_psnr"]
+        d = max(abs(a - b) for a, b in zip(got, want))
+        out[name].update(max_psnr_diff=d, psnr=got)
+        log(f"[serving] {name}: per-frame PSNR within {d:.3g} dB of the output adapter "
+            f"over the per-conv module base (limit {ADAPTER_PSNR_TOL})")
+        if len(got) != n or not d <= ADAPTER_PSNR_TOL:
+            raise AssertionError(f"{name}: PSNR {got} against {want}")
+        del mod, ref
+
+    # E6 at [memory]'s preset over the memory finetuner's adapter
+    e6 = ["--data_dir", data, "--base_ckpt", base, "--adapter_ckpt",
+          kept["finetune_memory"], "--frame_burst", str(E6_BURST), "--memory_stride",
+          str(E6_STRIDE), "--bank_dtype", "int8", "--clean_bank_dtype", "uint8",
+          "--compute_iq_iou", "--patch_size", str(E6_TILE), "--overlap", str(OVERLAP)] + net
+    host = run_cli(evaluation_704_iqsl_memory.main, e6 + save("e6_host"))
+    want_e6 = dict(fused_rdb_chain=9 * -(-E6_TILES // B) * -(-n // E6_BURST),
+                   top1_l2_retrieval=-(-n // E6_BURST))
+    if host["launches"] != want_e6:
+        raise AssertionError(f"E6: launches {host['launches']}, want {want_e6}")
+    report("e6_host_metrics", host)
+    dm = run_cli(evaluation_704_iqsl_memory.main,
+                 e6 + save("e6_dm") + ["--device_metrics", "--save_images", "none"])
+    d = _dm_vs_host(dm["frames"], host["frames"], "E6", ssim=False, iou=True)
+    report("e6_device_metrics", dm, f"; against the host path {d}")
+    pooled = run_cli(evaluation_704_iqsl_memory.main, e6 + save(f"e6_hw{SERVE_WORKERS}")
+                     + ["--host_workers", str(SERVE_WORKERS)])
+    report(f"e6_hw{SERVE_WORKERS}", pooled)
+    if not (pooled["lines"] == host["lines"] and _same_files(
+            os.path.join(tmp, "e6_host"), os.path.join(tmp, f"e6_hw{SERVE_WORKERS}"))):
+        raise AssertionError(f"E6: --host_workers {SERVE_WORKERS} output differs")
+    log(f"[serving] e6 --host_workers {SERVE_WORKERS}: frame lines, metrics.txt and PNGs "
+        "identical to 0")
+    tmp_ctx.cleanup()
+    out["launches"] = totals
+    return out
 
 
 def _preds(out):
@@ -1794,6 +2249,8 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
         return 1
+    _DEFAULT_TF32.update(cudnn=torch.backends.cudnn.allow_tf32,
+                         matmul=torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1801,7 +2258,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
 
     t0 = time.perf_counter()
     sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu")
@@ -1834,7 +2291,12 @@ def main(argv=None) -> int:
     train = phase_train(args.seed)
     structure = phase_structure(args.seed)
     train_cli = phase_train_cli(args.seed)
-    fine = phase_finetune(args.seed)
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as keep:
+        fine = phase_finetune(args.seed, keep)
+        serving = phase_serving(args.seed, fine["kept"])
     ft_launches = {k: fine["float32"]["launches"][k] + fine["int8"]["launches"][k]
                    for k in ("fused_rdb_chain", "top1_l2_retrieval")}
 
@@ -1846,11 +2308,13 @@ def main(argv=None) -> int:
             source=CHAIN_SOURCE, replaces=CHAIN_REPLACES,
             launches=main_path[dname]["launches"]
             + memory[dname]["launches"]["fused_rdb_chain"]
-            + (ft_launches["fused_rdb_chain"] if dname == "float32" else 0),
+            + (ft_launches["fused_rdb_chain"] if dname == "float32" else 0)
+            + serving["launches"][dname],
             launches_by_path={"E2": main_path[dname]["launches"],
                               "E6": memory[dname]["launches"]["fused_rdb_chain"],
                               "finetune": (ft_launches["fused_rdb_chain"]
-                                           if dname == "float32" else 0)},
+                                           if dname == "float32" else 0),
+                              "serving": serving["launches"][dname]},
             max_abs_err=max(r["max_abs_err"] for r in rows + e6_rows),
             ms=sum(r["ms"] for r in rows),
             plain_ms=sum(r["plain_ms"] for r in rows),
@@ -1871,10 +2335,14 @@ def main(argv=None) -> int:
                     + memory["bfloat16"]["launches"]["top1_l2_retrieval"]
                     if dname == "int8" else
                     memory[f"{dname}_bank"]["launches"]["top1_l2_retrieval"])
-        launches += fine[dname]["launches"]["top1_l2_retrieval"] if dname in fine else 0
+        by_path = {"E6": launches,
+                   "finetune": fine[dname]["launches"]["top1_l2_retrieval"]
+                   if dname in fine else 0,
+                   "serving": serving["launches"]["int8"] if dname == "int8" else 0}
         summary.append(dict(
             name="top1_l2_retrieval", dtype=dname, route="cuda", design=ROUTES[dname][0],
-            source=TOP1_SOURCE, replaces=TOP1_REPLACES, launches=launches,
+            source=TOP1_SOURCE, replaces=TOP1_REPLACES, launches=sum(by_path.values()),
+            launches_by_path=by_path,
             max_abs_err=res["max_f64_excess"],
             mismatched_indices=res["mismatched_vs_plain"],
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
@@ -1901,7 +2369,8 @@ def main(argv=None) -> int:
                                     chain_ft4x128=chain_ft, chain_ft1x704=chain_frame,
                                     top1=top1, subsample=subsample, launch_floor=floor),
                        main=main_path, memory=memory, train=train, train_cli=train_cli,
-                       structure=structure, finetune=fine, summary=summary),
+                       structure=structure, finetune=fine, serving=serving,
+                       summary=summary),
                   f, indent=1)
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
         f"of one {B}-tile E2 chunk (e6: of one E6 chunk); design is the route "
@@ -1919,7 +2388,9 @@ def main(argv=None) -> int:
         "(torch.profiler), wrapper_ms the per-call time of calls issued back to "
         "back, launch_floor_ms the per-launch time of an empty kernel issued back "
         "to back; library_ms is null: no one PyTorch call draws and gathers; "
-        "launches from the 12 N2N steps")
+        "launches from the 12 N2N steps; launches_by_path[serving]: the [serving] CLI "
+        "runs (chain float32 / bfloat16 by the runs' compute dtype; retrieval: E6's "
+        "int8 bank)")
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

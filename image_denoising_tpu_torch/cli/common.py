@@ -1,11 +1,12 @@
-"""Shared CLI plumbing for the E2 and E6 evaluators, the trainer and the
-finetuners (counterpart of the parts of ``image_denoising_tpu/cli/common.py``
-that ``evaluation_704``, ``evaluation_704_iqsl_memory``, ``train`` and
-``finetune*`` use).
+"""Shared CLI plumbing of the evaluators, the ``denoise`` serving CLI, the
+trainer and the finetuners (counterpart of
+``image_denoising_tpu/cli/common.py``).
 
 Model construction, ``.ckpt`` and ``.pth`` loading, PNG writing, the
-per-image metrics file, the lazy burst stream of ``--frame_burst``, and the
-trainer's ``--dtype`` and ``--blindspot`` flags.
+per-image metrics file, the lazy burst stream of ``--frame_burst`` with its
+on-device scoring hook, the whole-frame forward of the adapter evaluators,
+the ``--host_workers`` pool of the per-frame host pass, and the ``--dtype``
+and ``--blindspot`` flags.
 """
 from __future__ import annotations
 
@@ -28,9 +29,14 @@ __all__ = [
     "save_png",
     "MetricsWriter",
     "iter_bursts",
+    "make_clean_post",
     "drain_burst",
+    "batched_frame_forward",
+    "add_host_workers_flag",
+    "HostWorkPool",
     "make_metrics_finalize",
     "refuse_unported",
+    "cli_device",
     "load_frozen_base",
     "iqsl_config",
     "run_epoch",
@@ -96,14 +102,18 @@ def save_png(arr: np.ndarray, path: str, mode: Optional[str] = "RGB") -> None:
     img.save(path, compress_level=1)
 
 
-def iter_bursts(by_shape, get_frame, fb, make_runner, max_inflight=3):
+def iter_bursts(by_shape, get_frame, fb, make_runner, extra=(), post=None,
+                max_inflight=3):
     """Lazy burst stream for ``--frame_burst``.
 
     One runner per frame-shape bucket ({(h, w): [frame indices]}); frames
     are loaded per chunk via ``get_frame(j)`` (2-D uint8), the tail chunk is
     padded by repeating its last frame, and at most ``max_inflight`` bursts
     are queued on the device so host work on drained frames overlaps device
-    work on later ones. Yields ``(chunk, runner_out)``.
+    work on later ones. ``extra`` is passed to every runner call after the
+    frames. Yields ``(chunk, runner_out, post_out)``, where ``post(chunk,
+    runner_out)`` (optional) queues more device work on the outputs while
+    they are still on the device (the ``--device_metrics`` scorer).
     """
     for (h, w), idxs in sorted(by_shape.items()):
         runner = make_runner(h, w)
@@ -115,33 +125,178 @@ def iter_bursts(by_shape, get_frame, fb, make_runner, max_inflight=3):
                 batchf = np.concatenate(
                     [batchf, np.repeat(batchf[-1:], fb - len(chunk), 0)]
                 )
-            inflight.append((chunk, runner(torch.from_numpy(batchf))))
+            out = runner(torch.from_numpy(batchf), *extra)
+            inflight.append((chunk, out, post(chunk, out) if post else None))
             if len(inflight) >= max_inflight:
                 yield inflight.pop(0)
         while inflight:
             yield inflight.pop(0)
 
 
-def drain_burst(item, cache):
-    """Fetch one burst to the host: cache[j] = (pred, *per-frame scalars).
+def make_clean_post(get_clean, fb, metrics_fn, pick_pred=lambda out: out):
+    """The ``--device_metrics`` ``post()`` of :func:`iter_bursts`.
 
-    The runner returns the [F, H, W] uint8 predictions alone (the Hann
-    engine) or with [F] per-frame scalars (the pyramid engine's L1).
-    Returns the drained chunk of frame indices.
+    Stacks the chunk's clean frames via ``get_clean(j)`` (2-D uint8), pads
+    the tail chunk by repeating its last frame (the padding ``iter_bursts``
+    gives the noisy batch), and scores the predictions that ``pick_pred``
+    selects from the runner output (``out[0]`` for the pyramid engine's
+    ``(preds, l1)``) with ``metrics_fn``, on their device.
     """
-    chunk, out = item
-    preds, *scalars = out if isinstance(out, tuple) else (out,)
-    preds = preds.cpu().numpy()
-    scalars = [s.cpu().numpy() for s in scalars]
+
+    def post(chunk, out):
+        cleanf = np.stack([get_clean(j) for j in chunk])
+        if len(chunk) < fb:
+            cleanf = np.concatenate(
+                [cleanf, np.repeat(cleanf[-1:], fb - len(chunk), 0)]
+            )
+        pred = pick_pred(out)
+        clean = torch.from_numpy(cleanf)
+        if pred.device.type == "cuda":  # a pinned copy waits for no queued work
+            clean = clean.pin_memory().to(pred.device, non_blocking=True)
+        with torch.inference_mode():
+            return metrics_fn(pred, clean)
+
+    return post
+
+
+def drain_burst(item, cache, fetch_pred=True, pick=lambda out: (out, ())):
+    """Fetch one in-flight burst of :func:`iter_bursts` to a host cache.
+
+    ``pick(runner_out) -> (pred_dev, extras_dev)`` splits the runner output
+    into the prediction batch and per-frame extras (the pyramid engine's
+    L1). Cache entries are ``(pred_or_None, *extras_j,
+    device_metrics_or_None)``; with ``fetch_pred=False`` (``--device_metrics
+    --save_images none``) the predictions never leave the device: only the
+    per-frame scalars are copied. Returns the drained chunk of frame indices.
+    """
+    chunk, out, m_dev = item
+    pred_dev, extras_dev = pick(out)
+    pred = pred_dev.cpu().numpy() if fetch_pred else None
+    extras = [e.cpu().numpy() for e in extras_dev]
+    m = [x.cpu().numpy() for x in m_dev] if m_dev is not None else None
     for k, j in enumerate(chunk):
-        cache[j] = (preds[k], *(float(s[k]) for s in scalars))
+        p = pred[k] if pred is not None else None
+        dm = tuple(x[k] for x in m) if m is not None else None
+        cache[j] = (p, *(e[k] for e in extras), dm)
     return chunk
 
 
-def make_metrics_finalize(writer):
-    """Per-frame finalize: record ``(msg, writer_kwargs)`` and print ``msg``."""
+def batched_frame_forward(fwd, frames, parallel: bool = False, device="cuda"):
+    """Whole-frame inference over a list of [H, W, C] float01 frames.
+
+    ``fwd`` takes and returns NCHW tensors. Frames are grouped by shape and
+    run at batch 1, as the reference's single-GPU path does; the result is
+    the per-frame [H, W, C] float32 predictions, in input order.
+    ``parallel=True`` (frames sharded over several cards) is not ported.
+    """
+    if parallel:
+        raise NotImplementedError(
+            "--parallel not ported to the PyTorch package yet (ROADMAP.md "
+            "queue 1 item 8)")
+    by_shape: dict = {}
+    for i, f in enumerate(frames):
+        by_shape.setdefault(np.shape(f), []).append(i)
+    preds = [None] * len(frames)
+    with torch.inference_mode():
+        for _, idxs in sorted(by_shape.items()):
+            for i in idxs:
+                x = torch.from_numpy(np.asarray(frames[i], np.float32)).to(device)
+                out = fwd(x.permute(2, 0, 1)[None])[0]
+                preds[i] = out.permute(1, 2, 0).float().cpu().numpy()
+    return preds
+
+
+def add_host_workers_flag(parser) -> None:
+    parser.add_argument(
+        "--host_workers", type=int, default=0,
+        help="thread-pool size for the per-frame host pass (PSNR/SSIM/IoU + "
+             "PNG encode). The native SSIM and PIL's PNG encoder release the "
+             "GIL, so frames score in parallel while the main thread keeps "
+             "the device fed. Results finalize in frame order: the output is "
+             "identical to the default inline pass (0). -1 = one worker per "
+             "host CPU.",
+    )
+
+
+class HostWorkPool:
+    """Optional thread pool for the CLIs' per-frame host pass.
+
+    ``submit(fn, *args)`` queues one frame's host work; ``finalize(result)``
+    runs **in submission order** on the main thread (inside submit/close),
+    so stdout lines, ``MetricsWriter`` contents and metrics.txt are
+    byte-identical to the inline path. The pending window is bounded
+    (2·workers+2) so host memory holds only a few frames. ``workers=0``
+    calls ``fn`` inline; ``-1`` means one worker per CPU. Both hot host ops
+    release the GIL: the native SSIM (a ctypes call into ``csrc/ssim.cpp``)
+    and PIL's PNG encoder.
+    """
+
+    def __init__(self, workers: int, finalize=None):
+        self.finalize = finalize if finalize is not None else (lambda r: None)
+        self._pool = None
+        if workers and workers < 0:
+            workers = os.cpu_count() or 1
+        if workers and workers > 0:
+            from collections import deque
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(max_workers=workers)
+            self._pending = deque()
+            self._bound = 2 * workers + 2
+
+    def submit(self, fn, *args):
+        if self._pool is None:
+            self.finalize(fn(*args))
+            return
+        self._pending.append(self._pool.submit(fn, *args))
+        # finalize every finished leading frame without blocking; block on
+        # the oldest only when the window is full
+        while self._pending and (
+            self._pending[0].done() or len(self._pending) > self._bound
+        ):
+            self.finalize(self._pending.popleft().result())
+
+    def close(self):
+        """Drain the remaining frames (in order) and shut the pool down."""
+        if self._pool is None:
+            return
+        try:
+            while self._pending:
+                self.finalize(self._pending.popleft().result())
+        finally:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+    def abort(self):
+        """Shut down without finalizing: cancel queued frames, wait for the
+        running ones and drop their results, so a failing CLI writes no PNG
+        behind its traceback and leaves no thread behind."""
+        if self._pool is None:
+            return
+        self._pending.clear()
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        self._pool = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self.close()
+        else:
+            self.abort()
+        return False
+
+
+def make_metrics_finalize(writer, skip_none: bool = False):
+    """Per-frame finalize: record ``(msg, writer_kwargs)`` and print ``msg``.
+    ``skip_none`` ignores frames with no ground truth (adapter eval)."""
 
     def _finalize(res):
+        if res is None:
+            if skip_none:
+                return
+            raise ValueError("host pass returned None")
         msg, add_kw = res
         writer.add(**add_kw)
         print(msg)
@@ -204,15 +359,29 @@ class MetricsWriter:
 # the finetuners (cli/finetune.py, finetune_iqsl.py, finetune_memory.py)
 
 def refuse_unported(opt, flags=("parallel",)):
-    """NotImplementedError for the multi-device flags (ROADMAP.md queue 1
-    item 8), before anything is loaded."""
-    refused = [f"--{n}" for n in flags if getattr(opt, n)]
-    if "," in opt.gpu_devices:
-        refused.append("--gpu_devices with several cards")
+    """NotImplementedError, before anything is loaded, for the flags that
+    wait for the other networks (``--blindspot``, ROADMAP.md queue 1 item 7)
+    or for multi-device (every other flag and several ``--gpu_devices``,
+    item 8)."""
+    refused = [f"--{n} (ROADMAP.md queue 1 item {7 if n == 'blindspot' else 8})"
+               for n in flags if getattr(opt, n)]
+    if "," in getattr(opt, "gpu_devices", ""):
+        refused.append("--gpu_devices with several cards (ROADMAP.md queue 1 item 8)")
     if refused:
         raise NotImplementedError(
-            f"{', '.join(refused)} not ported to the PyTorch package yet "
-            "(ROADMAP.md queue 1 item 8)")
+            f"{', '.join(refused)} not ported to the PyTorch package yet")
+
+
+def cli_device(opt, refused=("parallel",)) -> str:
+    """The device an evaluator runs on: ``cpu`` for ``--device cpu``, else
+    the card ``--gpu_devices`` names (``cuda:N``). Refuses the unported
+    ``refused`` flags first, and raises where there is no card."""
+    from ..utils.device import resolve_device
+
+    refuse_unported(opt, refused)
+    device = "cpu" if opt.device == "cpu" else f"cuda:{int(getattr(opt, 'gpu_devices', '0'))}"
+    resolve_device(device)  # fail before any loading when there is no GPU
+    return device
 
 
 def load_frozen_base(opt, device):

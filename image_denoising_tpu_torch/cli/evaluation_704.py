@@ -6,18 +6,21 @@ quirk, ``evaluation_704.py:120``). The network runs through
 ``make_fused_forward``: on a CUDA device every level block goes through the
 hand-written chain kernel. Same flags and output files as the JAX CLI, plus
 ``--device {cuda,cpu}``: ``cuda`` runs on the one card ``--gpu_devices``
-names (``cuda:N``). ``--parallel``, ``--device_metrics``, ``--profile_dir``,
-``--host_workers``, ``--blindspot`` and several ``--gpu_devices`` are parsed
+names (``cuda:N``). ``--device_metrics`` scores each burst on the device
+(``metrics/device.py``), ``--host_workers N`` runs the per-frame host pass
+in a thread pool and ``--profile_dir`` traces the denoise loop.
+``--parallel``, ``--blindspot`` and several ``--gpu_devices`` are parsed
 and refused (not ported yet).
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation_704 --data_dir d
 --checkpoint model.ckpt`` (the JAX package's ``.ckpt``, or a
 reference-layout ``.pth`` such as its ``ckpt/pth_export.py::export_pth``
-writes).
+writes). ``cli/evaluation_704_iqsl.py`` is the same CLI.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import numpy as np
@@ -52,50 +55,42 @@ def parse_args(argv=None):
                              "(serving mode: 8 with --tile_batch -8). 0 = "
                              "frame by frame like the reference.")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="not ported yet")
+                        help="write a torch.profiler trace of the denoise "
+                             "loop to this directory")
     parser.add_argument("--save_images", type=str, default="all",
                         choices=["all", "denoised", "none"],
                         help="which PNGs to write per frame: 'all' (noisy + "
                              "clean + denoised, as the reference), "
                              "'denoised', or 'none'")
     parser.add_argument("--device_metrics", action="store_true",
-                        help="not ported yet")
+                        help="score PSNR/SSIM (and IQ-IoU with "
+                             "--compute_iq_iou) on the device (float32 SSIM, "
+                             "~1e-6 from the host float64 SSIM). With "
+                             "--save_images none the predictions never leave "
+                             "the device. Implies the burst pipeline.")
     parser.add_argument("--compute_iq_iou", action="store_true")
     parser.add_argument("--iq_low_q", type=float, default=0.25)
     parser.add_argument("--iq_high_q", type=float, default=0.75)
-    parser.add_argument("--blindspot", action="store_true",
-                        help="not ported yet")
-    parser.add_argument("--dtype", type=str, default="float32",
-                        choices=["float32", "bfloat16"],
-                        help="compute dtype of the forward; weights load as float32")
-    parser.add_argument("--host_workers", type=int, default=0,
-                        help="not ported yet (0 = inline host pass)")
+    from .common import add_blindspot_flag, add_dtype_flag, add_host_workers_flag
+
+    add_blindspot_flag(parser)
+    add_dtype_flag(parser)
+    add_host_workers_flag(parser)
     return parser.parse_args(argv)
-
-
-_NOT_PORTED = ("parallel", "device_metrics", "profile_dir", "host_workers",
-               "blindspot")
 
 
 def evaluate(opt):
     from ..data.pairs import validation_denoise
     from ..eval.tiled import denoise_tiled_pyramid, make_tiled_pyramid_runner_frames
-    from ..metrics import calculate_psnr, calculate_ssim, compute_iq_iou
+    from ..metrics import (calculate_psnr, calculate_ssim, compute_iq_iou,
+                           make_device_metrics)
     from ..models.fused_forward import make_fused_forward
-    from ..utils.device import resolve_device
-    from .common import (MetricsWriter, build_network, drain_burst, iter_bursts,
-                         load_params, make_metrics_finalize, save_png)
+    from ..utils.profiling import trace
+    from .common import (HostWorkPool, MetricsWriter, build_network, cli_device,
+                         drain_burst, iter_bursts, load_params, make_clean_post,
+                         make_metrics_finalize, save_png)
 
-    unsupported = [f"--{n}" for n in _NOT_PORTED if getattr(opt, n)]
-    if "," in opt.gpu_devices:
-        unsupported.append("--gpu_devices with several cards")
-    if unsupported:
-        raise NotImplementedError(
-            f"{', '.join(unsupported)} not ported to the PyTorch package yet "
-            "(ROADMAP.md)")
-    device = "cpu" if opt.device == "cpu" else f"cuda:{int(opt.gpu_devices)}"
-    resolve_device(device)  # fail before any loading when there is no GPU
-
+    device = cli_device(opt, ("parallel", "blindspot"))
     os.makedirs(opt.save_dir, exist_ok=True)
     clean_imgs, noisy_imgs, clean_paths, noisy_paths = validation_denoise(opt.data_dir)
 
@@ -106,60 +101,98 @@ def evaluate(opt):
     fwd = make_fused_forward(network, device=device, dtype=dtype)
     print(f"Loaded checkpoint from {opt.checkpoint}")
 
+    # --frame_burst: N same-shape frames per runner call, up to three bursts
+    # in flight; the loop below drains them on demand, so the host pass of
+    # early frames overlaps the device work of later ones. --device_metrics
+    # scores each burst where its predictions are, so it implies bursts
     pred_cache: dict = {}
     burst_stream = None
-    if opt.frame_burst > 1:
+    save_mode = opt.save_images
+    fetch_pred = not opt.device_metrics or save_mode != "none"
+    if opt.frame_burst > 1 or opt.device_metrics:
+        fb = max(opt.frame_burst, 1)
         by_shape: dict = {}
         for j, nz in enumerate(noisy_imgs):
             if np.ndim(nz) != 2:
                 raise ValueError(f"tiled pyramid eval is single-channel: "
                                  f"frame {j} has shape {np.shape(nz)}")
+            if opt.device_metrics and np.shape(clean_imgs[j]) != np.shape(nz):
+                raise ValueError(
+                    f"--device_metrics scores per shape bucket: clean/noisy "
+                    f"shapes differ for frame {j} ({np.shape(clean_imgs[j])} "
+                    f"vs {np.shape(nz)})")
             by_shape.setdefault(np.shape(nz), []).append(j)
 
         def make_runner(h, w):
             return make_tiled_pyramid_runner_frames(
-                fwd, opt.frame_burst, h, w, opt.tile, opt.overlap,
+                fwd, fb, h, w, opt.tile, opt.overlap,
                 batch=opt.tile_batch, out_dtype="uint8_floor",
                 device=device)
 
+        post = None
+        if opt.device_metrics:
+            post = make_clean_post(
+                lambda j: np.asarray(clean_imgs[j], np.uint8), fb,
+                make_device_metrics(iq_iou=opt.compute_iq_iou,
+                                    low_q=opt.iq_low_q, high_q=opt.iq_high_q),
+                pick_pred=lambda out: out[0])
         burst_stream = iter_bursts(
-            by_shape, lambda j: np.asarray(noisy_imgs[j], np.uint8),
-            opt.frame_burst, make_runner)
+            by_shape, lambda j: np.asarray(noisy_imgs[j], np.uint8), fb,
+            make_runner, post=post)
 
     writer = MetricsWriter()
-    finalize = make_metrics_finalize(writer)
-    save_mode = opt.save_images
-    for i, (clean, noisy) in enumerate(zip(clean_imgs, noisy_imgs)):
-        clean_name = os.path.basename(clean_paths[i]).split(".")[0]
-        noisy_name = os.path.basename(noisy_paths[i]).split(".")[0]
-        clean_u8 = np.asarray(clean).astype(np.uint8)
-        noisy_u8 = np.asarray(noisy).astype(np.uint8)
 
-        if burst_stream is not None:
-            while i not in pred_cache:
-                drain_burst(next(burst_stream), pred_cache)
-            pred255, l1_val = pred_cache.pop(i)
-        else:
-            pred255, l1_val = denoise_tiled_pyramid(
-                fwd, noisy_u8, ps=opt.tile, overlap=opt.overlap,
-                batch=opt.tile_batch, out_dtype="uint8_floor",
-                device=device)
-
+    def _host_pass(i, clean_name, noisy_name, clean_u8, noisy_u8, pred255,
+                   l1_val, dev_m):
+        """One frame's PNGs and metrics: inline, or in the --host_workers
+        pool (finalized in frame order)."""
         if save_mode == "all":
             save_png(noisy_u8, os.path.join(opt.save_dir, f"{noisy_name}_{i:03d}_noisy.png"), mode=None)
             save_png(clean_u8, os.path.join(opt.save_dir, f"{clean_name}_{i:03d}_clean.png"), mode=None)
         if save_mode != "none":
             save_png(pred255, os.path.join(opt.save_dir, f"{noisy_name}_{i:03d}_denoised.png"), mode=None)
 
-        psnr_val = calculate_psnr(pred255, clean_u8)
-        ssim_val = calculate_ssim(pred255, clean_u8)
+        ious = None
+        if dev_m is not None:
+            psnr_val, ssim_val = float(dev_m[0]), float(dev_m[1])
+            if len(dev_m) > 2:
+                ious = [float(v) for v in dev_m[2]]
+        else:
+            psnr_val = calculate_psnr(pred255, clean_u8)
+            ssim_val = calculate_ssim(pred255, clean_u8)
         msg = (f"[{i + 1}/{len(clean_imgs)}] {noisy_name} -> "
                f"PSNR: {psnr_val:.2f}, SSIM: {ssim_val:.4f}, L1: {l1_val:.6f}")
-        ious = None
         if opt.compute_iq_iou:
-            ious = compute_iq_iou(pred255, clean_u8, opt.iq_low_q, opt.iq_high_q)
+            if ious is None:
+                ious = compute_iq_iou(pred255, clean_u8, opt.iq_low_q, opt.iq_high_q)
             msg += f", IoU(d/m/b)=({ious[0]:.3f},{ious[1]:.3f},{ious[2]:.3f})"
-        finalize((msg, dict(psnr=psnr_val, ssim=ssim_val, l1=l1_val, ious=ious)))
+        return msg, dict(psnr=psnr_val, ssim=ssim_val, l1=l1_val, ious=ious)
+
+    profiling = trace(opt.profile_dir) if opt.profile_dir else contextlib.nullcontext()
+    with profiling, HostWorkPool(opt.host_workers, make_metrics_finalize(writer)) as pool:
+        for i, (clean, noisy) in enumerate(zip(clean_imgs, noisy_imgs)):
+            clean_name = os.path.basename(clean_paths[i]).split(".")[0]
+            noisy_name = os.path.basename(noisy_paths[i]).split(".")[0]
+            clean_u8 = np.asarray(clean).astype(np.uint8)
+            noisy_u8 = np.asarray(noisy).astype(np.uint8)
+
+            dev_m = None
+            if burst_stream is not None:
+                while i not in pred_cache:
+                    drain_burst(next(burst_stream), pred_cache, fetch_pred,
+                                pick=lambda out: (out[0], (out[1],)))
+                pred255, l1_val, dev_m = pred_cache.pop(i)
+                l1_val = float(l1_val)
+            else:
+                pred255, l1_val = denoise_tiled_pyramid(
+                    fwd, noisy_u8, ps=opt.tile, overlap=opt.overlap,
+                    batch=opt.tile_batch, out_dtype="uint8_floor",
+                    device=device)
+
+            pool.submit(_host_pass, i, clean_name, noisy_name, clean_u8,
+                        noisy_u8, pred255, l1_val, dev_m)
+    if opt.profile_dir:
+        print(f"profiler trace written to {opt.profile_dir}")
 
     writer.write(opt.save_dir)
     avg = writer.averages()

@@ -12,9 +12,11 @@ chunked forward, the retrieved patches riding along as a second channel.
 
 Same flags, defaults and output files (``*_denoised_mem.png``,
 ``metrics.txt``) as the JAX CLI, plus ``--device {cuda,cpu}``: ``cuda`` runs
-on the one card ``--gpu_devices`` names (``cuda:N``). ``--parallel``,
-``--bank_sharded``, ``--device_metrics``, ``--host_workers > 0`` and several
-``--gpu_devices`` are parsed and refused (not ported yet).
+on the one card ``--gpu_devices`` names (``cuda:N``). ``--device_metrics``
+scores PSNR (and IQ-IoU) of each burst on the device, ``--host_workers N``
+runs the per-frame host pass in a thread pool. ``--parallel``,
+``--bank_sharded`` and several ``--gpu_devices`` are parsed and refused (not
+ported yet).
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation_704_iqsl_memory
 --data_dir d --base_ckpt b.ckpt --adapter_ckpt a.ckpt``: ``.ckpt`` files as
@@ -97,7 +99,10 @@ def parse_args(argv=None):
     parser.add_argument("--iq_low_q", type=float, default=0.25)
     parser.add_argument("--iq_high_q", type=float, default=0.75)
     parser.add_argument("--device_metrics", action="store_true",
-                        help="not ported yet")
+                        help="score PSNR (and IQ-IoU with --compute_iq_iou) "
+                             "on the device; with --save_images none the "
+                             "predictions never leave the device. Implies "
+                             "the burst pipeline")
     parser.add_argument("--hoist_retrieval", action=argparse.BooleanOptionalAction,
                         default=True,
                         help="retrieve all tiles' memory patches in one pass "
@@ -115,8 +120,9 @@ def parse_args(argv=None):
                         choices=["float32", "bfloat16"],
                         help="compute dtype of the base forward; weights load "
                              "as float32 and the adapter computes in float32")
-    parser.add_argument("--host_workers", type=int, default=0,
-                        help="not ported yet (0 = inline host pass)")
+    from .common import add_host_workers_flag
+
+    add_host_workers_flag(parser)
     args, _ = parser.parse_known_args(argv)
     return args
 
@@ -172,25 +178,13 @@ def evaluate(opt):
     from ..data.pairs import list_pairs, validation_denoise
     from ..eval.tiled import denoise_tiled_hann, make_tiled_hann_runner_frames
     from ..memory import build_memory_bank
-    from ..metrics import calculate_psnr, compute_iq_iou
+    from ..metrics import calculate_psnr, compute_iq_iou, make_device_metrics
     from ..models.fused_forward import make_fused_forward
-    from ..utils.device import resolve_device
-    from .common import (MetricsWriter, build_network, drain_burst, iter_bursts,
-                         load_params, make_metrics_finalize, save_png)
+    from .common import (HostWorkPool, MetricsWriter, build_network, cli_device,
+                         drain_burst, iter_bursts, load_params, make_clean_post,
+                         make_metrics_finalize, save_png)
 
-    unsupported = [f"--{n}" for n in ("parallel", "bank_sharded", "device_metrics")
-                   if getattr(opt, n)]
-    if opt.host_workers > 0:
-        unsupported.append("--host_workers > 0")
-    if "," in opt.gpu_devices:
-        unsupported.append("--gpu_devices with several cards")
-    if unsupported:
-        raise NotImplementedError(
-            f"{', '.join(unsupported)} not ported to the PyTorch package yet "
-            "(ROADMAP.md)")
-    device = "cpu" if opt.device == "cpu" else f"cuda:{int(opt.gpu_devices)}"
-    resolve_device(device)  # fail before any loading when there is no GPU
-
+    device = cli_device(opt, ("parallel", "bank_sharded"))
     os.makedirs(opt.save_dir, exist_ok=True)
     clean_imgs, noisy_imgs, clean_paths, noisy_paths = validation_denoise(opt.data_dir)
     clean_all, noise_all = list_pairs(opt.data_dir)
@@ -216,52 +210,81 @@ def evaluate(opt):
 
     pred_cache: dict = {}
     burst_stream = None
-    if opt.frame_burst > 1:
+    save_mode = opt.save_images
+    fetch_pred = not opt.device_metrics or save_mode != "none"
+    if opt.frame_burst > 1 or opt.device_metrics:
+        fb = max(opt.frame_burst, 1)
         by_shape: dict = {}
         for j, nz in enumerate(noisy_imgs):
-            by_shape.setdefault(_squeeze2d(nz, f"frame {j}").shape, []).append(j)
+            shape = _squeeze2d(nz, f"frame {j}").shape
+            if opt.device_metrics and _squeeze2d(clean_imgs[j], f"clean {j}").shape != shape:
+                raise ValueError(
+                    f"--device_metrics scores per shape bucket: clean/noisy "
+                    f"shapes differ for frame {j}")
+            by_shape.setdefault(shape, []).append(j)
 
         def make_runner(h, w):
             return make_tiled_hann_runner_frames(
-                model_call, opt.frame_burst, h, w, ps=opt.patch_size,
+                model_call, fb, h, w, ps=opt.patch_size,
                 overlap=opt.overlap, batch=opt.tile_batch,
                 out_dtype="uint8_round", pre_tile_fn=pre_tile_fn, device=device)
 
+        post = None
+        if opt.device_metrics:
+            # E6 reports PSNR (and IoU) only: ssim=False skips the SSIM work
+            post = make_clean_post(
+                lambda j: _squeeze2d(clean_imgs[j], f"clean {j}").astype(np.uint8), fb,
+                make_device_metrics(iq_iou=opt.compute_iq_iou, low_q=opt.iq_low_q,
+                                    high_q=opt.iq_high_q, ssim=False))
         burst_stream = iter_bursts(
             by_shape, lambda j: _squeeze2d(noisy_imgs[j], f"frame {j}").astype(np.uint8),
-            opt.frame_burst, make_runner)
+            fb, make_runner, post=post)
 
     t_start = time.perf_counter()
     drain_log: list = []
     writer = MetricsWriter()
-    finalize = make_metrics_finalize(writer)
-    for i, (clean, noisy) in enumerate(zip(clean_imgs, noisy_imgs)):
-        noisy_name = os.path.basename(noisy_paths[i]).split(".")[0]
-        clean255 = np.asarray(clean).astype(np.uint8)
-        if burst_stream is not None:
-            while i not in pred_cache:
-                chunk = drain_burst(next(burst_stream), pred_cache)
-                drain_log.append({"t": round(time.perf_counter() - t_start, 4),
-                                  "frames": list(chunk)})
-            (pred255,) = pred_cache.pop(i)
-        else:
-            pred255 = denoise_tiled_hann(
-                model_call, np.asarray(noisy), ps=opt.patch_size,
-                overlap=opt.overlap, batch=opt.tile_batch,
-                out_dtype="uint8_round", pre_tile_fn=pre_tile_fn,
-                device=device)[..., 0]
 
-        if opt.save_images != "none":
+    def _host_pass(i, noisy_name, clean255, pred255, dev_m):
+        """One frame's PNG and metrics: inline, or in the --host_workers
+        pool (finalized in frame order)."""
+        if save_mode != "none":
             save_png(pred255, os.path.join(opt.save_dir,
                                            f"{noisy_name}_denoised_mem.png"),
                      mode="L")
-        psnr = calculate_psnr(pred255, clean255)
-        msg = f"[{i + 1}/{len(clean_imgs)}] {noisy_name} -> PSNR: {psnr:.2f}"
         ious = None
+        if dev_m is not None:
+            psnr = float(dev_m[0])  # the ssim=False scorer: (psnr,) or (psnr, ious)
+            if not np.isfinite(psnr):
+                psnr = 99.0  # the host path's mse == 0 guard
+            if len(dev_m) > 1:
+                ious = [float(v) for v in dev_m[1]]
+        else:
+            psnr = calculate_psnr(pred255, clean255, zero_mse_psnr=99.0)
+        msg = f"[{i + 1}/{len(clean_imgs)}] {noisy_name} -> PSNR: {psnr:.2f}"
         if opt.compute_iq_iou:
-            ious = compute_iq_iou(pred255, clean255, opt.iq_low_q, opt.iq_high_q)
+            if ious is None:
+                ious = compute_iq_iou(pred255, clean255, opt.iq_low_q, opt.iq_high_q)
             msg += f", IoU(d/m/b)=({ious[0]:.3f},{ious[1]:.3f},{ious[2]:.3f})"
-        finalize((msg, dict(psnr=psnr, ious=ious)))
+        return msg, dict(psnr=psnr, ious=ious)
+
+    with HostWorkPool(opt.host_workers, make_metrics_finalize(writer)) as pool:
+        for i, (clean, noisy) in enumerate(zip(clean_imgs, noisy_imgs)):
+            noisy_name = os.path.basename(noisy_paths[i]).split(".")[0]
+            clean255 = np.asarray(clean).astype(np.uint8)
+            dev_m = None
+            if burst_stream is not None:
+                while i not in pred_cache:
+                    chunk = drain_burst(next(burst_stream), pred_cache, fetch_pred)
+                    drain_log.append({"t": round(time.perf_counter() - t_start, 4),
+                                      "frames": list(chunk)})
+                pred255, dev_m = pred_cache.pop(i)
+            else:
+                pred255 = denoise_tiled_hann(
+                    model_call, np.asarray(noisy), ps=opt.patch_size,
+                    overlap=opt.overlap, batch=opt.tile_batch,
+                    out_dtype="uint8_round", pre_tile_fn=pre_tile_fn,
+                    device=device)[..., 0]
+            pool.submit(_host_pass, i, noisy_name, clean255, pred255, dev_m)
 
     if opt.timing_json and drain_log:
         px = int(np.shape(noisy_imgs[0])[0]) * int(np.shape(noisy_imgs[0])[1])

@@ -144,7 +144,7 @@ def train_adapter(opt, iqsl: bool = False):
                     pred = wrapper(x.permute(2, 0, 1)[None].to(device))[0]
                     pred255 = torch.clamp(pred * 255.0 + 0.5, 0, 255).to(torch.uint8)
                 pred255 = pred255.permute(1, 2, 0).cpu().numpy().squeeze()
-                psnr = calculate_psnr(pred255, clean_np)
+                psnr = calculate_psnr(pred255, clean_np, zero_mse_psnr=99.0)
                 if i == 0:
                     print(f"Val ep{epoch}: psnr={psnr:.2f} dB")
                     if not iqsl:

@@ -1,6 +1,7 @@
 from .tiled import (
     denoise_tiled_hann,
     denoise_tiled_pyramid,
+    denoise_whole_frame,
     edge_aligned_grid,
     hann_window_2d,
     make_tiled_hann_runner,
@@ -14,6 +15,7 @@ from .tiled import (
 __all__ = [
     "denoise_tiled_hann",
     "denoise_tiled_pyramid",
+    "denoise_whole_frame",
     "edge_aligned_grid",
     "hann_window_2d",
     "make_tiled_hann_runner",

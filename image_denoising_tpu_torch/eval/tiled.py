@@ -1,6 +1,9 @@
-"""Batched tiled full-frame inference with pyramid and Hann² blending.
+"""Full-frame inference: one whole-frame forward, or tiles with pyramid
+or Hann² blending.
 
-Counterpart of ``image_denoising_tpu/eval/tiled.py``, two regimes:
+Counterpart of ``image_denoising_tpu/eval/tiled.py``. ``denoise_whole_frame``
+is the whole-frame path of ``evaluation.py``; the tiled engines have two
+regimes:
 
 * pyramid (the ``evaluation_704.py`` engine): 352-px tiles, stride =
   ps − overlap, grid anchored at multiples of the stride (tiles may overrun
@@ -45,7 +48,20 @@ __all__ = [
     "make_tiled_hann_runner",
     "make_tiled_hann_runner_frames",
     "denoise_tiled_hann",
+    "denoise_whole_frame",
 ]
+
+
+def denoise_whole_frame(model_call: Callable, noisy01: np.ndarray, device="cuda"):
+    """One forward of a [H, W, C] float frame in [0, 1] (``evaluation.py``
+    semantics), clipped to [0, 1]; returns numpy [H, W, C] float32.
+    ``model_call`` takes and returns NCHW; ImprovedUNet needs H and W
+    divisible by 2**depth."""
+    dev = resolve_device(device)
+    x = torch.from_numpy(np.asarray(noisy01, np.float32)).to(dev)
+    with torch.inference_mode():
+        pred = model_call(x.permute(2, 0, 1)[None])[0]
+        return torch.clamp(pred.float(), 0.0, 1.0).permute(1, 2, 0).cpu().numpy()
 
 
 def pyramid_weight_mask(ps: int) -> np.ndarray:

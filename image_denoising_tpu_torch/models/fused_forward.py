@@ -10,9 +10,14 @@ final conv stay plain PyTorch, as the JAX package leaves them to XLA.
 
 Activations stay NCHW-shaped in ``channels_last`` memory, so the NHWC view
 the chain takes (and the NHWC tensors it returns) cost no copy.
+
+A float32 forward is float32 throughout: the chain kernel runs 3xTF32, and
+``make_fused_forward`` runs the plain cuDNN convs with TF32 off whatever
+``torch.backends.cudnn.allow_tf32`` (True by default) says.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import torch
@@ -80,6 +85,11 @@ def improved_unet_fused_apply(
     """sd: the ImprovedUNet reference state dict on x's device, conv weights
     in the working dtype, GroupNorm affine parameters in float32. x: NCHW ``[B, in_nc, H, W]`` in [0, 1]. ``chains``:
     ``chain_weights(sd, depth)``, built once by the caller."""
+    div = 2 ** depth
+    if x.shape[2] % div or x.shape[3] % div:
+        raise ValueError(
+            f"ImprovedUNet(depth={depth}) needs H and W divisible by {div}; "
+            f"got ({x.shape[2]},{x.shape[3]})")
     x = x.to(sd["final.weight"].dtype).contiguous(memory_format=_CL)
     if noise:
         h = leaky_relu(_conv(x, sd, "noise_estimator.0"))
@@ -107,12 +117,23 @@ def improved_unet_fused_apply(
     return torch.sigmoid(x)
 
 
+@contextlib.contextmanager
+def _cudnn_tf32_off():
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
 def make_fused_forward(model, device="cuda", dtype: Optional[torch.dtype] = None):
     """``fwd(x)`` with the contract of ``model(x)`` (NCHW in and out) that
     runs the fused forward on ``device`` in ``dtype`` (default: the model's).
 
     The weights are copied to the device, cast and repacked once here;
-    GroupNorm's affine parameters stay float32, as in the JAX package.
+    GroupNorm's affine parameters stay float32, as in the JAX package. In
+    float32 the plain convs run with cuDNN's TF32 off.
     """
     dev = resolve_device(device)
     dt = dtype or model.final.weight.dtype
@@ -121,11 +142,13 @@ def make_fused_forward(model, device="cuda", dtype: Optional[torch.dtype] = None
     sd = {k: v.detach().to(device=dev, dtype=torch.float32 if k in gn else dt)
           for k, v in model.state_dict().items()}
     chains = chain_weights(sd, model.depth)
+    precise = _cudnn_tf32_off if dt == torch.float32 else contextlib.nullcontext
 
     @torch.inference_mode()
     def fwd(x):
-        return improved_unet_fused_apply(
-            sd, x.to(dev), in_nc=model.in_nc, depth=model.depth,
-            noise=model.noise, chains=chains)
+        with precise():
+            return improved_unet_fused_apply(
+                sd, x.to(dev), in_nc=model.in_nc, depth=model.depth,
+                noise=model.noise, chains=chains)
 
     return fwd

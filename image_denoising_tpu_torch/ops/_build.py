@@ -1,8 +1,10 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C++ library.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, at first use, into
+Each ``.cu`` source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, at first use, into
 ``build/kernels/`` at the root of the checkout, and loaded with ``ctypes``.
+The host C++ source (``csrc/ssim.cpp``, the native SSIM) is compiled the
+same way by ``g++`` into ``build/host/``.
 The library name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded. Nothing is compiled
 or imported when this module is imported.
@@ -22,17 +24,19 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "build", "load_fused_block", "load_neighbor",
-           "load_retrieval"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "HOST_BUILD_DIR", "build", "build_host",
+           "load_fused_block", "load_neighbor", "load_retrieval", "load_ssim"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+HOST_BUILD_DIR = PACKAGE_DIR.parent / "build" / "host"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 
 def _nvcc() -> str:
@@ -46,47 +50,68 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(source: str, defines: tuple = ()) -> tuple[Path, str]:
-    """Compile ``csrc/<source>`` unless an up-to-date library exists.
-
-    ``defines`` (``NAME=value`` strings, passed as ``-D``) build a variant
-    of the source under its own name. Returns (path of the .so, nvcc's output — empty when nothing was built).
-    The library is written under a temporary name and renamed into place, so
-    concurrent builds never load a half-written file.
-    """
+def _source(source: str) -> Path:
     src = CSRC_DIR / source
     if not src.is_file():
         raise RuntimeError(
-            f"{src} not found: the CUDA kernels build from a checkout of the "
-            "repository or an editable install (pip install -e .), not from "
-            "an installed wheel")
-    # the shared headers (csrc/*.cuh) are part of every source's hash
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
-    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+            f"{src} not found: the native libraries build from a checkout of "
+            "the repository or an editable install (pip install -e .), not "
+            "from an installed wheel")
+    return src
+
+
+def _compile(src: Path, compiler: str, flags: list, salt: bytes,
+             out_dir: Path) -> tuple[Path, str]:
+    """Compile ``src`` into ``out_dir`` unless an up-to-date library exists.
+
+    The library name carries a hash of the source, ``salt`` (the headers)
+    and the flags. It is written under a temporary name and renamed into
+    place, so concurrent builds never load a half-written file. Returns
+    (path of the .so, the compiler's output: empty when nothing was built).
+    """
     digest = hashlib.sha256(
-        src.read_bytes() + headers + " ".join(flags).encode()
+        src.read_bytes() + salt + " ".join(flags).encode()
     ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    out = out_dir / f"lib{src.stem}_{digest}.so"
     if out.exists():
         return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            [_nvcc(), *flags, "-o", tmp, str(src)],
-            capture_output=True, text=True,
-        )
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
+                f"{os.path.basename(compiler)} failed on {src} (exit "
+                f"{proc.returncode}):\n{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out, proc.stdout + proc.stderr
+
+
+def build(source: str, defines: tuple = ()) -> tuple[Path, str]:
+    """Compile ``csrc/<source>`` with ``nvcc`` unless an up-to-date library
+    exists. ``defines`` (``NAME=value`` strings, passed as ``-D``) build a
+    variant of the source under its own name. Returns (path of the .so,
+    nvcc's output: empty when nothing was built)."""
+    src = _source(source)
+    # the shared headers (csrc/*.cuh) are part of every source's hash
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    return _compile(src, _nvcc(), NVCC_FLAGS + [f"-D{d}" for d in defines],
+                    headers, BUILD_DIR)
+
+
+def build_host(source: str) -> tuple[Path, str]:
+    """Compile the host C++ ``csrc/<source>`` with ``g++`` unless an
+    up-to-date library exists; (path of the .so, g++'s output)."""
+    gxx = shutil.which(os.environ.get("CXX", "g++"))
+    if gxx is None:
+        raise RuntimeError("g++ not found (set CXX or put g++ on PATH)")
+    return _compile(_source(source), gxx, GXX_FLAGS, b"", HOST_BUILD_DIR)
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,4 +151,17 @@ def load_neighbor() -> ctypes.CDLL:
     fn.restype = i
     lib.idt_empty_launches.argtypes = [i, p]
     lib.idt_empty_launches.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_ssim() -> ctypes.CDLL:
+    """The native SSIM (csrc/ssim.cpp, host C++), built on first call.
+    ``ssim_gray`` holds no shared state and ctypes releases the GIL while it
+    runs, so several threads score frames at once."""
+    path, _ = build_host("ssim.cpp")
+    lib = ctypes.CDLL(str(path))
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.ssim_gray.argtypes = [dp, dp, ctypes.c_int, ctypes.c_int]
+    lib.ssim_gray.restype = ctypes.c_double
     return lib

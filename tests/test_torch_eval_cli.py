@@ -54,8 +54,56 @@ def test_eval704_matches_jax_cli(dataset_and_ckpt, tmp_path):
             == open(tmp_path / "torch" / "metrics.txt").read())
 
 
-@pytest.mark.parametrize("flag", [["--parallel"], ["--device_metrics"],
-                                  ["--host_workers", "2"], ["--blindspot"],
+def test_eval704_device_metrics_match_host(dataset_and_ckpt, tmp_path):
+    """--device_metrics scores each burst on the device: PSNR within 1e-3 dB,
+    SSIM within 1e-5 of the host float64 pass, IoU within 1e-6, L1 equal,
+    the same PNGs; with --save_images none (1-frame bursts) the predictions
+    stay on the device and no PNG is written."""
+    data, ckpt = dataset_and_ckpt
+    common = ARGS + ["--data_dir", data, "--checkpoint", ckpt, "--device", "cpu"]
+    host = eval704.main(common + ["--save_dir", str(tmp_path / "host")])
+    dm = eval704.main(common + ["--save_dir", str(tmp_path / "dm"), "--frame_burst", "2",
+                                "--device_metrics"])
+    none = eval704.main(common + ["--save_dir", str(tmp_path / "none"),
+                                  "--device_metrics", "--save_images", "none"])
+    for got in (dm, none):
+        assert abs(got["psnr"] - host["psnr"]) <= 1e-3
+        assert abs(got["ssim"] - host["ssim"]) <= 1e-5
+        assert got["l1"] == host["l1"]
+        for k in ("iou_dark", "iou_mid", "iou_bright"):
+            assert abs(got[k] - host[k]) <= 1e-6, k
+    for f in sorted(os.listdir(tmp_path / "host")):
+        assert (open(tmp_path / "dm" / f, "rb").read()
+                == open(tmp_path / "host" / f, "rb").read()), f
+    assert os.listdir(tmp_path / "none") == ["metrics.txt"]
+
+
+def test_eval704_host_workers_and_profile_dir(dataset_and_ckpt, tmp_path, capsys):
+    """--host_workers 2 runs the host pass in a pool: the frame lines,
+    metrics.txt and every PNG are identical to the inline pass. --profile_dir
+    writes a trace of the denoise loop."""
+    data, ckpt = dataset_and_ckpt
+    common = ARGS + ["--data_dir", data, "--checkpoint", ckpt, "--device", "cpu",
+                     "--frame_burst", "2"]
+
+    def lines():
+        return [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[")]
+
+    inline = eval704.main(common + ["--save_dir", str(tmp_path / "inline")])
+    inline_lines = lines()
+    pooled = eval704.main(common + ["--save_dir", str(tmp_path / "pooled"),
+                                    "--host_workers", "2",
+                                    "--profile_dir", str(tmp_path / "trace")])
+    assert lines() == inline_lines and pooled == inline
+    files = sorted(os.listdir(tmp_path / "inline"))
+    assert files == sorted(os.listdir(tmp_path / "pooled"))
+    for f in files:
+        assert (open(tmp_path / "inline" / f, "rb").read()
+                == open(tmp_path / "pooled" / f, "rb").read()), f
+    assert [f for f in os.listdir(tmp_path / "trace") if f.endswith(".pt.trace.json")]
+
+
+@pytest.mark.parametrize("flag", [["--parallel"], ["--blindspot"],
                                   ["--gpu_devices", "0,1"]])
 def test_eval704_refuses_flags_of_later_slices(dataset_and_ckpt, tmp_path, flag):
     data, ckpt = dataset_and_ckpt

@@ -41,13 +41,18 @@ def test_port_modules_import_no_jax():
                 "train.state", "train.steps", "ckpt.io", "utils.profiling",
                 "ckpt.msgpack", "ckpt.pth_import", "models.registry", "losses.iqsl",
                 "train.finetune_steps", "cli.finetune", "cli.finetune_iqsl",
-                "cli.finetune_memory", "data.pairs"):
+                "cli.finetune_memory", "data.pairs", "cli.denoise", "cli.evaluation",
+                "cli.evaluation_704_iqsl", "cli.evaluation_adapter",
+                "cli.evaluation_adapter_iqsl", "metrics.device"):
         assert f"image_denoising_tpu_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
 
 def _entry_points():
-    from image_denoising_tpu_torch.cli import (evaluation_704, evaluation_704_iqsl_memory,
+    from image_denoising_tpu_torch.cli import (denoise, evaluation, evaluation_704,
+                                               evaluation_704_iqsl,
+                                               evaluation_704_iqsl_memory,
+                                               evaluation_adapter, evaluation_adapter_iqsl,
                                                finetune, finetune_iqsl, finetune_memory,
                                                train)
     from image_denoising_tpu_torch.eval import tiled
@@ -85,6 +90,18 @@ def _entry_points():
                                                          "--pretrained_ckpt", "b.ckpt"]),
         # the draw of subsample_pair_fused's plain version
         "generate_mask_pair": lambda: generate_mask_pair(0, (1, 1, 4, 4)),
+        "denoise_whole_frame": lambda: tiled.denoise_whole_frame(
+            lambda t: t, np.zeros((32, 32, 1), np.float32)),
+        "evaluation": lambda: evaluation.main(
+            ["--checkpoint", "missing.pth", "--data_dir", "missing"]),
+        "evaluation_704_iqsl": lambda: evaluation_704_iqsl.main(
+            ["--checkpoint", "missing.pth", "--data_dir", "missing"]),
+        "denoise": lambda: denoise.main(["--checkpoint", "missing.pth",
+                                         "--input_dir", "missing"]),
+        "evaluation_adapter": lambda: evaluation_adapter.main(
+            ["--ckpt", "missing.pth", "--data_dir", "missing"]),
+        "evaluation_adapter_iqsl": lambda: evaluation_adapter_iqsl.main(
+            ["--base_ckpt", "b.pth", "--adapter_ckpt", "a.pth", "--data_dir", "missing"]),
     }
 
 
@@ -94,7 +111,10 @@ def _entry_points():
                                   "denoise_tiled_hann", "build_memory_bank",
                                   "evaluation_704_iqsl_memory", "train",
                                   "train_structure", "finetune", "finetune_iqsl",
-                                  "finetune_memory", "generate_mask_pair"])
+                                  "finetune_memory", "generate_mask_pair",
+                                  "denoise_whole_frame", "evaluation",
+                                  "evaluation_704_iqsl", "denoise", "evaluation_adapter",
+                                  "evaluation_adapter_iqsl"])
 def test_entry_points_default_to_cuda(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():

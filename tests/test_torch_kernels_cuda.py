@@ -528,3 +528,70 @@ def test_finetune_clis_on_card(cuda, tmp_path, cli):
                        ckpt, "--n_feature", "8", "--patch_size", "32", "--overlap", "16",
                        "--save_images", "none", "--save_dir", str(tmp_path / "e6")] + bank)
         assert np.isfinite(avg["psnr"])
+
+
+@pytest.mark.cuda
+def test_device_metrics_on_card_with_default_tf32(cuda):
+    """make_device_metrics on 3 frames of 704² with PyTorch's default TF32
+    flags (the fixture turns them off): PSNR within 1e-3 dB, SSIM within
+    1e-4 of the float64 host SSIM, IoU within 1e-6 of the host IoU."""
+    import numpy as np
+
+    from image_denoising_tpu_torch.metrics import (calculate_psnr, calculate_ssim,
+                                                   compute_iq_iou, make_device_metrics)
+
+    rng = np.random.default_rng(23)
+    yy, xx = np.mgrid[0:704, 0:704]
+    clean = np.stack([(128 + 60 * np.sin(xx / (9.0 + i)) * np.cos(yy / 13.0)
+                       + rng.normal(0, 6, (704, 704))).clip(0, 255) for i in range(3)])
+    pred = np.clip(clean + rng.normal(0, 10, clean.shape), 0, 255).astype(np.uint8)
+    clean = clean.astype(np.uint8)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        psnr, ssim, ious = (t.cpu().numpy() for t in make_device_metrics(iq_iou=True)(
+            torch.from_numpy(pred).to(cuda), torch.from_numpy(clean).to(cuda)))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    for k in range(3):
+        assert abs(psnr[k] - calculate_psnr(pred[k], clean[k])) <= 1e-3
+        assert abs(ssim[k] - calculate_ssim(pred[k], clean[k])) <= 1e-4
+        np.testing.assert_allclose(ious[k], compute_iq_iou(pred[k], clean[k]), atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(704, 704), (512, 704)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_whole_frame_forward_matches_module(cuda, shape, dtype):
+    """The whole-frame forward of E1, E4 and E5 at batch 1: ImprovedUNet-48
+    through the chain kernel (9 launches) against the per-conv module
+    forward, in uint8 levels within E2's limits (f32: 1 level on at most
+    0.1 % of pixels; bf16: at most 8 levels and a mean of 1.0 against the
+    module in float32 and in bfloat16)."""
+    import copy
+
+    import numpy as np
+
+    from image_denoising_tpu_torch.eval.tiled import denoise_whole_frame
+    from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
+
+    torch.manual_seed(21)
+    model = ImprovedUNet(1, 1, 48).eval()
+    x = np.random.default_rng(21).random((*shape, 1), dtype=np.float32)
+    fwd = make_fused_forward(model, device=cuda, dtype=dtype)
+    before = fused_rdb_chain.launches
+    got = denoise_whole_frame(fwd, x, device=cuda)
+    assert fused_rdb_chain.launches == before + 9
+
+    def levels(p):
+        return np.clip(p * 255.0 + 0.5, 0, 255).astype(np.int16)
+
+    for ref_dtype in {torch.float32, dtype}:
+        module = copy.deepcopy(model).to(cuda, ref_dtype)
+        want = denoise_whole_frame(lambda t, m=module, d=ref_dtype: m(t.to(d)), x,
+                                   device=cuda)
+        d = np.abs(levels(got) - levels(want))
+        if dtype == torch.float32:
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+        else:
+            assert d.max() <= 8 and d.mean() <= 1.0, (ref_dtype, d.max(), d.mean())

@@ -92,8 +92,39 @@ def test_e6_matches_jax_cli(dataset_and_ckpts, tmp_path):
     same("chunked", "--retrieval_chunk", "5", "--pallas_retrieval")
 
 
+def test_e6_device_metrics_and_host_workers(dataset_and_ckpts, tmp_path, capsys):
+    """--device_metrics scores PSNR and IoU of each burst on the device
+    (PSNR within 1e-3 dB, IoU within 1e-6 of the host pass, the same PNGs;
+    none with --save_images none); --host_workers 2 gives the inline pass's
+    frame lines, metrics.txt and PNGs."""
+    data, ckpts = dataset_and_ckpts
+
+    def lines():
+        return [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[")]
+
+    host = e6.main(_args(data, ckpts, "torch", tmp_path / "host"))
+    host_lines = lines()
+    for name, extra in (("dm", ["--frame_burst", "2", "--device_metrics"]),
+                        ("none", ["--device_metrics", "--save_images", "none"])):
+        got = e6.main(_args(data, ckpts, "torch", tmp_path / name, *extra))
+        assert abs(got["psnr"] - host["psnr"]) <= 1e-3, name
+        for k in ("iou_dark", "iou_mid", "iou_bright"):
+            assert abs(got[k] - host[k]) <= 1e-6, (name, k)
+    a, b = _pngs(tmp_path / "dm"), _pngs(tmp_path / "host")
+    assert a.keys() == b.keys() and not _pngs(tmp_path / "none")
+    for f in a:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    lines()
+    pooled = e6.main(_args(data, ckpts, "torch", tmp_path / "pooled", "--host_workers", "2"))
+    assert lines() == host_lines and pooled == host
+    assert ((tmp_path / "pooled" / "metrics.txt").read_text()
+            == (tmp_path / "host" / "metrics.txt").read_text())
+    a = _pngs(tmp_path / "pooled")
+    for f in a:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
 @pytest.mark.parametrize("flag", [["--parallel"], ["--bank_sharded"],
-                                  ["--device_metrics"], ["--host_workers", "2"],
                                   ["--gpu_devices", "0,1"]])
 def test_e6_refuses_flags_of_later_slices(dataset_and_ckpts, tmp_path, flag):
     data, ckpts = dataset_and_ckpts
