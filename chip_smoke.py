@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--json build/chip_smoke.json]
+    python3 chip_smoke.py --subsample-times CHECKOUT   # one kernel's times
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device  — the card's name and power limit.
@@ -22,12 +23,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                gets wrong and a bank padded to 512 rows (no padded row may
                win); the launch floor (an empty kernel issued back to back);
                subsample_pair at N=4 352² frames, C=1
-               float32 (the training shape) and C=3 float32 and bfloat16:
-               selectors and sub-images bit-equal, only the 8 listed pairs,
-               each within 0.005 of 1/8, same seed same maps, another seed
-               other maps, one map for all channels. Times (CUDA events,
-               median; the sub-sampler's device time from torch.profiler)
-               and bounds.
+               float32 (the training shape) and C=3 float32 and bfloat16,
+               and at the edge shapes 4x1x352x350 (W/2 not a multiple of 4),
+               4x3x352x356 bfloat16 (rows not 16-byte aligned) and N=1:
+               selectors and sub-images bit-equal, only the 8 listed
+               pairs, each within 0.005 of 1/8, same seed same maps, another
+               seed other maps, one map for all channels; its device time
+               with L2 flushed before each call (held to its byte bound at
+               HBM's rate) and with the image in L2 (calls back to back, as
+               in the N2N step), and per call issued back to back. Times
+               (CUDA events, median; the sub-sampler's device time from
+               torch.profiler) and bounds.
   4. main    — the E2 serving path: ImprovedUNet-48 (seeded init) through
                make_tiled_pyramid_runner_frames(make_fused_forward(model), 8,
                704, 704, 352, 64, batch=-8, out_dtype="uint8_floor") on 3
@@ -72,7 +78,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                chain launch. One profiled step per dtype and the parts
                alone. Then cli/train.main with its defaults and with
                --dtype bfloat16 --remat_depth 2 --profile_dir, 2 steps each.
-  8. finetune — the B-domain loop: ImprovedUNet-48 (seeded) written as a
+  8. hpo     — cli/train_opt.main on 32 seeded 352² grayscale PNG pairs:
+               3 trials of 1 tuning epoch (8 guarded L1 steps of
+               ImprovedUNet at the TPE's widths, batch 4) and a 2-epoch
+               retrain, SQLite storage in a temporary directory; the study
+               holds 3 trials, trials.log 3 lines on device 0, every init
+               snapshot loads strictly at its trial's width with its w0_sum
+               exact, epoch_final_002.ckpt loads strictly, A_log.csv has 2
+               finite rows, no kernel launched; a second main with
+               --n_trials 1 resumes to 4 trials; trial 0 trained again from
+               its snapshot (equal losses or not, reported); seconds per
+               trial, the retrain's ms/step (A_log.csv); the guarded L1
+               step alone at n_feature 48 and 128 (ms/step with no sync,
+               peak GB).
+  9. finetune — the B-domain loop: ImprovedUNet-48 (seeded) written as a
                .ckpt and read back (bit-equal forward); the memory finetune
                step at the launcher preset (scripts/finetune_memory.sh:
                batch 4 of 128² patches of the 5 E6 pairs, hyper_gated_fft
@@ -88,7 +107,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                cli.finetune_memory for 1 epoch of --patches_per_image 2 (a
                tail batch) over the .ckpt base, and the E6 CLI serving the
                adapter_only .ckpt the memory finetuner wrote.
-  9. serving — the serving CLIs through their main, with PyTorch's default
+  10. serving — the serving CLIs through their main, with PyTorch's default
                TF32 flags, over 9 seeded 704² pairs (a burst of 8 and a tail
                of 1) and [finetune]'s base and adapters: denoise at its
                defaults (bf16, bursts of 8, host pass inline and in 4
@@ -207,6 +226,25 @@ BF16_STEP1_ABS, BF16_REL = 5e-3, 0.15
 # integer operations of one cell's draw: 10 Philox rounds of 2 multiplies, 2
 # high multiplies, 4 xors and 2 key adds, plus the table look-ups
 PHILOX_OPS_PER_CELL = 10 * 10 + 8
+# the sub-sampler's shapes: the N2N step's (C = 1 f32) and C = 3 at N = 4,
+# 352^2, then edge shapes: W/2 = 175 (not a multiple of 4), bf16 rows of 712
+# bytes (not 16-byte aligned), N = 1
+SUB_SHAPES = ((TRAIN_B, 1, TRAIN_FRAME, TRAIN_FRAME, "float32"),
+              (TRAIN_B, 3, TRAIN_FRAME, TRAIN_FRAME, "float32"),
+              (TRAIN_B, 3, TRAIN_FRAME, TRAIN_FRAME, "bfloat16"))
+SUB_EDGE_SHAPES = ((TRAIN_B, 1, TRAIN_FRAME, 350, "float32"),
+                   (TRAIN_B, 3, TRAIN_FRAME, 356, "bfloat16"),
+                   (1, 1, TRAIN_FRAME, TRAIN_FRAME, "float32"))
+# bytes read between two timed calls to flush the card's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
+# profiler windows kernel_device_ms takes at most to see every timed call
+PROFILE_WINDOWS = 3
+# the [hpo] phase: cli/train_opt.main on HPO_FRAMES seeded 352^2 grayscale
+# pairs (HPO_FRAMES / HPO_B steps a tuning epoch, so that steps and not a
+# trial's set-up take most of its time), HPO_TRIALS trials of 1 tuning epoch
+# and a retrain of 2 epochs at batch HPO_B; the guarded L1 step timed alone
+# at the widths HPO_WIDTHS (48, and the search space's top, 128)
+HPO_FRAMES, HPO_TRIALS, HPO_B, HPO_WIDTHS, HPO_STEPS = 32, 3, 4, (48, 128), 5
 
 # the memory finetune step at the launcher preset (scripts/finetune_memory.sh):
 # batch 4 of 128² patches, 16 patches per image, hidden 16, Adam 1e-4,
@@ -852,26 +890,49 @@ def phase_memory(seed: int):
     return out
 
 
-def kernel_device_ms(fn, name: str, reps: int = 50) -> float:
+def kernel_device_ms(fn, name: str, reps: int = 50, flush=None) -> float:
     """Median device time (ms) of the kernel whose name contains ``name``,
     over ``reps`` calls of ``fn``, from torch.profiler: a launch of a few
     microseconds is shorter than the host's time to issue it, so CUDA events
-    around calls would time the host."""
+    around calls would time the host. ``flush``, if given, runs before each
+    call (its kernels are not ``name``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name]
-    if len(times) != reps:
-        raise AssertionError(f"the profiler saw {len(times)} '{name}' kernels, want {reps}")
-    return statistics.median(times)
+    # one call more than timed: the profiler can miss the first launch of
+    # its window, so it must see at least ``reps`` of the ``reps + 1``. It
+    # can also drop more of a window's records (seen with flushes between
+    # the calls): such a window is taken again, at most PROFILE_WINDOWS in all
+    seen = []
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps + 1):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        times = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+        if len(times) in (reps, reps + 1):
+            return statistics.median(times[-reps:])
+        seen.append(len(times))
+        log(f"[kernels] the profiler saw {len(times)} of {reps + 1} '{name}' kernels; "
+            "the window is taken again")
+    raise AssertionError(f"the profiler saw {seen} '{name}' kernels in {PROFILE_WINDOWS} "
+                         f"windows, want {reps} or {reps + 1}")
+
+
+def l2_flush():
+    """A function that reads L2_FLUSH_BYTES on the card, so that what a
+    kernel reads after it comes from HBM; the reads leave no dirty line for
+    the kernel to write back."""
+    import torch
+
+    buf = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    return lambda: buf.sum()
 
 
 def call_ms(fn, reps: int = 200) -> float:
@@ -898,9 +959,71 @@ def _bits(t):
     return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
 
 
+def subsample_device_times(fn, img, flush):
+    """(ms with L2 flushed before each call, ms with the image in L2,
+    bound_ms, bound_by, bytes) of the sub-sampler call ``fn`` on ``img``. The
+    bound counts the image read once and the two sub-images and two int32
+    maps written once, at HBM's rate, and the draws' integer operations at
+    the float32 rate (bytes bound it by far)."""
+    n, _, h, w = img.shape
+    cells = n * (h // 2) * (w // 2)
+    item = img.element_size()
+    nbytes = img.numel() * item + 2 * (img.numel() // 4) * item + 2 * cells * 4
+    ms = kernel_device_ms(fn, "subsample_pair_kernel", flush=flush)
+    warm_ms = kernel_device_ms(fn, "subsample_pair_kernel")
+    bound_ms, bound_by = bound(cells * PHILOX_OPS_PER_CELL, nbytes, "float32")
+    return ms, warm_ms, bound_ms, bound_by, nbytes
+
+
+def subsample_times(root: str) -> int:
+    """The ``--subsample-times`` mode: the sub-sampler kernel of the port in
+    the checkout ``root``, built there (into its git-ignored build/kernels/),
+    checked bit-equal to that checkout's plain version and timed at
+    SUB_SHAPES with this script's flush, timer and bound; one JSON line. Run
+    it for two checkouts in turn (A, B, B, A) to compare them on one card."""
+    import numpy as np
+    import torch
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import image_denoising_tpu_torch as pkg
+    from image_denoising_tpu_torch.ops import _build
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair, subsample_pair_fused
+
+    if os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__))) != root:
+        raise AssertionError(f"imported {pkg.__file__}, not the package in {root}")
+    _build.build("neighbor.cu")
+    flush = l2_flush()
+    rng = np.random.default_rng(0)
+    shapes = {}
+    for n, c, h, w, dname in SUB_SHAPES:
+        img = torch.from_numpy(rng.random((n, c, h, w), dtype=np.float32)).to(
+            "cuda", getattr(torch, dname))
+        got, want = subsample_pair_fused(1, img), subsample_pair(1, img)
+        if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got[:2], want[:2])) or \
+                not all(torch.equal(a, b) for a, b in zip(got[2], want[2])):
+            raise AssertionError(f"{n}x{c}x{h}x{w} {dname}: the kernel of {root} differs "
+                                 "from its plain version")
+        ms, warm_ms, bound_ms, bound_by, _ = subsample_device_times(
+            lambda: subsample_pair_fused(1, img), img, flush)
+        shapes[f"n{n}_c{c}_{h}x{w}_{dname}"] = dict(
+            ms=ms, warm_ms=warm_ms, bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(json.dumps(dict(root=root, card=smi, subsample_pair=shapes)))
+    return 0
+
+
 def phase_subsample(seed: int):
-    """subsample_pair_fused against its plain version at the training shape
-    (N=4, 352², C=1, f32) and at C=3 in f32 and bf16."""
+    """subsample_pair_fused against its plain version at SUB_SHAPES (the
+    training shape N=4, 352², C=1 f32, and C=3 f32 and bf16) and at
+    SUB_EDGE_SHAPES (the scalar path, N = 1), bit-equal; timed at SUB_SHAPES
+    with L2 flushed before each call (``ms``, held to the byte bound at HBM's
+    rate) and with the image in L2 (``warm_ms``: calls back to back, as the
+    N2N step finds the image the noise op has just written)."""
     import numpy as np
     import torch
 
@@ -911,12 +1034,15 @@ def phase_subsample(seed: int):
     rng = np.random.default_rng(seed + 3)
     seeds = OperationSeed(seed + 3)
     valid = [4 * a + b for a, b in VALID_PAIRS]
-    h2 = TRAIN_FRAME // 2
+    flush = l2_flush()
     results = {}
-    for c, dname in ((1, "float32"), (3, "float32"), (3, "bfloat16")):
+
+    def parts(r):
+        return _bits(r[0]), _bits(r[1]), r[2][0], r[2][1]
+
+    for n, c, h, w, dname in SUB_SHAPES + SUB_EDGE_SHAPES:
         dt = getattr(torch, dname)
-        img = torch.from_numpy(rng.random((TRAIN_B, c, TRAIN_FRAME, TRAIN_FRAME),
-                                          dtype=np.float32)).to("cuda", dt)
+        img = torch.from_numpy(rng.random((n, c, h, w), dtype=np.float32)).to("cuda", dt)
         s, other = seeds.next(), seeds.next()
         got = subsample_pair_fused(s, img)
         want = subsample_pair(s, img)
@@ -924,16 +1050,14 @@ def phase_subsample(seed: int):
         _, _, (o1, o2) = subsample_pair_fused(other, img)
         torch.cuda.synchronize()
         sub1, sub2, (sel1, sel2) = got
-        what = f"subsample_pair C={c} {dname}"
-        assert sub1.shape == sub2.shape == (TRAIN_B, c, h2, h2) and sub1.dtype == dt
-        assert sel1.shape == sel2.shape == (TRAIN_B, h2, h2) and sel1.dtype == torch.int32
-
-        def parts(r):
-            return _bits(r[0]), _bits(r[1]), r[2][0], r[2][1]
+        what = f"subsample_pair {n}x{c}x{h}x{w} {dname}"
+        assert sub1.shape == sub2.shape == (n, c, h // 2, w // 2) and sub1.dtype == dt
+        assert sel1.shape == sel2.shape == (n, h // 2, w // 2) and sel1.dtype == torch.int32
 
         if not all(torch.equal(a, b) for a, b in zip(parts(got), parts(want))):
             raise AssertionError(f"{what}: the kernel differs from the plain version")
-        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got[:2], want[:2]))
+        err = max(float((g.float() - w_.float()).abs().max())
+                  for g, w_ in zip(got[:2], want[:2]))
         if not all(torch.equal(a, b) for a, b in zip(parts(got), parts(again))):
             raise AssertionError(f"{what}: the same seed gave other maps")
         if torch.equal(o1, sel1) and torch.equal(o2, sel2):
@@ -956,22 +1080,30 @@ def phase_subsample(seed: int):
                                    _bits(generate_subimages(plane, sel))):
                     raise AssertionError(f"{what}: channel {ch} does not follow the "
                                          "shared maps")
-        ms = kernel_device_ms(lambda: subsample_pair_fused(s, img), "subsample_pair_kernel")
+        key = f"n{n}_c{c}_{h}x{w}_{dname}"
+        if (n, c, h, w, dname) in SUB_EDGE_SHAPES:
+            results[key] = dict(n=n, c=c, h=h, w=w, dtype=dname, max_abs_err=err,
+                                max_pair_freq_err=freq_err, cells=cells)
+            log(f"[kernels] subsample_pair {n}x{c}x{h}x{w} {dname:8s} (edge shape, "
+                f"{'vector' if (w // 2) % 4 == 0 else 'scalar'} path): bit-equal to the "
+                f"plain version; pair frequencies within {freq_err:.4g} of 1/8")
+            continue
+        ms, warm_ms, bound_ms, bound_by, nbytes = subsample_device_times(
+            lambda: subsample_pair_fused(s, img), img, flush)
         wrapper_ms = call_ms(lambda: subsample_pair_fused(s, img))
         plain_ms = time_ms(lambda: subsample_pair(s, img), reps=5)
-        item = img.element_size()
-        nbytes = img.numel() * item + 2 * sub1.numel() * item + 2 * cells * 4
-        # integer operations, counted at the f32 rate: bytes bound by far
-        bound_ms, bound_by = bound(cells * PHILOX_OPS_PER_CELL, nbytes, "float32")
-        results[f"c{c}_{dname}"] = dict(
-            c=c, dtype=dname, max_abs_err=err, max_pair_freq_err=freq_err,
-            ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, mbytes=nbytes / 1e6, cells=cells)
-        log(f"[kernels] subsample_pair N={TRAIN_B} {TRAIN_FRAME}^2 C={c} {dname:8s}: "
-            f"bit-equal to the plain version; {cells} cells, pair frequencies within "
-            f"{freq_err:.4g} of 1/8; kernel {ms * 1e3:.3f} us on the device, "
-            f"{wrapper_ms * 1e3:.2f} us per call issued back to back; plain "
-            f"{plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us ({bound_by})")
+        share = bound_ms / ms
+        results[key] = dict(
+            n=n, c=c, h=h, w=w, dtype=dname, max_abs_err=err, max_pair_freq_err=freq_err,
+            ms=ms, warm_ms=warm_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, share_of_bound=share, mbytes=nbytes / 1e6,
+            cells=cells)
+        log(f"[kernels] subsample_pair N={n} {h}^2 C={c} {dname:8s}: bit-equal to the plain "
+            f"version; {cells} cells, pair frequencies within {freq_err:.4g} of 1/8; "
+            f"kernel_device_ms {ms * 1e3:.3f} us with L2 flushed, {warm_ms * 1e3:.3f} us with "
+            f"the image in L2; {wrapper_ms * 1e3:.2f} us per call issued back to back; plain "
+            f"{plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us ({bound_by}, HBM): {share:.3f} "
+            "of the bound with L2 flushed")
     return results
 
 
@@ -1379,6 +1511,165 @@ def phase_train_cli(seed: int):
                 + (f"; trace {os.path.basename(traces[0])}" if traces else ""))
     return dict(out["n2n"], structure=out["structure"],
                 structure_bf16_remat=out["structure_bf16_remat"])
+
+
+def phase_hpo(seed: int):
+    """cli/train_opt.main on the card: HPO_TRIALS trials and the retrain on
+    HPO_FRAMES seeded 352² grayscale PNG pairs, storage and outputs in a
+    temporary directory under build/, then a resumed study of one trial
+    more; a trial trained again from its snapshot; the guarded L1 step
+    timed alone at HPO_WIDTHS."""
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.ckpt import load_checkpoint
+    from image_denoising_tpu_torch.cli import train_opt
+    from image_denoising_tpu_torch.data import DenoiseDataset
+    from image_denoising_tpu_torch.models import ImprovedUNet
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair_fused
+    from image_denoising_tpu_torch.train import (create_train_state, hpo_milestones,
+                                                 make_l1_train_step)
+
+    def strict(path, nf):
+        model = ImprovedUNet(1, 1, nf)
+        model.load_state_dict(load_checkpoint(path, arch="UNetImproved"), strict=True)
+        return model
+
+    phase_t0 = time.perf_counter()
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        data = os.path.join(tmp, "data")
+        rng = np.random.default_rng(seed + 13)
+        clean = n2n_frames(seed + 12, HPO_FRAMES)
+        _write_pairs(data, clean, [np.clip(c + rng.normal(0, 25, c.shape), 0, 255)
+                                   .astype(np.uint8) for c in clean])
+        trials_log = os.path.join(tmp, "trials.log")
+        args = ["--data_dir", data, "--save_model_path", os.path.join(tmp, "results"),
+                "--log_name", "hpo", "--tune_epochs", "1", "--n_epoch", "2",
+                "--batchsize", str(HPO_B), "--storage",
+                f"sqlite:///{os.path.join(tmp, 'hpo.db')}", "--trials_log", trials_log]
+        fused_rdb_chain.launches = 0
+        subsample_pair_fused.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()  # the wall clock of the trials' completion stamps
+        study = train_opt.main(args + ["--n_trials", str(HPO_TRIALS)])
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        if fused_rdb_chain.launches or subsample_pair_fused.launches:
+            raise AssertionError("hpo: the HPO path launched a kernel (it runs none)")
+        trials = study.trials
+        if len(trials) != HPO_TRIALS or not all(np.isfinite(t.value) for t in trials):
+            raise AssertionError(f"hpo: {len(trials)} trials, values "
+                                 f"{[t.value for t in trials]}")
+        with open(trials_log) as f:
+            recs = [json.loads(line) for line in f]
+        if len(recs) != HPO_TRIALS or any(r["device"] != 0 for r in recs):
+            raise AssertionError(f"hpo: trials.log holds {recs}")
+        for t in trials:
+            model = strict(t.user_attrs["init_weight_path"], t.params["n_feature"])
+            if train_opt.w0_sum(model) != t.user_attrs["w0_sum"]:
+                raise AssertionError(f"hpo: trial {t.number}'s snapshot sums to "
+                                     f"{train_opt.w0_sum(model)!r}, the trial recorded "
+                                     f"{t.user_attrs['w0_sum']!r}")
+        done = [t0] + [t.datetime_complete.timestamp() for t in trials]
+        trial_s = [b - a for a, b in zip(done, done[1:])]
+        (run_dir,) = glob.glob(os.path.join(tmp, "results", "hpo", "*"))
+        best = study.best_trial
+        strict(os.path.join(run_dir, "epoch_final_002.ckpt"), best.params["n_feature"])
+        with open(os.path.join(run_dir, "validation", "A_log.csv")) as f:
+            rows = f.read().strip().splitlines()[1:]
+        a_log = [[float(v) for v in r.split(", ")] for r in rows]
+        if len(a_log) != 2 or not np.all(np.isfinite(a_log)):
+            raise AssertionError(f"hpo: A_log.csv rows {rows}")
+        # the retrain's epochs as the CLI timed them (train_time, to the
+        # epoch's loss fetch), per step
+        epoch_steps = -(-HPO_FRAMES // HPO_B)
+        retrain_step_ms = [row[2] / epoch_steps * 1e3 for row in a_log]
+        log(f"[hpo] cli.train_opt.main, {HPO_TRIALS} trials of 1 epoch and a 2-epoch "
+            f"retrain at batch {HPO_B} of {HPO_FRAMES} frames of {TRAIN_FRAME}^2: "
+            f"{run_s:.2f} s; seconds per trial (to its completion stamp; the first with "
+            f"the dataset's load) {', '.join(f'{x:.2f}' for x in trial_s)}; trials "
+            + "; ".join(f"{t.number}: n_feature {t.params['n_feature']}, lr "
+                        f"{t.params['lr']:.3g}, loss {t.value:.6f}" for t in trials)
+            + f"; best {best.number}; the retrain at n_feature {best.params['n_feature']}: "
+            f"{', '.join(f'{x:.1f}' for x in retrain_step_ms)} ms/step (A_log.csv, "
+            f"{epoch_steps} steps an epoch); trials.log {len(recs)} lines, device 0; every "
+            f"snapshot strict with its w0_sum exact; epoch_final_002.ckpt strict; A_log.csv "
+            f"{len(a_log)} finite rows")
+
+        # resume: the same storage, one trial more
+        t1 = time.time()
+        study2 = train_opt.main(args + ["--n_trials", "1"])
+        resume_s = time.time() - t1
+        if len(study2.trials) != HPO_TRIALS + 1 or study2.trials[-1].number != HPO_TRIALS:
+            raise AssertionError(f"hpo: the resumed study holds {len(study2.trials)} trials")
+        strict(study2.trials[-1].user_attrs["init_weight_path"],
+               study2.trials[-1].params["n_feature"])
+
+        # trial 0 again from its snapshot: XLA is deterministic, cuDNN may not be
+        t = trials[0]
+        model = strict(t.user_attrs["init_weight_path"], t.params["n_feature"]).to("cuda")
+        ds = DenoiseDataset(data, convert_l=True)
+        again = train_opt.train_epochs(model, ds, t.params["lr"], t.user_attrs["init_seed"],
+                                       1, hpo_milestones(1), HPO_B)
+        log(f"[hpo] resumed with --n_trials 1: {len(study2.trials)} trials, {resume_s:.2f} s; "
+            f"trial 0 trained again from its snapshot: loss {again!r} against {t.value!r} "
+            f"({'equal' if again == t.value else 'NOT equal: cuDNN ran another order'})")
+        out.update(seconds=run_s, trial_seconds=trial_s, resume_seconds=resume_s,
+                   retrain_step_ms=retrain_step_ms,
+                   trials=[dict(number=t.number, params=t.params, value=t.value,
+                                device=t.user_attrs["device"], w0_sum=t.user_attrs["w0_sum"])
+                           for t in study2.trials],
+                   a_log=a_log, rerun_loss=again, rerun_equal=again == t.value)
+        del model
+
+        # the guarded L1 step alone, float32, at batch HPO_B of 352^2
+        batches = [b for b in ds.batches(HPO_B, np.random.default_rng(seed), shuffle=True)]
+        steps = {}
+        for nf in HPO_WIDTHS:
+            torch.manual_seed(seed)
+            model = ImprovedUNet(1, 1, nf).to("cuda")
+            state = create_train_state(model, lr=1e-4, weight_decay=1e-5)
+            step = make_l1_train_step(model, state, guards=True, grad_clip=1.0,
+                                      inputs_01=False)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pending, losses = None, []
+            for i in range(TRAIN_WARMUP + HPO_STEPS):
+                if i == TRAIN_WARMUP:
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error" if i >= TRAIN_WARMUP else 0)
+                try:
+                    m = step(*batches[i % len(batches)])
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                if pending is not None:
+                    losses.append(float(pending["loss"]))
+                pending = m
+            losses.append(float(pending["loss"]))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t2) / HPO_STEPS * 1e3
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if not (np.all(np.isfinite(losses)) and int(state.step) == len(losses)):
+                raise AssertionError(f"hpo: L1 step at n_feature {nf}: losses {losses}, "
+                                     f"{int(state.step)} updates kept")
+            steps[nf] = dict(ms=ms, peak_gb=peak, losses=losses)
+            log(f"[hpo] guarded L1 step, ImprovedUNet-{nf}, batch {HPO_B} of "
+                f"{TRAIN_FRAME}^2, float32 (TF32 off): {ms:.2f} ms/step over {HPO_STEPS} "
+                f"steps with no sync; peak {peak:.2f} GB")
+            del model, state, step, pending, m
+            torch.cuda.empty_cache()
+        out["l1_step"] = steps
+    out["phase_seconds"] = time.perf_counter() - phase_t0
+    log(f"[hpo] the phase: {out['phase_seconds']:.2f} s")
+    return out
 
 
 def phase_launch_floor():
@@ -2235,6 +2526,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=os.path.join(REPO, "build", "chip_smoke.json"),
                     help="where to write the per-shape details")
+    ap.add_argument("--subsample-times", metavar="CHECKOUT",
+                    help="only time the sub-sampler kernel of the port in CHECKOUT "
+                         "(with L2 flushed and in L2, at N=4 352^2) and print one JSON "
+                         "line, to compare two checkouts on one card")
     args = ap.parse_args(argv)
 
     import torch
@@ -2243,6 +2538,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    if args.subsample_times:
+        return subsample_times(args.subsample_times)
     sys.path.insert(0, REPO)
     try:
         from image_denoising_tpu_torch.ops import _build
@@ -2291,6 +2588,7 @@ def main(argv=None) -> int:
     train = phase_train(args.seed)
     structure = phase_structure(args.seed)
     train_cli = phase_train_cli(args.seed)
+    hpo = phase_hpo(args.seed)
     import tempfile
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
@@ -2349,18 +2647,20 @@ def main(argv=None) -> int:
             bound_by=big["bound_by"], library_ms=big["library_ms"],
             b8={k: small[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             b4={k: ft[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}))
-    sub = subsample["c1_float32"]
+    sub = subsample[f"n{TRAIN_B}_c1_{TRAIN_FRAME}x{TRAIN_FRAME}_float32"]
     summary.append(dict(
-        name="subsample_pair", dtype="float32", route="cuda", design="CUDA cores",
+        name="subsample_pair", dtype="float32", route="cuda",
+        design="4 cells a thread, 16-byte vectors, exact grid (CUDA cores)",
         source=SUB_SOURCE,
         replaces=SUB_REPLACES, launches=train["launches"],
         launches_by_path={"N2N train": train["launches"], "train CLI": train_cli["launches"]},
         max_abs_err=max(r["max_abs_err"] for r in subsample.values()),
         ms=sub["ms"], plain_ms=sub["plain_ms"], bound_ms=sub["bound_ms"],
         bound_by=sub["bound_by"], library_ms=None, wrapper_ms=sub["wrapper_ms"],
+        warm_ms=sub["warm_ms"],
         launch_floor_ms=floor["back_to_back_ms"], empty_kernel_device_ms=floor["device_ms"],
-        c3={k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms")}
-            for k, r in subsample.items() if r["c"] == 3}))
+        c3={k: {f: r[f] for f in ("ms", "warm_ms", "plain_ms", "bound_ms")}
+            for k, r in subsample.items() if r["c"] == 3 and "ms" in r}))
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_seconds=build_s,
@@ -2369,7 +2669,7 @@ def main(argv=None) -> int:
                                     chain_ft4x128=chain_ft, chain_ft1x704=chain_frame,
                                     top1=top1, subsample=subsample, launch_floor=floor),
                        main=main_path, memory=memory, train=train, train_cli=train_cli,
-                       structure=structure, finetune=fine, serving=serving,
+                       structure=structure, hpo=hpo, finetune=fine, serving=serving,
                        summary=summary),
                   f, indent=1)
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
@@ -2385,7 +2685,9 @@ def main(argv=None) -> int:
         "ft4x128/ft1x704: the chain at the finetune step's 4x128^2 and the "
         "whole-frame 1x704^2; b4: retrieval at the step's B=4. subsample_pair: "
         "N=4 352^2 C=1 f32 (c3: C=3 f32/bf16); ms is the kernel's device time "
-        "(torch.profiler), wrapper_ms the per-call time of calls issued back to "
+        "(torch.profiler) with L2 flushed before each call, against the bound at "
+        "HBM's rate, warm_ms with the image in L2 as in the N2N step, wrapper_ms "
+        "the per-call time of calls issued back to "
         "back, launch_floor_ms the per-launch time of an empty kernel issued back "
         "to back; library_ms is null: no one PyTorch call draws and gathers; "
         "launches from the 12 N2N steps; launches_by_path[serving]: the [serving] CLI "

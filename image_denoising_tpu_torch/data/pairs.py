@@ -2,8 +2,10 @@
 
 Directory contract (reference ``train.py:208-228``): ``data_dir/clean/*`` and
 ``data_dir/noise/*``, sorted filenames pairing 1:1, decoded on the host into
-float32 [0,255]. ``DenoiseDataset`` keeps them resident and yields
-shuffled NHWC batches; /255 runs on the device inside the train step.
+float32 [0,255]. ``DenoiseDataset`` keeps them resident (unless
+``cache=False``) and yields shuffled NHWC batches, grayscale under
+``convert_l=True`` (the HPO trainer); /255 runs on the device inside the
+train step.
 ``DenoisePatchDataset`` yields the finetuners' random patch pairs in
 [0,1]: the JAX package's numpy stream (``use_native=False``), draw for
 draw, so one seeded ``rng`` gives both packages the same patches. JAX's
@@ -30,16 +32,22 @@ def list_pairs(data_dir: str, limit: Optional[int] = None) -> Tuple[List[str], L
     return clean, noise
 
 
-def load_image_f32(path: str) -> np.ndarray:
+def load_image_f32(path: str, convert_l: bool = False) -> np.ndarray:
     """Decode to float32 in [0,255]. (H,W) for grayscale, (H,W,C) otherwise.
 
     16-bit frames scale by their type max (uint16 → ·255/65535) and PIL
     mode "I" by the int32 max, as the reference's PILToTensor +
     ConvertImageDtype pipeline does (``train_opt.py:95-115``).
+    ``convert_l`` (the HPO trainer's grayscale) converts the other modes
+    with ``Image.convert("L")``; 16- and 32-bit and float frames are
+    single-channel already and keep their depth, as in the JAX package.
     """
     from PIL import Image
 
-    arr = np.asarray(Image.open(path))
+    im = Image.open(path)
+    if convert_l and im.mode not in ("I", "I;16", "F", "L"):
+        im = im.convert("L")
+    arr = np.asarray(im)
     if arr.dtype == np.uint16:
         arr = arr.astype(np.float32) * (255.0 / 65535.0)
     elif arr.dtype == np.int32:
@@ -66,26 +74,32 @@ def _ensure_nhwc(img: np.ndarray) -> np.ndarray:
 class DenoiseDataset:
     """Full-image pair dataset with shuffled batching.
 
-    Yields (clean, noisy) NHWC float32 in [0,255], decoded once and kept
-    resident. The train CLI's copy of the JAX ``DenoiseDataset``; its
-    ``convert_l`` (train_opt.py) comes with the HPO trainer.
+    Yields (clean, noisy) NHWC float32 in [0,255]. ``convert_l`` is the
+    HPO trainer's grayscale (``load_image_f32``); ``cache`` keeps the
+    decoded pairs resident, else each ``get`` decodes its pair again.
     """
 
-    def __init__(self, data_dir: str):
+    def __init__(self, data_dir: str, convert_l: bool = False, cache: bool = True):
         self.clean_paths, self.noise_paths = list_pairs(data_dir)
         if not self.clean_paths:
             raise RuntimeError(f"no images under {data_dir}/clean")
-        self._pairs = [
-            (_ensure_nhwc(load_image_f32(c)), _ensure_nhwc(load_image_f32(n)))
-            for c, n in zip(self.clean_paths, self.noise_paths)
-        ]
+        self.convert_l = convert_l
+        self._cache: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None
+        if cache:
+            self._cache = [self._decode(i) for i in range(len(self.clean_paths))]
         print(f"fetch {len(self.clean_paths)} samples for training")
+
+    def _decode(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        return (_ensure_nhwc(load_image_f32(self.clean_paths[idx], self.convert_l)),
+                _ensure_nhwc(load_image_f32(self.noise_paths[idx], self.convert_l)))
 
     def __len__(self) -> int:
         return len(self.clean_paths)
 
     def get(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
-        return self._pairs[idx]
+        if self._cache is not None:
+            return self._cache[idx]
+        return self._decode(idx)
 
     def batches(
         self,

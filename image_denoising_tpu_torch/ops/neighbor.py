@@ -15,7 +15,10 @@ layout, so they agree bit for bit. The stream differs from the TPU kernel's
 on-core PRNG and from ``jax.random``; the distribution is the same.
 
 ``subsample_pair_fused`` on a CUDA tensor runs the kernel (one launch); on a
-CPU tensor it runs ``subsample_pair``. There is no fallback on CUDA.
+CPU tensor it runs ``subsample_pair``. There is no fallback on CUDA. The
+kernel moves 4 cells a thread in 16-byte vectors where W/2 is a multiple of
+4 and the image is 16-byte aligned, and takes a scalar path of the same
+kernel elsewhere.
 ``subsample_pair_fused.launches`` counts the calls that ran the kernel.
 """
 from __future__ import annotations

@@ -43,7 +43,8 @@ def test_port_modules_import_no_jax():
                 "train.finetune_steps", "cli.finetune", "cli.finetune_iqsl",
                 "cli.finetune_memory", "data.pairs", "cli.denoise", "cli.evaluation",
                 "cli.evaluation_704_iqsl", "cli.evaluation_adapter",
-                "cli.evaluation_adapter_iqsl", "metrics.device"):
+                "cli.evaluation_adapter_iqsl", "metrics.device", "cli.train_opt",
+                "hpo.engine", "hpo.benchmark"):
         assert f"image_denoising_tpu_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
@@ -54,7 +55,7 @@ def _entry_points():
                                                evaluation_704_iqsl_memory,
                                                evaluation_adapter, evaluation_adapter_iqsl,
                                                finetune, finetune_iqsl, finetune_memory,
-                                               train)
+                                               train, train_opt)
     from image_denoising_tpu_torch.eval import tiled
     from image_denoising_tpu_torch.memory import build_memory_bank
     from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
@@ -102,6 +103,7 @@ def _entry_points():
             ["--ckpt", "missing.pth", "--data_dir", "missing"]),
         "evaluation_adapter_iqsl": lambda: evaluation_adapter_iqsl.main(
             ["--base_ckpt", "b.pth", "--adapter_ckpt", "a.pth", "--data_dir", "missing"]),
+        "train_opt": lambda: train_opt.main(["--data_dir", "missing"]),
     }
 
 
@@ -114,7 +116,7 @@ def _entry_points():
                                   "finetune_memory", "generate_mask_pair",
                                   "denoise_whole_frame", "evaluation",
                                   "evaluation_704_iqsl", "denoise", "evaluation_adapter",
-                                  "evaluation_adapter_iqsl"])
+                                  "evaluation_adapter_iqsl", "train_opt"])
 def test_entry_points_default_to_cuda(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():

@@ -261,6 +261,37 @@ def test_subsample_pair_kernel_matches_plain_version(cuda, c, dtype):
         subsample_pair_fused(0, img[..., :51])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, dtype", [
+    ((4, 1, 352, 350), torch.float32),    # W/2 = 175: not a multiple of 4
+    ((4, 3, 352, 356), torch.bfloat16),   # rows of 712 bytes: not 16-byte aligned
+    ((1, 1, 352, 352), torch.float32),    # N = 1
+    ((1, 3, 352, 352), torch.bfloat16),
+    ((4, 3, 352, 352), torch.float32),    # C = 3, the vector path
+    ((4, 3, 352, 352), torch.bfloat16),
+    ((2, 5, 16, 40), torch.float32),      # C = 5: a second group of channels
+])
+@pytest.mark.parametrize("offset", [0, 2])
+def test_subsample_pair_kernel_edge_shapes(cuda, shape, dtype, offset):
+    """The vector and scalar paths, and an image whose start is two
+    elements past a 16-byte boundary (offset 2), bit-equal to the plain
+    version."""
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair, subsample_pair_fused
+
+    numel = shape[0] * shape[1] * shape[2] * shape[3]
+    flat = torch.rand(numel + offset, generator=torch.Generator().manual_seed(numel))
+    img = flat.to(cuda, dtype)[offset:].view(shape)
+    assert img.is_contiguous() and (img.data_ptr() % 16 != 0) == (offset != 0)
+    want = subsample_pair(2 ** 33 + 5, img)
+    before = subsample_pair_fused.launches
+    got = subsample_pair_fused(2 ** 33 + 5, img)
+    torch.cuda.synchronize()
+    assert subsample_pair_fused.launches == before + 1
+    for g, w in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
 def _png_pairs(root, count, size, seed):
     import numpy as np
     from PIL import Image
