@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                win); the launch floor (an empty kernel issued back to back);
                subsample_pair at N=4 352² frames, C=1
                float32 (the training shape) and C=3 float32 and bfloat16,
-               and at the edge shapes 4x1x352x350 (W/2 not a multiple of 4),
+               at N=4 704² C=1 float32 (N2N of the UNet), and at the edge
+               shapes 4x1x352x350 (W/2 not a multiple of 4),
                4x3x352x356 bfloat16 (rows not 16-byte aligned) and N=1:
                selectors and sub-images bit-equal, only the 8 listed
                pairs, each within 0.005 of 1/8, same seed same maps, another
@@ -126,6 +127,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                retrieval launches counted per run. Frames, seconds, frames/s,
                denoise MP/s, the host pass's s/frame and the device metrics'
                ms per burst.
+  11. networks — UNet-48, the blind-spot UNet-48 and RESNET-48 (seeded init)
+               through E2's runner over make_forward (cuDNN; bursts of 8
+               704² frames, 1 warm-up and 2 timed bursts per dtype): float32
+               within 1 level on 1e-3 of pixels of the module in float64
+               (2 frames), bfloat16 within E2's limits of float32, MP/s, the
+               busy share and top kernels of one profiled burst, no chain
+               launch. 12 N2N steps of UNet-48 at batch 4 of 704² (one
+               sub-sampler launch each) against the plain sub-sampler's
+               (TRAIN_LOSS_RTOL); 12 structure steps of the blind-spot UNet
+               (f32 and bf16, bf16 within JAX's envelope) and of RESNET-48
+               (f32) at batch 4 of 352², timed under
+               set_sync_debug_mode("error"): ms/step, MP/s, peak GB. Then
+               cli.train with the blind-spot launcher preset (checkpoint of
+               the blind-spot topology), cli.evaluation_704 on it by the same
+               log name, cli.denoise --arch RESNET and
+               cli.evaluation_704_iqsl_memory --arch UNet over [finetune]'s
+               memory adapter (1 retrieval launch a burst, no chain launch).
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Per-shape details go to the --json file.
 """
@@ -227,11 +245,12 @@ BF16_STEP1_ABS, BF16_REL = 5e-3, 0.15
 # high multiplies, 4 xors and 2 key adds, plus the table look-ups
 PHILOX_OPS_PER_CELL = 10 * 10 + 8
 # the sub-sampler's shapes: the N2N step's (C = 1 f32) and C = 3 at N = 4,
-# 352^2, then edge shapes: W/2 = 175 (not a multiple of 4), bf16 rows of 712
+# 352^2, the UNet's N2N step at N = 4, C = 1, 704^2, then edge shapes: W/2 = 175 (not a multiple of 4), bf16 rows of 712
 # bytes (not 16-byte aligned), N = 1
 SUB_SHAPES = ((TRAIN_B, 1, TRAIN_FRAME, TRAIN_FRAME, "float32"),
               (TRAIN_B, 3, TRAIN_FRAME, TRAIN_FRAME, "float32"),
-              (TRAIN_B, 3, TRAIN_FRAME, TRAIN_FRAME, "bfloat16"))
+              (TRAIN_B, 3, TRAIN_FRAME, TRAIN_FRAME, "bfloat16"),
+              (TRAIN_B, 1, FRAME, FRAME, "float32"))  # N2N of the UNet: 704^2 frames
 SUB_EDGE_SHAPES = ((TRAIN_B, 1, TRAIN_FRAME, 350, "float32"),
                    (TRAIN_B, 3, TRAIN_FRAME, 356, "bfloat16"),
                    (1, 1, TRAIN_FRAME, TRAIN_FRAME, "float32"))
@@ -2451,6 +2470,285 @@ def phase_serving(seed: int, kept):
     return out
 
 
+# [networks]: UNet-48 (blind spot off and on) and RESNET-48 at full width.
+# Serving: E2's runner over make_forward, NET_WARMUP + NET_BURSTS bursts of
+# 8 704^2 frames per dtype, float32 held to the module in float64 on the
+# first NET_F64_FRAMES frames; training: N2N of the UNet on 704^2 frames (its
+# sub-images must divide by 32) and the structure step of the blind-spot UNet
+# and of the RESNET at [structure]'s batch; the CLIs on NET_CLI_FRAMES pairs
+NETWORKS = (("UNet", False), ("UNet", True), ("RESNET", False))
+NET_WARMUP, NET_BURSTS, NET_F64_FRAMES, NET_CLI_FRAMES = 1, 2, 2, 5
+NET_N2N_FRAME = FRAME
+BLINDSPOT_LOG = "UNET_blindspot_gauss25"  # scripts/train_blindspot.sh
+# bf16 against f32 in [networks], in uint8 levels (largest, mean): E2's
+# limits, except for a network whose own bf16 forward in the JAX package
+# reads above them at this seed's weights: there 1.5 times its readings, as
+# for E6. RESNET-48 reads 12 levels and a mean of 1.583 on two 256^2 crops of
+# the serving frames on the CPU (tests/test_torch_networks.py::
+# test_bf16_levels_of_the_jax_package): the bf16 nin_c output is added to
+# the float32 input, and its rounding alone moves the sum by up to a level
+NET_BF16_LIMITS = {"RESNET": (18, 2.4)}
+
+
+def net_name(arch: str, blindspot: bool) -> str:
+    return f"{arch}-{NF}" + (" blind-spot" if blindspot else "")
+
+
+def phase_networks(seed: int, kept):
+    """UNet and RESNET through make_forward (cuDNN, no kernel of the port),
+    their training steps (the N2N step of the UNet through the sub-sampler
+    kernel at 4 x 1 x 704^2) and the CLIs with them; ``kept``: [finetune]'s
+    checkpoints (the memory adapter served by E6 over a UNet base)."""
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.ckpt import load_checkpoint, save_checkpoint
+    from image_denoising_tpu_torch.cli import (denoise, evaluation_704,
+                                               evaluation_704_iqsl_memory)
+    from image_denoising_tpu_torch.cli import train as train_cli
+    from image_denoising_tpu_torch.eval.tiled import make_tiled_pyramid_runner_frames
+    from image_denoising_tpu_torch.models import build_model, make_forward
+    from image_denoising_tpu_torch.models.init import initialize_weights
+    from image_denoising_tpu_torch.ops import AugmentNoise, OperationSeed
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair, subsample_pair_fused
+    from image_denoising_tpu_torch.train import (create_train_state, make_n2n_train_step,
+                                                 make_structure_train_step)
+
+    def runner(call, n=B):
+        return make_tiled_pyramid_runner_frames(call, n, FRAME, FRAME, TILE, OVERLAP,
+                                                batch=-B, out_dtype="uint8_floor")
+
+    def seeded(arch, bs):
+        """The network with He-normal weights (scale 1) from the seed: the
+        reference's Kaiming x 0.1 leaves an untrained UNet's output within
+        3e-6 of 0 (RESNET's within 2e-6 of its input), where every uint8
+        check would pass whatever the forward computed."""
+        torch.manual_seed(seed)
+        return initialize_weights(build_model(arch, 1, NF, blindspot=bs), 1.0).eval()
+
+    _, noise = serving_frames(seed, B + 1)
+    bursts = [np.stack(noise[:B]), np.stack(noise[1:])]
+    mp = NET_BURSTS * B * FRAME * FRAME / 1e6
+    fused_rdb_chain.launches = 0
+    out = dict(serving={}, train={})
+
+    # serving: float32 and bfloat16 bursts, float32 against float64
+    for arch, bs in NETWORKS:
+        name = net_name(arch, bs)
+        model = seeded(arch, bs)
+        res, preds = {}, {}
+        for dname in ("float32", "bfloat16"):
+            run = runner(make_forward(model, device="cuda", dtype=getattr(torch, dname)))
+            run_bursts(run, bursts[:NET_WARMUP])  # cuDNN plans
+            preds[dname], sec = run_bursts(run, bursts[:NET_BURSTS])
+            prof = profile_burst(run, bursts[0])
+            res[dname] = dict(seconds=sec, mps=mp / sec, profile=prof)
+            log(f"[networks] {name} {dname:8s} E2 runner, {NET_BURSTS} bursts of "
+                f"{B}x{FRAME}^2: {sec:.3f} s, {mp / sec:.4f} MP/s; one burst under "
+                f"torch.profiler: wall {prof['wall_ms']:.1f} ms, device busy "
+                f"{prof['device_busy_ms']:.1f} ms (share {prof['busy_share']}); top "
+                f"kernels {prof['top_kernels_ms'][:3]}")
+            del run
+        f64 = copy.deepcopy(model).to("cuda", torch.float64)
+        ref, _ = run_bursts(runner(torch.inference_mode()(lambda t: f64(t.double())),
+                                   NET_F64_FRAMES), [bursts[0][:NET_F64_FRAMES]])
+        del f64
+        vs_f64 = level_diff(preds["float32"][0][:NET_F64_FRAMES], ref[0])
+        bf16 = level_diff(preds["bfloat16"], preds["float32"])
+        max_levels, mean_levels = NET_BF16_LIMITS.get(arch, (BF16_MAX_LEVELS,
+                                                             BF16_MEAN_LEVELS))
+        res.update(f32_vs_f64=vs_f64, bf16_vs_f32=bf16)
+        log(f"[networks] {name} float32 vs the module in float64 ({NET_F64_FRAMES} "
+            f"frames): max {vs_f64['max_level_diff']} levels, "
+            f"{vs_f64['frac_pixels_diff']:.3e} of pixels differ (limit 1 level on "
+            f"1e-3); bfloat16 vs float32: max {bf16['max_level_diff']} levels, mean "
+            f"{bf16['mean_level_diff']:.4f} (limits {max_levels}, {mean_levels})")
+        if not (vs_f64["max_level_diff"] <= 1 and vs_f64["frac_pixels_diff"] <= 1e-3):
+            raise AssertionError(f"{name}: float32 too far from float64: {vs_f64}")
+        if not (bf16["max_level_diff"] <= max_levels
+                and bf16["mean_level_diff"] <= mean_levels):
+            raise AssertionError(f"{name}: bfloat16 outside E2's limits: {bf16}")
+        out["serving"][name] = res
+        del model
+        torch.cuda.empty_cache()
+
+    # N2N of the UNet on 704^2 frames: the kernel against the plain sub-sampler
+    clean = n2n_frames(seed, TRAIN_B, NET_N2N_FRAME)[..., None].astype(np.float32)
+    aug = AugmentNoise("gauss25")
+    init = seeded("UNet", False).state_dict()
+
+    def n2n(subsample):
+        model = build_model("UNet", 1, NF).to("cuda")
+        model.load_state_dict(init)
+        state = create_train_state(model, lr=3e-4)
+        step = make_n2n_train_step(model, state, noise_fn=aug.add_train_noise,
+                                   increase_ratio=2.0, n_epoch=TRAIN_EPOCHS,
+                                   subsample=subsample)
+        seeds = OperationSeed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step(clean, clean, seeds.next(), 1)["loss"] for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(clean, clean, seeds.next(), 1)["loss"] for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+        return [float(x) for x in losses], step_s, torch.cuda.max_memory_allocated() / 1e9
+
+    subsample_pair_fused.launches = 0
+    losses, step_s, peak = n2n(subsample_pair_fused)
+    launches = subsample_pair_fused.launches
+    plain, plain_s, _ = n2n(subsample_pair)
+    if launches != TRAIN_WARMUP + TRAIN_STEPS or subsample_pair_fused.launches != launches:
+        raise AssertionError(f"N2N UNet: {launches} sub-sampler launches, want "
+                             f"{TRAIN_WARMUP + TRAIN_STEPS} and none in the plain run")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    n2n_mp = TRAIN_B * NET_N2N_FRAME ** 2 / 1e6
+    out["train"]["n2n_unet"] = dict(
+        launches=launches, ms_per_step=step_s * 1e3, mps=n2n_mp / step_s, peak_gb=peak,
+        plain_ms_per_step=plain_s * 1e3, losses=losses, plain_losses=plain,
+        max_rel_loss_diff=rel)
+    log(f"[networks] N2N step, UNet-{NF} f32, batch {TRAIN_B}x{NET_N2N_FRAME}^2 "
+        f"(sub-images {NET_N2N_FRAME // 2}^2): {step_s * 1e3:.2f} ms/step, "
+        f"{n2n_mp / step_s:.4f} MP/s of input frames, peak memory {peak:.2f} GB (plain "
+        f"sub-sampler: {plain_s * 1e3:.2f} ms/step); sub-sampler launches {launches}; "
+        f"losses {[round(x, 6) for x in losses]}, largest relative difference to the "
+        f"plain run {rel:.3g} (limit {TRAIN_LOSS_RTOL})")
+    if not (np.all(np.isfinite(losses + plain)) and rel <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"N2N UNet: losses {losses} against the plain run's {plain}")
+
+    # the structure step: blind-spot UNet in float32 and bfloat16, RESNET in float32
+    sclean, snoisy = struct_pair(seed)
+    smp = TRAIN_B * TRAIN_FRAME ** 2 / 1e6
+    for arch, bs, dname in (("UNet", True, "float32"), ("UNet", True, "bfloat16"),
+                            ("RESNET", False, "float32")):
+        model = seeded(arch, bs)
+        model.dtype = torch.bfloat16 if dname == "bfloat16" else None
+        model = model.to("cuda").train()
+        state = create_train_state(model, lr=3e-4)
+        step = make_structure_train_step(model, state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, pending = [], None
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            if i == TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error" if i >= TRAIN_WARMUP else 0)
+            try:
+                m = step(sclean, snoisy)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if pending is not None:
+                losses.append(float(pending["loss"]))
+            pending = m
+        losses.append(float(pending["loss"]))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        key = f"structure_{arch.lower()}{'_blindspot' if bs else ''}_{dname}"
+        out["train"][key] = dict(ms_per_step=step_s * 1e3, mps=smp / step_s, peak_gb=peak,
+                                 losses=losses)
+        log(f"[networks] structure step, {net_name(arch, bs)} {dname}, batch {TRAIN_B}x"
+            f"{TRAIN_FRAME}^2 as one batch-{2 * TRAIN_B} forward"
+            + (f" ({8 * TRAIN_B} rotated frames)" if bs else "")
+            + f": {step_s * 1e3:.2f} ms/step, {smp / step_s:.4f} MP/s of input frames, "
+            f"peak memory {peak:.2f} GB; timed steps under set_sync_debug_mode('error'); "
+            f"losses {[round(x, 6) for x in losses]}")
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{key}: non-finite loss {losses}")
+        del model, state, step, pending, m
+        torch.cuda.empty_cache()
+    f32 = out["train"]["structure_unet_blindspot_float32"]["losses"]
+    b16 = out["train"]["structure_unet_blindspot_bfloat16"]["losses"]
+    step1 = abs(b16[0] - f32[0])
+    brel = max(abs(a - b) / abs(b) for a, b in zip(b16, f32))
+    log(f"[networks] blind-spot structure losses, bf16 against f32: step 1 |d| "
+        f"{step1:.3g} (limit {BF16_STEP1_ABS}), largest relative {brel:.3g} (limit "
+        f"{BF16_REL})")
+    if not (step1 < BF16_STEP1_ABS and brel < BF16_REL):
+        raise AssertionError("blind-spot structure: bf16 losses outside the envelope of f32")
+    if fused_rdb_chain.launches:
+        raise AssertionError(f"networks: {fused_rdb_chain.launches} chain launches")
+
+    # the CLIs through their main
+    cli = out["cli"] = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        tdata = os.path.join(tmp, "train_data")
+        rng = np.random.default_rng(seed + 12)
+        tclean = list(n2n_frames(seed + 5, 2 * TRAIN_B, TRAIN_FRAME))
+        _write_pairs(tdata, tclean, [np.clip(c + rng.normal(0, 25, c.shape), 0, 255)
+                                     .astype(np.uint8) for c in tclean])
+        subsample_pair_fused.launches = 0
+        t0 = time.perf_counter()
+        train_cli.main(["--log_name", BLINDSPOT_LOG, "--n_feature", str(NF), "--data_dir",
+                        tdata, "--save_model_path", os.path.join(tmp, "runs"),
+                        "--n_epoch", "1", "--max_steps_per_epoch", "2", "--seed", str(seed)])
+        sec = time.perf_counter() - t0
+        (ckpt,) = glob.glob(os.path.join(tmp, "runs", BLINDSPOT_LOG, "*",
+                                         "epoch_model_001.ckpt"))
+        sd = load_checkpoint(ckpt, arch="UNet")
+        build_model("UNet", 1, NF, blindspot=True).load_state_dict(sd, strict=True)
+        nin_a = tuple(sd["nin_a.weight"].shape)
+        cli["train_blindspot"] = dict(seconds=sec, nin_a=nin_a,
+                                      launches=subsample_pair_fused.launches)
+        log(f"[networks] cli.train.main --log_name {BLINDSPOT_LOG} --n_feature {NF} "
+            f"(the launcher's preset), 1 epoch of 2 steps at batch {TRAIN_B} of "
+            f"{TRAIN_FRAME}^2: {sec:.2f} s; epoch_model_001.ckpt loads strict into the "
+            f"blind-spot UNet, nin_a {nin_a}")
+        if nin_a != (384, 384, 1, 1) or subsample_pair_fused.launches:
+            raise AssertionError(f"train CLI {BLINDSPOT_LOG}: {cli['train_blindspot']}")
+
+        clean, noise = serving_frames(seed + 1, NET_CLI_FRAMES)
+        data = os.path.join(tmp, "data")
+        _write_pairs(data, clean, noise)
+        e2 = run_cli(evaluation_704.main, [
+            "--data_dir", data, "--checkpoint", ckpt, "--log_name", BLINDSPOT_LOG,
+            "--n_feature", str(NF), "--frame_burst", "4", "--save_images", "none",
+            "--save_dir", os.path.join(tmp, "e2")])
+        resnet = save_checkpoint(seeded("RESNET", False), os.path.join(tmp, "resnet"),
+                                 "model", 1)
+        unet = save_checkpoint(seeded("UNet", False), os.path.join(tmp, "unet"), "model", 1)
+        den = run_cli(denoise.main, ["--input_dir", os.path.join(data, "noise"),
+                                     "--checkpoint", resnet, "--arch", "RESNET",
+                                     "--n_feature", str(NF),
+                                     "--save_dir", os.path.join(tmp, "denoise")])
+        e6 = run_cli(evaluation_704_iqsl_memory.main, [
+            "--data_dir", data, "--base_ckpt", unet, "--arch", "UNet", "--n_feature", str(NF),
+            "--adapter_ckpt",
+            kept["finetune_memory"], "--frame_burst", str(E6_BURST), "--memory_stride",
+            str(E6_STRIDE), "--bank_dtype", "int8", "--clean_bank_dtype", "uint8",
+            "--patch_size", str(E6_TILE), "--overlap", str(OVERLAP), "--save_images",
+            "none", "--save_dir", os.path.join(tmp, "e6")])
+        e6_bursts = -(-NET_CLI_FRAMES // E6_BURST)
+        pngs = glob.glob(os.path.join(tmp, "denoise", "*.png"))
+        for what, r in (("E2 blind-spot UNet by log name", e2),
+                        ("denoise --arch RESNET", den), ("E6 --arch UNet", e6)):
+            log(f"[networks] {what}: {NET_CLI_FRAMES} frames of {FRAME}^2 in "
+                f"{r['seconds']:.2f} s; launches {r['launches']}"
+                + (f"; average PSNR {r['result']['psnr']:.4f} dB"
+                   if isinstance(r["result"], dict) else ""))
+        cli.update(e2=dict(seconds=e2["seconds"], launches=e2["launches"],
+                           psnr=e2["result"]["psnr"]),
+                   denoise=dict(seconds=den["seconds"], launches=den["launches"],
+                                frames=len(pngs)),
+                   e6=dict(seconds=e6["seconds"], launches=e6["launches"],
+                           psnr=e6["result"]["psnr"], bursts=e6_bursts))
+        if not (np.isfinite(e2["result"]["psnr"]) and np.isfinite(e6["result"]["psnr"])
+                and len(pngs) == NET_CLI_FRAMES):
+            raise AssertionError(f"networks CLIs: {cli}")
+        if not (e2["launches"] == den["launches"] == dict(fused_rdb_chain=0,
+                                                          top1_l2_retrieval=0)
+                and e6["launches"] == dict(fused_rdb_chain=0,
+                                           top1_l2_retrieval=e6_bursts)):
+            raise AssertionError(f"networks CLIs: launches {cli}")
+    return out
+
+
 def _preds(out):
     """A runner's predictions: the pyramid engine returns (preds, L1)."""
     return out[0] if isinstance(out, tuple) else out
@@ -2595,6 +2893,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as keep:
         fine = phase_finetune(args.seed, keep)
         serving = phase_serving(args.seed, fine["kept"])
+        networks = phase_networks(args.seed, fine["kept"])
     ft_launches = {k: fine["float32"]["launches"][k] + fine["int8"]["launches"][k]
                    for k in ("fused_rdb_chain", "top1_l2_retrieval")}
 
@@ -2636,7 +2935,9 @@ def main(argv=None) -> int:
         by_path = {"E6": launches,
                    "finetune": fine[dname]["launches"]["top1_l2_retrieval"]
                    if dname in fine else 0,
-                   "serving": serving["launches"]["int8"] if dname == "int8" else 0}
+                   "serving": serving["launches"]["int8"] if dname == "int8" else 0,
+                   "E6 UNet base": networks["cli"]["e6"]["launches"]["top1_l2_retrieval"]
+                   if dname == "int8" else 0}
         summary.append(dict(
             name="top1_l2_retrieval", dtype=dname, route="cuda", design=ROUTES[dname][0],
             source=TOP1_SOURCE, replaces=TOP1_REPLACES, launches=sum(by_path.values()),
@@ -2648,19 +2949,24 @@ def main(argv=None) -> int:
             b8={k: small[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             b4={k: ft[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}))
     sub = subsample[f"n{TRAIN_B}_c1_{TRAIN_FRAME}x{TRAIN_FRAME}_float32"]
+    sub704 = subsample[f"n{TRAIN_B}_c1_{FRAME}x{FRAME}_float32"]
+    n2n_unet = networks["train"]["n2n_unet"]["launches"]
     summary.append(dict(
         name="subsample_pair", dtype="float32", route="cuda",
         design="4 cells a thread, 16-byte vectors, exact grid (CUDA cores)",
         source=SUB_SOURCE,
         replaces=SUB_REPLACES, launches=train["launches"],
-        launches_by_path={"N2N train": train["launches"], "train CLI": train_cli["launches"]},
+        launches_by_path={"N2N train": train["launches"], "train CLI": train_cli["launches"],
+                          "N2N UNet 704^2": n2n_unet},
         max_abs_err=max(r["max_abs_err"] for r in subsample.values()),
         ms=sub["ms"], plain_ms=sub["plain_ms"], bound_ms=sub["bound_ms"],
         bound_by=sub["bound_by"], library_ms=None, wrapper_ms=sub["wrapper_ms"],
         warm_ms=sub["warm_ms"],
         launch_floor_ms=floor["back_to_back_ms"], empty_kernel_device_ms=floor["device_ms"],
         c3={k: {f: r[f] for f in ("ms", "warm_ms", "plain_ms", "bound_ms")}
-            for k, r in subsample.items() if r["c"] == 3 and "ms" in r}))
+            for k, r in subsample.items() if r["c"] == 3 and "ms" in r},
+        n2n_704=dict({f: sub704[f] for f in ("ms", "warm_ms", "plain_ms", "bound_ms",
+                                             "bound_by")}, launches=n2n_unet)))
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_seconds=build_s,
@@ -2670,7 +2976,7 @@ def main(argv=None) -> int:
                                     top1=top1, subsample=subsample, launch_floor=floor),
                        main=main_path, memory=memory, train=train, train_cli=train_cli,
                        structure=structure, hpo=hpo, finetune=fine, serving=serving,
-                       summary=summary),
+                       networks=networks, summary=summary),
                   f, indent=1)
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
         f"of one {B}-tile E2 chunk (e6: of one E6 chunk); design is the route "
@@ -2690,7 +2996,9 @@ def main(argv=None) -> int:
         "the per-call time of calls issued back to "
         "back, launch_floor_ms the per-launch time of an empty kernel issued back "
         "to back; library_ms is null: no one PyTorch call draws and gathers; "
-        "launches from the 12 N2N steps; launches_by_path[serving]: the [serving] CLI "
+        "launches from the 12 N2N steps; n2n_704: N=4 704^2 C=1 f32, the UNet's N2N "
+        "shape, with the launches of [networks]' 12 N2N steps of UNet-48; "
+        "launches_by_path[serving]: the [serving] CLI "
         "runs (chain float32 / bfloat16 by the runs' compute dtype; retrieval: E6's "
         "int8 bank)")
     log(smi)

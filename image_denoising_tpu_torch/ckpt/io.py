@@ -44,14 +44,21 @@ def checkpoint_path(save_root: str, role: str, epoch: int) -> str:
 
 
 def module_arch(module: torch.nn.Module) -> str:
-    """The ``arch`` name of a ported module: 'UNetImproved',
-    'output_adapter' or its memory-adapter variant."""
+    """The ``arch`` name of a ported module: 'UNet', 'RESNET',
+    'UNetImproved', 'output_adapter' or its memory-adapter variant (JAX's
+    ``cli/common.py::_arch_name`` for the networks)."""
     from ..adapters.memory_adapters import MEMORY_ADAPTERS
     from ..adapters.output_adapter import OutputAdapter
     from ..models.improved_unet import ImprovedUNet
+    from ..models.resnet import RESNET
+    from ..models.unet import UNet
 
     if isinstance(module, ImprovedUNet):
         return "UNetImproved"
+    if isinstance(module, RESNET):
+        return "RESNET"
+    if isinstance(module, UNet):
+        return "UNet"
     if isinstance(module, OutputAdapter):
         return "output_adapter"
     for name, cls in MEMORY_ADAPTERS.items():
@@ -62,9 +69,15 @@ def module_arch(module: torch.nn.Module) -> str:
 
 def to_params(tree: Any) -> Any:
     """A module, or a nested dict of modules and arrays → the JAX params
-    tree of numpy arrays (modules through their state dicts)."""
+    tree of numpy arrays (modules through their state dicts). A RESNET's
+    tree has no ``up5``: the JAX module has none, and the reference's is
+    never called."""
     if isinstance(tree, torch.nn.Module):
-        return state_dict_to_params(tree.state_dict(), module_arch(tree))
+        arch = module_arch(tree)
+        params = state_dict_to_params(tree.state_dict(), arch)
+        if arch == "RESNET":
+            params.pop("up5")
+        return params
     if isinstance(tree, dict):
         return {k: to_params(v) for k, v in tree.items()}
     return np.asarray(tree)

@@ -4,9 +4,11 @@
 arrays, as ``jax.tree_util.tree_map(np.asarray, params)`` gives it) to the
 reference state-dict layout (``arch_unet.py``, ``adapter.py``,
 ``finetune_memory.py``): flax HWIO conv kernels become OIHW, Dense kernels
-are transposed, GroupNorm scale/bias become weight/bias. It is the port's
-own copy of ``image_denoising_tpu/ckpt/pth_export.py`` for the ImprovedUNet,
-the output adapter and the five memory-adapter variants.
+are transposed, GroupNorm scale/bias become weight/bias, and deconv
+kernels, already in torch's (in, out, 2, 2) layout, are copied. It is the
+port's own copy of ``image_denoising_tpu/ckpt/pth_export.py`` for every
+network (UNet, RESNET, ImprovedUNet), the output adapter and the five
+memory-adapter variants.
 """
 from __future__ import annotations
 
@@ -28,6 +30,11 @@ def _conv_out(out, prefix, p):
     out[f"{prefix}.weight"] = np.transpose(_np(p["conv"]["kernel"]), (3, 2, 0, 1))
     if "bias" in p["conv"]:
         out[f"{prefix}.bias"] = _np(p["conv"]["bias"])
+
+
+def _deconv_out(out, prefix, p):
+    out[f"{prefix}.weight"] = _np(p["deconv"]["kernel"])
+    out[f"{prefix}.bias"] = _np(p["deconv"]["bias"])
 
 
 def _dense_out(out, prefix, p):
@@ -58,6 +65,23 @@ def _up_out(out, prefix, p):
     _conv_out(out, f"{prefix}.fuse", p["fuse"])
     _rdb_out(out, f"{prefix}.rdb", p["rdb"])
     _res_out(out, f"{prefix}.res", p["res"])
+
+
+def _unet_like_out(params, arch: str = "UNet") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        if name.startswith("up") and "deconv" in p:
+            _deconv_out(out, f"{name}.deconv", p)
+        else:
+            _conv_out(out, name, p)
+    if arch == "RESNET" and "up5.deconv.weight" not in out:
+        # the reference RESNET builds an UpsampleCat it never calls
+        # (arch_unet.py:301 against forward :373): its keys are made up so
+        # that strict loads succeed; the forward never reads them
+        nf = out["enc_conv0.weight"].shape[0]
+        out["up5.deconv.weight"] = np.zeros((nf, nf, 2, 2), np.float32)
+        out["up5.deconv.bias"] = np.zeros((nf,), np.float32)
+    return out
 
 
 def _improved_out(params, depth=4) -> Dict[str, np.ndarray]:
@@ -105,16 +129,18 @@ def _memory_adapter_out(params, variant) -> Dict[str, np.ndarray]:
 
 def params_to_state_dict(params: Any, arch: str = "UNetImproved") -> Dict[str, np.ndarray]:
     """JAX param tree → reference state dict of numpy arrays. ``arch``:
-    'UNetImproved', 'output_adapter' or a memory-adapter variant."""
+    'UNet', 'RESNET', 'UNetImproved', 'output_adapter' or a memory-adapter
+    variant."""
+    if arch in ("UNet", "RESNET"):
+        return _unet_like_out(params, arch)
     if arch == "UNetImproved":
         return _improved_out(params)
     if arch == "output_adapter":
         return _output_adapter_out(params)
     if arch in MEMORY_ADAPTERS:
         return _memory_adapter_out(params, arch)
-    raise NotImplementedError(
-        f"arch {arch!r} is not ported yet (UNetImproved, output_adapter and "
-        f"the memory adapters {list(MEMORY_ADAPTERS)} are); see ROADMAP.md")
+    raise ValueError(f"unknown arch {arch!r}: UNet, RESNET, UNetImproved, "
+                     f"output_adapter or one of {list(MEMORY_ADAPTERS)}")
 
 
 def load_jax_params(model: torch.nn.Module, params: Any,

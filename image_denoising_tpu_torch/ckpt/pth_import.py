@@ -1,10 +1,13 @@
 """Reference-layout state dicts → JAX param trees.
 
 Counterpart of ``image_denoising_tpu/ckpt/pth_import.py::import_pth`` for
-the ImprovedUNet, the output adapter and the five memory-adapter
-variants, and the exact inverse of ``pth_export.py::params_to_state_dict``:
-OIHW conv weights become flax HWIO kernels, Linear weights are transposed
-into Dense kernels, GroupNorm weight/bias become ``gn`` scale/bias. A
+every network (UNet, RESNET, ImprovedUNet), the output adapter and the
+five memory-adapter variants, and the exact inverse of
+``pth_export.py::params_to_state_dict``: OIHW conv weights become flax
+HWIO kernels, deconv weights are copied as they are, Linear weights are
+transposed into Dense kernels, GroupNorm weight/bias become ``gn``
+scale/bias. A RESNET state dict keeps the ``up5`` of the reference's
+unused ``UpsampleCat`` in the tree, as JAX's ``import_pth`` does. A
 transpose moves bytes and rounds nothing, so state dict → tree → state
 dict gives the same arrays bit for bit. A conv carries ``bias`` exactly
 when the state dict has one (the ResBlock convs have none).
@@ -34,6 +37,11 @@ def _conv(sd, prefix) -> Dict[str, Any]:
     return {"conv": out}
 
 
+def _deconv(sd, prefix) -> Dict[str, Any]:
+    return {"deconv": {"kernel": _np(sd[f"{prefix}.weight"]),
+                       "bias": _np(sd[f"{prefix}.bias"])}}
+
+
 def _gn(sd, prefix) -> Dict[str, Any]:
     return {"gn": {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}}
 
@@ -52,6 +60,20 @@ def _rdb(sd, prefix, layers=4) -> Dict[str, Any]:
 def _resblock(sd, prefix) -> Dict[str, Any]:
     return {"conv0": _conv(sd, f"{prefix}.block.0"), "norm0": _gn(sd, f"{prefix}.block.1"),
             "conv1": _conv(sd, f"{prefix}.block.3"), "norm1": _gn(sd, f"{prefix}.block.4")}
+
+
+UNET_LIKE_CONVS = tuple(f"enc_conv{i}" for i in range(7)) + (
+    "dec_conv5a", "dec_conv5b", "dec_conv4a", "dec_conv4b", "dec_conv3a", "dec_conv3b",
+    "dec_conv2a", "dec_conv2b", "dec_conv1a", "dec_conv1b", "nin_a", "nin_b", "nin_c")
+
+
+def _unet_like(sd) -> Dict[str, Any]:
+    """UNet and RESNET (one naming in the reference); ``up*`` where present."""
+    p: Dict[str, Any] = {name: _conv(sd, name) for name in UNET_LIKE_CONVS}
+    for name in ("up5", "up4", "up3", "up2", "up1"):
+        if f"{name}.deconv.weight" in sd:
+            p[name] = _deconv(sd, f"{name}.deconv")
+    return p
 
 
 def _improved_unet(sd, depth=4) -> Dict[str, Any]:
@@ -95,15 +117,15 @@ def _memory_adapter(sd, variant: str) -> Dict[str, Any]:
 
 def state_dict_to_params(sd, arch: str = "UNetImproved") -> Dict[str, Any]:
     """Reference state dict (torch tensors or numpy arrays) → JAX param
-    tree of numpy arrays. ``arch``: 'UNetImproved', 'output_adapter' or a
-    memory-adapter variant."""
+    tree of numpy arrays. ``arch``: 'UNet', 'RESNET', 'UNetImproved',
+    'output_adapter' or a memory-adapter variant."""
+    if arch in ("UNet", "RESNET"):
+        return _unet_like(sd)
     if arch == "UNetImproved":
         return _improved_unet(sd)
     if arch == "output_adapter":
         return {"conv0": _conv(sd, "net.0"), "conv1": _conv(sd, "net.2")}
     if arch in MEMORY_ADAPTERS:
         return _memory_adapter(sd, arch)
-    raise NotImplementedError(
-        f"arch {arch!r} is not ported yet (UNetImproved, output_adapter and "
-        f"the memory adapters {list(MEMORY_ADAPTERS)} are); see ROADMAP.md "
-        "queue 1 item 7")
+    raise ValueError(f"unknown arch {arch!r}: UNet, RESNET, UNetImproved, "
+                     f"output_adapter or one of {list(MEMORY_ADAPTERS)}")

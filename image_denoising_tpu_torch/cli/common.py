@@ -17,7 +17,6 @@ import numpy as np
 import torch
 
 from ..ckpt.io import load_checkpoint, module_arch
-from ..models.improved_unet import ImprovedUNet
 from ..models.registry import build_model, build_model_from_log_name
 
 __all__ = [
@@ -44,12 +43,14 @@ __all__ = [
 
 
 def add_blindspot_flag(parser) -> None:
-    """--blindspot: the 4-rotation blindspot UNet/RESNET with an explicit
-    --arch (those networks are not ported yet, ROADMAP.md)."""
+    """--blindspot: 4-rotation blindspot UNet/RESNET with the explicit --arch
+    path (the log_name 'blindspot' substring dispatch needs no flag)."""
     parser.add_argument(
         "--blindspot", action="store_true",
         help="build the blindspot variant (4-rotation stack, shifted "
-             "convs/pools) when --arch is given (not ported yet)",
+             "convs/pools) when --arch is given; with log_name dispatch "
+             "use a 'blindspot' substring instead (reference "
+             "train.py:298-302)",
     )
 
 
@@ -69,14 +70,17 @@ def resolve_dtype(name: Optional[str]):
 
 def build_network(arch: Optional[str], log_name: Optional[str],
                   n_channel: int, n_feature: int, dtype: Optional[torch.dtype] = None,
-                  remat: bool = False, remat_depth: Optional[int] = None) -> ImprovedUNet:
+                  remat: bool = False, remat_depth: Optional[int] = None,
+                  blindspot: bool = False) -> torch.nn.Module:
     """Explicit ``--arch`` wins; otherwise the reference ``--log_name``
-    substring dispatch (``models/registry.py``). Only UNetImproved is
-    ported. ``dtype`` is the compute dtype (parameters stay float32);
-    ``remat`` and ``remat_depth`` recompute blocks in backward."""
+    substring dispatch (``models/registry.py``). ``dtype`` is the compute
+    dtype (parameters stay float32); ``remat`` and ``remat_depth`` recompute
+    ImprovedUNet's blocks in backward. ``blindspot`` applies to the explicit
+    ``--arch`` path (UNet/RESNET); the log-name path carries it through the
+    reference's ``blindspot`` substring on its own."""
     if arch:
         return build_model(arch, n_channel, n_feature, dtype=dtype, remat=remat,
-                           remat_depth=remat_depth)
+                           remat_depth=remat_depth, blindspot=blindspot)
     if log_name:
         return build_model_from_log_name(log_name, n_channel, n_feature, dtype=dtype,
                                          remat=remat, remat_depth=remat_depth)
@@ -360,11 +364,9 @@ class MetricsWriter:
 
 def refuse_unported(opt, flags=("parallel",)):
     """NotImplementedError, before anything is loaded, for the flags that
-    wait for the other networks (``--blindspot``, ROADMAP.md queue 1 item 7)
-    or for multi-device (every other flag and several ``--gpu_devices``,
-    item 8)."""
-    refused = [f"--{n} (ROADMAP.md queue 1 item {7 if n == 'blindspot' else 8})"
-               for n in flags if getattr(opt, n)]
+    wait for multi-device (``--parallel``, ``--bank_sharded`` and several
+    ``--gpu_devices``, ROADMAP.md queue 1 item 8)."""
+    refused = [f"--{n} (ROADMAP.md queue 1 item 8)" for n in flags if getattr(opt, n)]
     if "," in getattr(opt, "gpu_devices", ""):
         refused.append("--gpu_devices with several cards (ROADMAP.md queue 1 item 8)")
     if refused:
@@ -386,15 +388,15 @@ def cli_device(opt, refused=("parallel",)) -> str:
 
 def load_frozen_base(opt, device):
     """(base module, its frozen forward on ``device``): the ``--arch``
-    network with ``--pretrained_ckpt``'s weights, run by
-    ``make_fused_forward`` in the ``--dtype`` compute dtype."""
-    from ..models.fused_forward import make_fused_forward
+    network with ``--pretrained_ckpt``'s weights, run by ``make_forward``
+    (the chain kernel for an ImprovedUNet) in the ``--dtype`` compute dtype."""
+    from ..models.fused_forward import make_forward
 
     base = load_params(opt.pretrained_ckpt,
                        build_model(opt.arch, opt.n_channel, opt.n_feature))
     print(f"Loaded base weights from {opt.pretrained_ckpt}")
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    return base, make_fused_forward(base, device=device, dtype=dtype)
+    return base, make_forward(base, device=device, dtype=dtype)
 
 
 def iqsl_config(opt):

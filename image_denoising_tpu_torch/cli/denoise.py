@@ -3,8 +3,9 @@ counterpart of ``image_denoising_tpu/cli/denoise.py``.
 
 Denoises a flat directory of new frames (no ``clean/`` ground truth) with
 E2's geometry: 352-px tiles, 64-px overlap, pyramid blend, bursts of frames
-through ``make_tiled_pyramid_runner_frames`` over ``make_fused_forward``
-(on a CUDA device every level block goes through the chain kernel), and
+through ``make_tiled_pyramid_runner_frames`` over ``make_forward`` (for
+an ImprovedUNet on a CUDA device every level block goes through the chain
+kernel), and
 writes one denoised PNG per frame. Defaults are the production preset:
 bfloat16 compute, bursts of 8 with up to three in flight, 8-tile chunks,
 ``--rounding floor`` (E2's clip(p·255)); ``--dtype float32 --tile_batch
@@ -15,7 +16,9 @@ Shapes are bucketed from the PIL headers alone and frames decode per burst,
 so host memory holds the bursts in flight, not the directory. Two inputs
 with one stem (``a.png``, ``a.tif``) keep their extension in the output
 name. Same flags as the JAX CLI plus ``--device {cuda,cpu}``;
-``--parallel`` and ``--blindspot`` are parsed and refused (not ported yet).
+``--arch UNet|RESNET|UNetImproved`` or the ``--log_name`` dispatch picks
+the network, ``--blindspot`` the blind-spot UNet/RESNET; ``--parallel`` is
+parsed and refused (not ported yet).
 
 Run: ``python -m image_denoising_tpu_torch.cli.denoise --input_dir frames
 --checkpoint model.ckpt`` (``--device cpu`` off the card).
@@ -81,11 +84,11 @@ def output_names(paths, save_dir: str, suffix: str):
 
 def run(opt):
     from ..data.pairs import load_image_f32
-    from ..models.fused_forward import make_fused_forward
+    from ..models.fused_forward import make_forward
     from .common import (HostWorkPool, build_network, cli_device, load_params,
                          save_png)
 
-    device = cli_device(opt, ("parallel", "blindspot"))
+    device = cli_device(opt, ("parallel",))
     os.makedirs(opt.save_dir, exist_ok=True)
     paths = sorted(p for p in glob.glob(os.path.join(opt.input_dir, "*"))
                    if os.path.isfile(p))
@@ -94,9 +97,10 @@ def run(opt):
 
     network = load_params(
         opt.checkpoint,
-        build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature))
+        build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature,
+                      blindspot=opt.blindspot))
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    fwd = make_fused_forward(network, device=device, dtype=dtype)
+    fwd = make_forward(network, device=device, dtype=dtype)
     print(f"Loaded checkpoint from {opt.checkpoint}; "
           f"denoising {len(paths)} frames from {opt.input_dir}")
 

@@ -1,9 +1,9 @@
 """Whole-image evaluation CLI — counterpart of
 ``image_denoising_tpu/cli/evaluation.py`` (E1).
 
-One whole-frame forward per noisy image (``make_fused_forward``: on a CUDA
-device every level block goes through the chain kernel, at batch 1 and the
-frame's own size), L1 recorded against the *noisy input* (a documented
+One whole-frame forward per noisy image (``make_forward``: for an
+ImprovedUNet on a CUDA device every level block goes through the chain
+kernel, at batch 1 and the frame's own size), L1 recorded against the *noisy input* (a documented
 quirk of the reference, ``evaluation.py:23-117``), PNGs of the noisy, clean
 and denoised frames in RGB mode, PSNR and SSIM against the clean frame,
 averages to ``metrics.txt``. uint8 via clip(p·255 + 0.5).
@@ -12,8 +12,10 @@ averages to ``metrics.txt``. uint8 via clip(p·255 + 0.5).
 PSNR, float32 SSIM): only scalars come back, and the prediction too when
 PNGs are asked for. ``--host_workers N`` runs the per-frame host pass
 (fetch, metrics, PNG encode) in a thread pool, finalized in frame order.
-Same flags as the JAX CLI plus ``--device {cuda,cpu}``; ``--blindspot`` and
-several ``--gpu_devices`` are parsed and refused (not ported yet).
+Same flags as the JAX CLI plus ``--device {cuda,cpu}``; ``--arch UNet|RESNET|UNetImproved``
+or the ``--log_name`` dispatch picks the network, ``--blindspot`` the
+blind-spot UNet/RESNET; several ``--gpu_devices`` are parsed and refused
+(not ported yet).
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation --data_dir d
 --checkpoint model.ckpt`` (``--device cpu`` off the card). H and W must be
@@ -65,19 +67,20 @@ def parse_args(argv=None):
 def evaluate(opt):
     from ..data.pairs import validation_denoise
     from ..metrics import calculate_psnr, calculate_ssim, frame_psnr_ssim
-    from ..models.fused_forward import make_fused_forward
+    from ..models.fused_forward import make_forward
     from .common import (HostWorkPool, MetricsWriter, build_network, cli_device,
                          load_params, make_metrics_finalize, save_png)
 
-    device = cli_device(opt, ("blindspot",))
+    device = cli_device(opt, ())
     os.makedirs(opt.save_dir, exist_ok=True)
     clean_imgs, noisy_imgs, clean_paths, noisy_paths = validation_denoise(opt.data_dir)
 
     network = load_params(
         opt.checkpoint,
-        build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature))
+        build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature,
+                      blindspot=opt.blindspot))
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    fwd = make_fused_forward(network, device=device, dtype=dtype)
+    fwd = make_forward(network, device=device, dtype=dtype)
     print(f"Loaded checkpoint from {opt.checkpoint}")
 
     save_mode = opt.save_images

@@ -3,14 +3,15 @@
 352×352 tiles, 64-px overlap (stride 288), reflect-padded ragged edge tiles,
 pyramid weight blending, uint8 via clip(p·255) with NO +0.5 (reference
 quirk, ``evaluation_704.py:120``). The network runs through
-``make_fused_forward``: on a CUDA device every level block goes through the
+``make_forward``: for an ImprovedUNet on a CUDA device every level block goes through the
 hand-written chain kernel. Same flags and output files as the JAX CLI, plus
 ``--device {cuda,cpu}``: ``cuda`` runs on the one card ``--gpu_devices``
 names (``cuda:N``). ``--device_metrics`` scores each burst on the device
 (``metrics/device.py``), ``--host_workers N`` runs the per-frame host pass
 in a thread pool and ``--profile_dir`` traces the denoise loop.
-``--parallel``, ``--blindspot`` and several ``--gpu_devices`` are parsed
-and refused (not ported yet).
+``--arch UNet|RESNET|UNetImproved`` or the ``--log_name`` dispatch picks
+the network, ``--blindspot`` the blind-spot UNet/RESNET. ``--parallel``
+and several ``--gpu_devices`` are parsed and refused (not ported yet).
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation_704 --data_dir d
 --checkpoint model.ckpt`` (the JAX package's ``.ckpt``, or a
@@ -84,21 +85,22 @@ def evaluate(opt):
     from ..eval.tiled import denoise_tiled_pyramid, make_tiled_pyramid_runner_frames
     from ..metrics import (calculate_psnr, calculate_ssim, compute_iq_iou,
                            make_device_metrics)
-    from ..models.fused_forward import make_fused_forward
+    from ..models.fused_forward import make_forward
     from ..utils.profiling import trace
     from .common import (HostWorkPool, MetricsWriter, build_network, cli_device,
                          drain_burst, iter_bursts, load_params, make_clean_post,
                          make_metrics_finalize, save_png)
 
-    device = cli_device(opt, ("parallel", "blindspot"))
+    device = cli_device(opt, ("parallel",))
     os.makedirs(opt.save_dir, exist_ok=True)
     clean_imgs, noisy_imgs, clean_paths, noisy_paths = validation_denoise(opt.data_dir)
 
     network = load_params(
         opt.checkpoint,
-        build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature))
+        build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature,
+                      blindspot=opt.blindspot))
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    fwd = make_fused_forward(network, device=device, dtype=dtype)
+    fwd = make_forward(network, device=device, dtype=dtype)
     print(f"Loaded checkpoint from {opt.checkpoint}")
 
     # --frame_burst: N same-shape frames per runner call, up to three bursts

@@ -5,8 +5,9 @@ Rebuilds the memory bank from the first ``--num_memory_images`` test pairs
 (banks are never checkpointed), loads the base and the adapter, and denoises
 each frame on 128-px tiles with a 64-px overlap and Hann² blending; uint8
 via clip(p·255 + 0.5); PSNR and, with ``--compute_iq_iou``, IQ-IoU. On a
-CUDA device the base runs through ``make_fused_forward`` (every level block
-through the chain kernel) and retrieval through the top-1 kernel. By
+CUDA device the base runs through ``make_forward`` (for an ImprovedUNet
+every level block through the chain kernel; ``--arch UNet`` or ``RESNET``
+serve their module) and retrieval through the top-1 kernel. By
 default retrieval is hoisted: one pass over the whole tile stack before the
 chunked forward, the retrieved patches riding along as a second channel.
 
@@ -179,7 +180,7 @@ def evaluate(opt):
     from ..eval.tiled import denoise_tiled_hann, make_tiled_hann_runner_frames
     from ..memory import build_memory_bank
     from ..metrics import calculate_psnr, compute_iq_iou, make_device_metrics
-    from ..models.fused_forward import make_fused_forward
+    from ..models.fused_forward import make_forward
     from .common import (HostWorkPool, MetricsWriter, build_network, cli_device,
                          drain_burst, iter_bursts, load_params, make_clean_post,
                          make_metrics_finalize, save_png)
@@ -198,7 +199,7 @@ def evaluate(opt):
     base = load_params(opt.base_ckpt, build_network(
         opt.arch, None, opt.n_channel, opt.n_feature))
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    fwd = make_fused_forward(base, device=device, dtype=dtype)
+    fwd = make_forward(base, device=device, dtype=dtype)
     adapter = build_memory_adapter(opt.adapter_variant, opt.n_channel,
                                    opt.adapter_hidden)
     adapter.load_state_dict(load_checkpoint(opt.adapter_ckpt, arch=opt.adapter_variant),

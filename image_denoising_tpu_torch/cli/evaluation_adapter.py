@@ -5,8 +5,9 @@ Loads a combined base + output-adapter checkpoint (``--ckpt``): a
 reference-layout ``.pth`` with ``base.*`` and ``adapter.*`` keys, or the
 ``epoch_adapter_XXX.ckpt`` that ``cli/finetune.py`` writes (in either
 package). Denoises every frame under ``data_dir/noise/`` whole-frame through
-``DenoiserWithAdapter(make_fused_forward(base), adapter)`` (on a CUDA device
-the base's level blocks go through the chain kernel), saves
+``DenoiserWithAdapter(make_forward(base), adapter)`` (on a CUDA device an
+ImprovedUNet base's level blocks go through the chain kernel; ``--arch``
+picks UNet or RESNET), saves
 ``*_denoised.png`` (clip(p·255 + 0.5), mode L for one channel) and prints
 PSNR when ``clean/`` exists. Unknown flags are ignored, as in the JAX CLI.
 Same flags plus ``--device {cuda,cpu}``; ``--parallel`` and several
@@ -57,13 +58,13 @@ def parse_args(argv=None):
 
 
 def build_adapter_denoiser(opt, device, base_ckpt: str, adapter_ckpt=None):
-    """``DenoiserWithAdapter(make_fused_forward(base), adapter)`` on
+    """``DenoiserWithAdapter(make_forward(base), adapter)`` on
     ``device``, the base in the ``--dtype`` compute dtype. Without
     ``adapter_ckpt``, ``base_ckpt`` is a combined file: its ``base`` and
     ``adapter`` parts."""
     from ..adapters import DenoiserWithAdapter, OutputAdapter
     from ..ckpt.io import load_checkpoint
-    from ..models.fused_forward import make_fused_forward
+    from ..models.fused_forward import make_forward
     from ..models.registry import build_model
 
     combined = adapter_ckpt is None
@@ -77,7 +78,7 @@ def build_adapter_denoiser(opt, device, base_ckpt: str, adapter_ckpt=None):
                                             prefix="adapter" if combined else ""),
                             strict=True)
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    fwd = make_fused_forward(base, device=device, dtype=dtype)
+    fwd = make_forward(base, device=device, dtype=dtype)
     return DenoiserWithAdapter(fwd, adapter).to(device).eval()
 
 

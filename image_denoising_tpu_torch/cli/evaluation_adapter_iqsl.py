@@ -6,7 +6,7 @@ adapter-only checkpoint apart (``--base_ckpt``, ``--adapter_ckpt``: the
 ``epoch_adapter_only_XXX.ckpt`` of ``cli/finetune_iqsl.py``, or ``.pth``
 files), and adds PSNR, SSIM and, with ``--compute_iq_iou``, the 3-class
 intensity-quantized IoU against ``clean/``, averaged into ``metrics.txt``.
-Whole frames run through ``DenoiserWithAdapter(make_fused_forward(base),
+Whole frames run through ``DenoiserWithAdapter(make_forward(base),
 adapter)``. Unknown flags are ignored, as in the JAX CLI. Same flags plus
 ``--device {cuda,cpu}``; ``--parallel`` and several ``--gpu_devices`` are
 parsed and refused (not ported yet).

@@ -9,9 +9,10 @@ Each epoch (every ``--save_every``) writes the full wrapper tree
 with a whole-frame forward and PSNR. ``cli/finetune_iqsl.py`` runs the
 same loop with the IQSL term (``train_adapter(opt, iqsl=True)``).
 
-On a CUDA device the base is ``make_fused_forward``, built once: the
-training batches and the whole validation frames run every level block
-through the chain kernel. Same flags as the JAX CLI, plus ``--device
+On a CUDA device the base is ``make_forward``, built once: for an
+ImprovedUNet the training batches and the whole validation frames run
+every level block through the chain kernel; ``--arch UNet`` or ``RESNET``
+runs that module. Same flags as the JAX CLI, plus ``--device
 {cuda,cpu}``; ``--parallel`` and several ``--gpu_devices`` are parsed and
 refused (ROADMAP.md queue 1 item 8).
 

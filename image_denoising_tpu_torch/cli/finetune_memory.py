@@ -10,8 +10,9 @@ epoch (every ``--save_every``) writes ``epoch_adapter_only_XXX.ckpt`` and
 validates on the first 10 pairs with the Hann² tiled engine (overlap =
 patch_size // 2, retrieval hoisted out of the tile chunks).
 
-On a CUDA device the base is ``make_fused_forward`` (every level block
-through the chain kernel), built once since the base never changes, and
+On a CUDA device the base is ``make_forward`` (for an ImprovedUNet every
+level block through the chain kernel; ``--arch UNet`` or ``RESNET`` runs
+that module), built once since the base never changes, and
 each training step retrieves its batch's bank patches with the top-1
 kernel inside the forward; nothing falls back to the CPU.
 

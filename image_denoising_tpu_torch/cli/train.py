@@ -19,9 +19,13 @@ Same flags as the JAX CLI, plus ``--device {cuda,cpu}``: ``cuda`` runs on
 the card ``--gpu_devices`` names (``cuda:N``). ``--dtype bfloat16``
 computes in bfloat16 with float32 parameters; ``--remat`` /
 ``--remat_depth`` recompute blocks in backward; ``--profile_dir`` writes a
-``torch.profiler`` trace of the first ``--profile_steps`` steps. Parsed
-and refused, for later slices (ROADMAP.md): ``--parallel``,
-``--blindspot`` and several ``--gpu_devices``.
+``torch.profiler`` trace of the first ``--profile_steps`` steps.
+``--arch UNet|RESNET|UNetImproved`` or the ``--log_name`` substring
+dispatch picks the network (``UNET``, ``UNET…blindspot``, ``RESNET``,
+``UNetImproved``), ``--blindspot`` the blind-spot UNet/RESNET with
+``--arch``; the UNet needs H and W divisible by 32, and by 64 for ``--loss
+n2n``. Parsed and refused, for a later slice (ROADMAP.md queue 1 item 8):
+``--parallel`` and several ``--gpu_devices``.
 
 Run: ``python -m image_denoising_tpu_torch.cli.train --arch UNetImproved
 --data_dir data``.
@@ -109,21 +113,12 @@ def parse_args(argv=None):
     return opt
 
 
-def _refused(opt):
-    out = [f"--{n}" for n in ("parallel", "blindspot") if getattr(opt, n)]
-    if "," in opt.gpu_devices:
-        out.append("--gpu_devices with several cards")
-    return out
-
-
 def main(argv=None):
     opt = parse_args(argv)
-    refused = _refused(opt)
-    if refused:
-        raise NotImplementedError(
-            f"{', '.join(refused)} not ported to the PyTorch package yet "
-            "(ROADMAP.md)")
     from ..utils.device import resolve_device
+    from .common import refuse_unported
+
+    refuse_unported(opt)
 
     device = resolve_device(
         "cpu" if opt.device == "cpu" else f"cuda:{int(opt.gpu_devices)}")
@@ -144,7 +139,7 @@ def main(argv=None):
     torch.manual_seed(opt.seed)
     network = build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature,
                             dtype=resolve_dtype(opt.dtype), remat=opt.remat,
-                            remat_depth=opt.remat_depth)
+                            remat_depth=opt.remat_depth, blindspot=opt.blindspot)
     if opt.resume:
         load_params(opt.resume, network)
         print(f"Resumed params from {opt.resume}")

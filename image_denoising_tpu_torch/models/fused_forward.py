@@ -1,4 +1,5 @@
-"""Inference forward for ImprovedUNet through the fused level-block chain.
+"""The serving forward of every network: ImprovedUNet through the fused
+level-block chain, UNet and RESNET as their modules.
 
 Counterpart of ``image_denoising_tpu/models/fused_forward.py``.
 ``improved_unet_fused_apply`` computes what ``ImprovedUNet.forward``
@@ -14,10 +15,18 @@ the chain takes (and the NHWC tensors it returns) cost no copy.
 A float32 forward is float32 throughout: the chain kernel runs 3xTF32, and
 ``make_fused_forward`` runs the plain cuDNN convs with TF32 off whatever
 ``torch.backends.cudnn.allow_tf32`` (True by default) says.
+
+``make_forward`` is what the CLIs call, the port's ``jitted_apply``
+(``image_denoising_tpu/cli/common.py``): ``make_fused_forward`` for an
+ImprovedUNet; for UNet and RESNET, whose convs the JAX package also leaves
+to XLA's convolutions, a no-grad forward of a frozen copy of the module on
+the device, in the compute dtype and ``channels_last``, with TF32 off in
+float32.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Dict, List, Optional
 
 import torch
@@ -25,9 +34,11 @@ import torch.nn.functional as F
 
 from ..ops.fused_block import FusedChainWeights, fused_rdb_chain
 from ..utils.device import resolve_device
+from .improved_unet import ImprovedUNet
 from .layers import gn_groups, leaky_relu, max_pool_2x2, pixel_shuffle
 
-__all__ = ["chain_weights", "improved_unet_fused_apply", "make_fused_forward"]
+__all__ = ["chain_weights", "improved_unet_fused_apply", "make_forward",
+           "make_fused_forward"]
 
 _CL = torch.channels_last
 
@@ -150,5 +161,34 @@ def make_fused_forward(model, device="cuda", dtype: Optional[torch.dtype] = None
             return improved_unet_fused_apply(
                 sd, x.to(dev), in_nc=model.in_nc, depth=model.depth,
                 noise=model.noise, chains=chains)
+
+    return fwd
+
+
+def make_forward(model, device="cuda", dtype: Optional[torch.dtype] = None):
+    """``fwd(x)`` with the contract of ``model(x)`` (NCHW in and out) on
+    ``device`` in the compute ``dtype`` (default float32), the forward every
+    serving CLI and frozen base runs: ``make_fused_forward`` for an
+    ImprovedUNet (the chain kernel), else the module itself.
+
+    For UNet and RESNET the module is copied to the device once, in
+    ``channels_last``, its weights cast to ``dtype`` (the convs would cast
+    them on every call; the values are the same) and its compute dtype set,
+    so the input and every concatenation keep the JAX package's dtypes. The
+    caller's module is not touched.
+    """
+    if isinstance(model, ImprovedUNet):
+        return make_fused_forward(model, device=device, dtype=dtype)
+    dev = resolve_device(device)
+    dt = dtype or torch.float32
+    net = copy.deepcopy(model).eval().requires_grad_(False)
+    net.dtype = None if dt == torch.float32 else dt
+    net = net.to(device=dev, dtype=dt, memory_format=_CL)
+    precise = _cudnn_tf32_off if dt == torch.float32 else contextlib.nullcontext
+
+    @torch.inference_mode()
+    def fwd(x):
+        with precise():
+            return net(x.to(dev).contiguous(memory_format=_CL))
 
     return fwd

@@ -27,26 +27,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import LEAKY_SLOPE, gn_groups, leaky_relu, max_pool_2x2, pixel_shuffle
+from .layers import (LEAKY_SLOPE, Conv2d, gn_groups, leaky_relu, max_pool_2x2,
+                     pixel_shuffle)
 
 __all__ = ["Conv2d", "GroupNorm", "ResBlock", "RDB", "UpBlock", "ImprovedUNet"]
-
-
-class Conv2d(nn.Conv2d):
-    """SAME conv that computes in ``compute_dtype`` when one is set (flax
-    ``nn.Conv(dtype=...)``): input, weight and bias cast to it."""
-
-    compute_dtype: Optional[torch.dtype] = None
-
-    def __init__(self, cin: int, cout: int, kernel: int = 3, bias: bool = True):
-        super().__init__(cin, cout, kernel, padding=kernel // 2, bias=bias)
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        if dt is None:
-            return super().forward(x)
-        bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
 class GroupNorm(nn.GroupNorm):

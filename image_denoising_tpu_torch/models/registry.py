@@ -4,8 +4,8 @@
 eval CLIs (reference ``finetune.py:189-204``); ``build_model_from_log_name``
 is the substring dispatch of ``train.py:298-314`` / ``evaluation.py:32-48``,
 priority order kept, raising a clear error where the reference leaves the
-network undefined. UNetImproved is ported; UNet and RESNET raise
-``NotImplementedError`` until ROADMAP.md queue 1 item 7.
+network undefined. ``UNET`` is the log-name spelling only: as ``--arch`` it
+is unknown, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 
 from .improved_unet import ImprovedUNet
+from .resnet import RESNET
+from .unet import UNet
 
 __all__ = ["ARCHS", "build_model", "build_model_from_log_name"]
 
@@ -22,13 +24,16 @@ ARCHS = ("UNet", "RESNET", "UNetImproved")
 
 def build_model(arch: str, n_channel: int = 1, n_feature: int = 48,
                 blindspot: bool = False, dtype: Optional[torch.dtype] = None,
-                remat: bool = False, remat_depth: Optional[int] = None) -> ImprovedUNet:
-    """``dtype`` is the compute dtype (parameters stay float32); ``remat``
-    and ``remat_depth`` recompute blocks in backward (``ImprovedUNet``)."""
-    if arch.upper() in ("UNET", "RESNET"):  # the log-name spelling UNET too
-        raise NotImplementedError(
-            f"architecture {arch!r}{' (blindspot)' if blindspot else ''} is not "
-            "ported yet (only UNetImproved); see ROADMAP.md queue 1 item 7")
+                remat: bool = False, remat_depth: Optional[int] = None) -> torch.nn.Module:
+    """``dtype`` is the compute dtype (parameters stay float32);
+    ``blindspot`` applies to UNet and RESNET, ``remat`` and ``remat_depth``
+    (recompute blocks in backward) to ImprovedUNet, as in the JAX package."""
+    if arch == "UNet":
+        return UNet(in_nc=n_channel, out_nc=n_channel, n_feature=n_feature,
+                    blindspot=blindspot, dtype=dtype)
+    if arch == "RESNET":
+        return RESNET(in_nc=n_channel, out_nc=n_channel, n_feature=n_feature,
+                      blindspot=blindspot, dtype=dtype)
     if arch == "UNetImproved":
         return ImprovedUNet(in_nc=n_channel, out_nc=n_channel, n_feature=n_feature,
                             dtype=dtype, remat=remat, remat_depth=remat_depth)
@@ -37,7 +42,7 @@ def build_model(arch: str, n_channel: int = 1, n_feature: int = 48,
 
 def build_model_from_log_name(log_name: str, n_channel: int = 1, n_feature: int = 48,
                               dtype: Optional[torch.dtype] = None, remat: bool = False,
-                              remat_depth: Optional[int] = None) -> ImprovedUNet:
+                              remat_depth: Optional[int] = None) -> torch.nn.Module:
     """Reference substring dispatch (train.py:298-314), priority order kept."""
     if "UNET" in log_name:
         return build_model("UNet", n_channel, n_feature,

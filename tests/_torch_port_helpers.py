@@ -56,3 +56,14 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def seeded_network_params(arch: str, n_feature: int, seed: int, blindspot: bool = False,
+                          size: int = 64, in_nc: int = 1):
+    """(JAX UNet or RESNET, its params tree drawn by ``seeded_params``)."""
+    from image_denoising_tpu.models import RESNET, UNet
+
+    model = {"UNet": UNet, "RESNET": RESNET}[arch](
+        in_nc=in_nc, out_nc=in_nc, n_feature=n_feature, blindspot=blindspot)
+    x = jax.ShapeDtypeStruct((1, size, size, in_nc), np.float32)
+    return model, seeded_params(model, x, seed=seed)

@@ -106,7 +106,26 @@ def test_eval704_host_workers_and_profile_dir(dataset_and_ckpt, tmp_path, capsys
 @pytest.mark.parametrize("flag", [["--parallel"], ["--blindspot"],
                                   ["--gpu_devices", "0,1"]])
 def test_eval704_refuses_flags_of_later_slices(dataset_and_ckpt, tmp_path, flag):
+    """--parallel and several cards wait for multi-device (ROADMAP.md queue
+    1 item 8) and raise. --blindspot, refused until the other networks were
+    ported, now runs: with --arch UNet on a blind-spot UNet-8 ``.pth`` the
+    port's E2 matches the JAX CLI within the limits of
+    test_eval704_matches_jax_cli."""
     data, ckpt = dataset_and_ckpt
+    if flag == ["--blindspot"]:
+        from _torch_port_helpers import seeded_network_params
+
+        _, params = seeded_network_params("UNet", 8, seed=45, blindspot=True)
+        pth = export_pth(params, "UNet", str(tmp_path / "unet_blindspot.pth"))
+        common = ARGS + ["--data_dir", data, "--checkpoint", pth, "--arch", "UNet"] + flag
+        ref = jax_eval704.main(common + ["--save_dir", str(tmp_path / "jax")])
+        out = eval704.main(common + ["--save_dir", str(tmp_path / "torch"),
+                                     "--device", "cpu"])
+        assert sorted(os.listdir(tmp_path / "torch")) == sorted(os.listdir(tmp_path / "jax"))
+        assert abs(out["psnr"] - ref["psnr"]) <= 0.01
+        assert abs(out["ssim"] - ref["ssim"]) <= 1e-4
+        assert abs(out["l1"] - ref["l1"]) <= 1e-5
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eval704.main(ARGS + ["--data_dir", data, "--checkpoint", ckpt,
                              "--save_dir", str(tmp_path), "--device", "cpu"] + flag)

@@ -73,5 +73,17 @@ def test_indivisible_frame_raises(case):
 
 
 def test_other_arch_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        params_to_state_dict({}, arch="UNet")
+    """The other networks' layouts, refused until they were ported, now map
+    as the JAX package's export does (tests/test_torch_networks.py holds
+    them to it in full); an unknown arch raises."""
+    from _torch_port_helpers import seeded_network_params
+
+    for arch in ("UNet", "RESNET"):
+        _, params = seeded_network_params(arch, NF, seed=6)
+        want = jax_params_to_state_dict(params, arch)
+        got = params_to_state_dict(params, arch=arch)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    with pytest.raises(ValueError, match="unknown arch"):
+        params_to_state_dict({}, arch="UNET")

@@ -44,7 +44,8 @@ def test_port_modules_import_no_jax():
                 "cli.finetune_memory", "data.pairs", "cli.denoise", "cli.evaluation",
                 "cli.evaluation_704_iqsl", "cli.evaluation_adapter",
                 "cli.evaluation_adapter_iqsl", "metrics.device", "cli.train_opt",
-                "hpo.engine", "hpo.benchmark"):
+                "hpo.engine", "hpo.benchmark", "models.unet", "models.resnet",
+                "models.init", "models.layers", "ops.space_to_depth"):
         assert f"image_denoising_tpu_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
@@ -58,12 +59,15 @@ def _entry_points():
                                                train, train_opt)
     from image_denoising_tpu_torch.eval import tiled
     from image_denoising_tpu_torch.memory import build_memory_bank
-    from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
+    from image_denoising_tpu_torch.models import (RESNET, ImprovedUNet, UNet, make_forward,
+                                                  make_fused_forward)
     from image_denoising_tpu_torch.ops.neighbor import generate_mask_pair
 
     frame = np.zeros((32, 32), np.uint8)
     return {
         "make_fused_forward": lambda: make_fused_forward(ImprovedUNet(1, 1, 8)),
+        "make_forward_unet": lambda: make_forward(UNet(1, 1, 8, blindspot=True)),
+        "make_forward_resnet": lambda: make_forward(RESNET(1, 1, 8)),
         "runner": lambda: tiled.make_tiled_pyramid_runner(lambda t: t, 32, 32, 16, 8),
         "runner_frames": lambda: tiled.make_tiled_pyramid_runner_frames(
             lambda t: t, 2, 32, 32, 16, 8),
@@ -116,7 +120,8 @@ def _entry_points():
                                   "finetune_memory", "generate_mask_pair",
                                   "denoise_whole_frame", "evaluation",
                                   "evaluation_704_iqsl", "denoise", "evaluation_adapter",
-                                  "evaluation_adapter_iqsl", "train_opt"])
+                                  "evaluation_adapter_iqsl", "train_opt",
+                                  "make_forward_unet", "make_forward_resnet"])
 def test_entry_points_default_to_cuda(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():

@@ -626,3 +626,58 @@ def test_fused_whole_frame_forward_matches_module(cuda, shape, dtype):
             assert d.max() <= 1 and (d > 0).mean() <= 1e-3
         else:
             assert d.max() <= 8 and d.mean() <= 1.0, (ref_dtype, d.max(), d.mean())
+
+
+@pytest.mark.cuda
+def test_subsample_pair_kernel_at_the_unet_n2n_shape(cuda):
+    """N2N training of the UNet runs on 704² frames (its sub-images must
+    divide by 32): 4 x 1 x 704 x 704 float32, bit-equal to the plain
+    version."""
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair, subsample_pair_fused
+
+    img = torch.rand((4, 1, 704, 704), generator=torch.Generator().manual_seed(704)).to(cuda)
+    want = subsample_pair(2 ** 35 + 7, img)
+    before = subsample_pair_fused.launches
+    got = subsample_pair_fused(2 ** 35 + 7, img)
+    torch.cuda.synchronize()
+    assert subsample_pair_fused.launches == before + 1
+    assert got[0].shape == (4, 1, 352, 352) and got[2][0].shape == (4, 352, 352)
+    for g, w in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, blindspot", [("UNet", False), ("UNet", True),
+                                             ("RESNET", False)])
+def test_network_forward_on_card_matches_float64(cuda, arch, blindspot):
+    """``make_forward`` of UNet-48, the blind-spot UNet-48 and RESNET-48 in
+    float32 (cuDNN, TF32 off) on a 704² frame against the same module in
+    float64 on the card, in uint8 levels: at most 1 level on at most 0.1 %
+    of pixels (E2's float32 limit). No chain launch."""
+    import copy
+
+    import numpy as np
+
+    from image_denoising_tpu_torch.eval.tiled import denoise_whole_frame
+    from image_denoising_tpu_torch.models import build_model, make_forward
+
+    from image_denoising_tpu_torch.models.init import initialize_weights
+
+    torch.backends.cudnn.allow_tf32 = True  # make_forward turns it off itself
+    torch.manual_seed(22)
+    # He-normal (scale 1): at the reference's x 0.1 the untrained output sits
+    # within 3e-6 of 0 (RESNET's of its input) and every level would agree
+    model = initialize_weights(build_model(arch, 1, 48, blindspot=blindspot), 1.0).eval()
+    x = np.random.default_rng(22).random((704, 704, 1), dtype=np.float32)
+    before = fused_rdb_chain.launches
+    got = denoise_whole_frame(make_forward(model, device=cuda), x, device=cuda)
+    assert fused_rdb_chain.launches == before
+    module = copy.deepcopy(model).to(cuda, torch.float64)
+    with torch.no_grad():
+        want = denoise_whole_frame(lambda t: module(t.double()), x, device=cuda)
+
+    def levels(p):
+        return np.clip(p * 255.0 + 0.5, 0, 255).astype(np.int16)
+
+    d = np.abs(levels(got) - levels(want))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (d.max(), (d > 0).mean())

@@ -223,6 +223,45 @@ def test_e5_matches_jax_cli(data, tmp_path):
     assert all(v.ndim == 2 for v in _pngs(tmp_path / "torch").values())
 
 
+def _other_network_cli_matches_jax(data, tmp_path, cli):
+    """E1 and denoise with ``--arch UNet --blindspot`` on a blind-spot UNet-8
+    ``.pth``, E4 with ``--arch UNet`` on a combined UNet-8 + adapter
+    ``.pth``: the port's CLI against the JAX one, E2's limits, PNGs within
+    1 level."""
+    from _torch_port_helpers import seeded_network_params
+
+    blindspot = cli != "evaluation_adapter"
+    _, unet = seeded_network_params("UNet", 8, seed=44, blindspot=blindspot)
+    root = data["root"]
+    if cli == "evaluation_adapter":
+        sd = {f"base.{k}": torch.from_numpy(np.array(v))
+              for k, v in params_to_state_dict(unet, "UNet").items()}
+        sd.update({f"adapter.{k}": v for k, v in torch.load(data["adapter"]).items()})
+        torch.save(sd, tmp_path / "unet_combined.pth")
+        args = ["--n_feature", "8", "--adapter_hidden", "8", "--data_dir", root,
+                "--ckpt", str(tmp_path / "unet_combined.pth"), "--arch", "UNet"]
+        ref = jax_e4.main(args + ["--save_dir", str(tmp_path / "jax")])
+        out = evaluation_adapter.main(args + CPU + ["--save_dir", str(tmp_path / "torch")])
+        assert abs(out - ref) <= 0.01
+    else:
+        pth = export_pth(unet, "UNet", str(tmp_path / "unet_blindspot.pth"))
+        net = ["--arch", "UNet", "--blindspot", "--checkpoint", pth]
+        if cli == "evaluation":
+            args = net + ["--n_feature", "8", "--data_dir", root]
+            ref = jax_e1.main(args + ["--save_dir", str(tmp_path / "jax")])
+            out = evaluation.main(args + CPU + ["--save_dir", str(tmp_path / "torch")])
+            _close(out, ref)
+        else:
+            args = net + DENOISE + ["--input_dir", os.path.join(root, "noise"),
+                                    "--dtype", "float32"]
+            assert jax_denoise.main(args + ["--save_dir", str(tmp_path / "jax")]) == 3
+            assert denoise.main(args + CPU + ["--save_dir", str(tmp_path / "torch")]) == 3
+    got, want = _pngs(tmp_path / "torch"), _pngs(tmp_path / "jax")
+    assert got.keys() == want.keys() and len(got) == {"evaluation": 9}.get(cli, 3)
+    for f in got:
+        assert np.abs(got[f].astype(int) - want[f]).max() <= 1, f
+
+
 @pytest.mark.parametrize("cli,flag", [
     ("evaluation", ["--blindspot"]),
     ("evaluation", ["--gpu_devices", "0,1"]),
@@ -233,8 +272,13 @@ def test_e5_matches_jax_cli(data, tmp_path):
     ("evaluation_adapter", ["--arch", "UNet"]),
 ])
 def test_serving_clis_refuse_flags_of_later_slices(data, tmp_path, cli, flag):
-    """Flags that wait for the other networks (--blindspot, --arch UNet:
-    ROADMAP.md queue 1 item 7) or for multi-device (item 8) raise."""
+    """Flags that wait for multi-device (ROADMAP.md queue 1 item 8) raise.
+    The other networks' flags, refused until those networks were ported,
+    now run and match the JAX CLI (``_other_network_cli_matches_jax``):
+    ``--blindspot`` in E1 and denoise, ``--arch UNet`` in E4."""
+    if flag in (["--blindspot"], ["--arch", "UNet"]):
+        _other_network_cli_matches_jax(data, tmp_path, cli)
+        return
     ckpt = {"evaluation": ["--checkpoint", data["base"], "--data_dir", data["root"]],
             "denoise": ["--checkpoint", data["base"], "--input_dir", data["root"]],
             "evaluation_adapter": ["--ckpt", data["combined"], "--data_dir", data["root"]],
@@ -243,6 +287,5 @@ def test_serving_clis_refuse_flags_of_later_slices(data, tmp_path, cli, flag):
     main = {"evaluation": evaluation.main, "denoise": denoise.main,
             "evaluation_adapter": evaluation_adapter.main,
             "evaluation_adapter_iqsl": evaluation_adapter_iqsl.main}[cli]
-    item = "item 7" if "--blindspot" in flag or "UNet" in flag else "item 8"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
         main(ckpt + CPU + ["--n_feature", "8", "--save_dir", str(tmp_path)] + flag)

@@ -182,13 +182,56 @@ def test_train_cli_accepts_the_structure_slice_flags(data_dir, tmp_path, capsys,
         assert glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
 
 
+def _other_network_matches_jax_cli(data_dir, tmp_path, capsys, flags):
+    """``--arch UNet --blindspot`` or ``--arch RESNET``: both CLIs with the
+    structure loss, resumed from one JAX-exported ``.pth`` of that network,
+    2 steps at batch 2 of 64² frames: the logged Loss1/Loss_Full within
+    rtol 1e-4, as test_structure_cli_matches_the_jax_cli holds them, and the
+    port's checkpoint of that topology."""
+    from image_denoising_tpu.ckpt.pth_export import export_pth
+    from image_denoising_tpu.cli import train as jax_train_cli
+    from image_denoising_tpu_torch.models import build_model
+
+    from _torch_port_helpers import seeded_network_params
+
+    blindspot = flags == ["--blindspot"]
+    arch = "UNet" if blindspot else "RESNET"
+    _, params = seeded_network_params(arch, 8, seed=22, blindspot=blindspot)
+    pth = export_pth(params, arch, str(tmp_path / "start.pth"))
+    common = ["--arch", arch] + (["--blindspot"] if blindspot else []) + [
+        "--n_feature", "8", "--batchsize", "2", "--n_epoch", "1",
+        "--max_steps_per_epoch", "2", "--seed", "0", "--resume", pth,
+        "--data_dir", data_dir]
+    lines = {}
+    for name, main, extra in (("port", train.main, ["--device", "cpu"]),
+                              ("jax", jax_train_cli.main, [])):
+        main(common + extra + ["--save_model_path", str(tmp_path / name)])
+        lines[name] = STEP_LINE.findall(capsys.readouterr().out)
+    assert len(lines["port"]) == len(lines["jax"]) == 2
+    got = np.array([[float(a), float(b)] for _, _, a, b in lines["port"]])
+    want = np.array([[float(a), float(b)] for _, _, a, b in lines["jax"]])
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    (ckpt,) = glob.glob(str(tmp_path / "port" / "*" / "*" / "epoch_model_001.ckpt"))
+    model = build_model(arch, 1, 8, blindspot=blindspot)
+    model.load_state_dict(load_checkpoint(ckpt, arch=arch), strict=True)
+    assert model.nin_a.in_channels == (384 if blindspot else 96)
+
+
 @pytest.mark.parametrize("flags", [
     ["--parallel"],
     ["--blindspot"],
     ["--arch", "RESNET"],  # a .ckpt --resume is taken now (test_resume_*)
     ["--gpu_devices", "0,1"],
 ])
-def test_train_cli_refuses_flags_of_later_slices(data_dir, tmp_path, flags):
+def test_train_cli_refuses_flags_of_later_slices(data_dir, data_dir64, tmp_path, capsys,
+                                                 flags):
+    """--parallel and several cards wait for multi-device (ROADMAP.md queue
+    1 item 8) and raise before writing anything. --blindspot (with --arch
+    UNet) and --arch RESNET, refused until those networks were ported, now
+    train and match the JAX CLI (``_other_network_matches_jax_cli``)."""
+    if flags in (["--blindspot"], ["--arch", "RESNET"]):
+        _other_network_matches_jax_cli(data_dir64, tmp_path, capsys, flags)
+        return
     args = ["--device", "cpu", "--loss", "n2n", "--data_dir", data_dir,
             "--save_model_path", str(tmp_path)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -246,7 +289,14 @@ def test_structure_cli_matches_the_jax_cli(data_dir64, tmp_path, capsys):
 
 
 def test_train_cli_refuses_other_architectures(data_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--device", "cpu", "--loss", "n2n", "--arch", "UNET",
-                    "--data_dir", data_dir, "--save_model_path", str(tmp_path)])
+    """``UNET`` is the log-name spelling of the UNet: as ``--arch`` it is
+    unknown, and both CLIs raise ValueError before writing anything."""
+    from image_denoising_tpu.cli import train as jax_train_cli
+
+    args = ["--loss", "n2n", "--arch", "UNET", "--data_dir", data_dir]
+    with pytest.raises(ValueError, match="Unknown arch"):
+        train.main(args + ["--device", "cpu", "--save_model_path", str(tmp_path / "port")])
+    with pytest.raises(ValueError, match="Unknown arch"):
+        jax_train_cli.main(args + ["--save_model_path", str(tmp_path / "jax")])
+    assert os.listdir(tmp_path) == []
 
