@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--json build/chip_smoke.json]
     python3 chip_smoke.py --subsample-times CHECKOUT   # one kernel's times
+    python3 chip_smoke.py --multidevice-cards          # [multidevice] on 4 cards
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device  — the card's name and power limit.
@@ -144,6 +145,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                log name, cli.denoise --arch RESNET and
                cli.evaluation_704_iqsl_memory --arch UNet over [finetune]'s
                memory adapter (1 retrieval launch a burst, no chain launch).
+  12. multidevice — every multi-device path on meshes that repeat the one
+               card (make_mesh(devices=["cuda:0"] * k)): the sharded
+               retrieval (memory/sharded.py) at the production bank
+               (N = 105,125, D = 16,384, int8 and float32) over 2 and 4
+               shards at B = 400 and 4, k launches a call, the unsharded
+               kernel's indices (int8 bit-equal; a float32 pick that differs
+               within f32_pick_tol of the float64 best row), ms a call; E2
+               through the pyramid runner with each tile stack split over 2
+               (2 bursts of 8 per dtype) within 1 level on 0.1 % of pixels
+               of the single-device runner; E6 with the int8 bank sharded
+               over 2 and the tiles split (1 burst of 4): patches and output
+               equal to the single-device run's; the data-parallel structure
+               step over 2 and 3 entries (batch 4), the N2N step over 2 and
+               the memory finetune step over the sharded int8 bank, 12 steps
+               each within TRAIN_LOSS_RTOL of one device's (and the first
+               step's loss and gradient); train --parallel,
+               evaluation_704 --parallel, evaluation_704_iqsl_memory
+               --parallel --bank_sharded, denoise --parallel and
+               finetune_memory --bank_sharded on make_mesh() against the
+               runs without the flags (the same files, losses and launches).
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Per-shape details go to the --json file.
 """
@@ -2122,7 +2143,7 @@ def run_cli(main, args):
     frames = dict(psnr=w.psnr, ssim=w.ssim, l1=w.l1,
                   ious=list(zip(w.iou_dark, w.iou_mid, w.iou_bright))) if w else {}
     return dict(result=result, seconds=sec, launches=launches, frames=frames,
-                host_psnr=rec["psnr"], host_s=rec["host_s"],
+                host_psnr=rec["psnr"], host_s=rec["host_s"], stdout=buf.getvalue(),
                 lines=[ln for ln in buf.getvalue().splitlines() if ln.startswith("[")])
 
 
@@ -2749,6 +2770,646 @@ def phase_networks(seed: int, kept):
     return out
 
 
+# the [multidevice] phase. The script needs one card, so each mesh repeats it
+# (make_mesh(devices=["cuda:0"] * k)): every split, per-device forward, shard
+# and key merge runs, and the copies between devices are no-ops. Shard
+# counts of the sharded retrieval; the mesh of E2, E6 and the data-parallel
+# steps; the uneven mesh of the structure step (batch 4 over 3); E2's bursts
+# per dtype; the CLIs' frames and bank stride (the production stride 4 takes
+# 10 s a bank build on the host, and the CLIs' check is their output with
+# and without the flags)
+MD_SHARDS, MD_MESH, MD_UNEVEN, MD_BURSTS = (2, 4), 2, 3, 2
+MD_CARDS = 4  # --multidevice-cards: distinct cards, and E2/E6/steps split over them
+MD_CLI_FRAMES, MD_CLI_STRIDE = 5, 16
+
+
+def _md_mesh(k: int):
+    from image_denoising_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=["cuda:0"] * k)
+
+
+def _share_chunks(tiles: int, split: int) -> int:
+    """B-tile chunks of one device's share of a stack of ``tiles`` tiles
+    split over ``split`` devices (the stack padded to a multiple of them)."""
+    return -(-(-(-tiles // split)) // B)
+
+
+def _md_retrieval(seed: int, mesh_of):
+    """The sharded retrieval at the production bank (N = 105,125, D =
+    16,384; uint8-sourced rows, as int8 and as float32) over 2 and 4 shards
+    at B = 400 (queries split, the tiled evaluator's) and B = 4 (queries
+    whole, the finetuner's): k launches a call, the unsharded kernel's
+    indices (int8 bit-equal; a float32 pick that differs must lie within
+    f32_pick_tol of the float64 best row), ms per call against the
+    unsharded call. The bank's "clean" patches are each row's own index,
+    so the retrieved patch is the global row."""
+    import torch
+
+    from image_denoising_tpu_torch.adapters import select_memory_patch
+    from image_denoising_tpu_torch.memory import (MemoryBank, make_ring_retrieval,
+                                                  shard_bank)
+    from image_denoising_tpu_torch.memory.retrieval import top1_l2_retrieval
+
+    n, d = E6_BANK_ROWS, PATCH_D
+    g = torch.Generator(device="cuda").manual_seed(seed + 70)
+    u8 = torch.randint(0, 256, (n, d), generator=g, device="cuda", dtype=torch.uint8)
+    u8[DUP_HI] = u8[DUP_LO]
+    picks = torch.randint(0, n, (E6_TILES,), generator=g, device="cuda")
+    jitter = torch.randint(-6, 7, (E6_TILES, d), generator=g, device="cuda",
+                           dtype=torch.int16)
+    qu8 = (u8[picks].short() + jitter).clamp(0, 255)
+    qu8[0] = u8[DUP_LO]  # a copy of both rows: the first must win
+    q = (qu8.float() / 255.0).reshape(E6_TILES, E6_TILE, E6_TILE, 1)
+    del jitter, qu8
+    rows = torch.arange(n, dtype=torch.int32, device="cuda").reshape(n, 1, 1, 1)
+    i8 = (u8.short() - 128).to(torch.int8)
+    banks = {"int8": MemoryBank(i8, rows, (i8.int() ** 2).sum(1, dtype=torch.int32),
+                                E6_TILE, E6_STRIDE)}
+    f32 = u8.float() / 255.0
+    banks["float32"] = MemoryBank(f32, rows, (f32 ** 2).sum(1), E6_TILE, E6_STRIDE)
+    del u8, i8, f32
+    out = {}
+    for dname, bank in banks.items():
+        res = {}
+        for b in (E6_TILES, FT_B):
+            qb = q[:b].contiguous()
+            want = select_memory_patch(qb, bank.noise_flat, bank.clean, bank.sq_norms)
+            one_ms = time_ms(lambda: select_memory_patch(qb, bank.noise_flat, bank.clean,
+                                                         bank.sq_norms), reps=5)
+            item = bank.noise_flat.element_size()
+            bound_ms, bound_by = bound(2.0 * b * n * d,
+                                       (b * d + n * d) * item + n * 4 + b * 4,
+                                       ROUTES[dname][1])
+            for k in MD_SHARDS:
+                mesh = mesh_of(k)
+                sb = shard_bank(bank, mesh)
+                ring = make_ring_retrieval(mesh, queries_sharded=b == E6_TILES)
+                torch.cuda.synchronize()
+                top1_l2_retrieval.launches = 0
+                got = ring(qb, sb.noise_flat, sb.clean, sb.sq_norms)
+                torch.cuda.synchronize()
+                launches = top1_l2_retrieval.launches
+                if launches != k:
+                    raise AssertionError(f"sharded {dname} k={k}: {launches} launches")
+                if int(got[0]) != DUP_LO:
+                    raise AssertionError(f"sharded {dname} k={k}: row {DUP_LO} lost "
+                                         f"to {int(got[0])}")
+                differ = int((got != want).sum())
+                excess = 0.0
+                if differ and dname == "int8":
+                    raise AssertionError(f"sharded int8 k={k} B={b}: {differ} indices "
+                                         "differ from the unsharded kernel's")
+                if differ:
+                    qf = qb.reshape(b, -1)
+                    best, _, _, dist = _f64_top1(qf, bank.noise_flat)
+                    excess = float((dist(got.reshape(-1).long()) - best).max())
+                    tol = f32_pick_tol(d, float(qf.norm(dim=1).max()),
+                                       float(bank.noise_flat.norm(dim=1).max()))
+                    if not excess <= tol:
+                        raise AssertionError(f"sharded f32 k={k} B={b}: f64 excess "
+                                             f"{excess:.4g} over tol {tol:.4g}")
+                ms = time_ms(lambda: ring(qb, sb.noise_flat, sb.clean, sb.sq_norms), reps=5)
+                res[f"k{k}_b{b}"] = dict(shards=k, batch=b, launches=launches,
+                                         differing_indices=differ, max_f64_excess=excess,
+                                         ms=ms, unsharded_ms=one_ms, bound_ms=bound_ms,
+                                         bound_by=bound_by, n_local=sb.n_local)
+                log(f"[multidevice] sharded retrieval {dname:8s} k={k} B={b:3d}: "
+                    f"{launches} launches, {differ} of {b} indices differ from the "
+                    f"unsharded kernel's, {ms:.3f} ms a call (unsharded {one_ms:.3f} ms, "
+                    f"bound {bound_ms:.3f} ms, {bound_by}); {sb.n_local} rows a shard")
+                del sb, ring, got
+        out[dname] = res
+        torch.cuda.empty_cache()
+    del banks
+    torch.cuda.empty_cache()
+    return out
+
+
+def _md_e2(seed: int, mesh_of, split: int):
+    """E2 through the pyramid runner on a 2-entry mesh (each 72-tile stack
+    split into two shares of 36, each in 8-tile chunks) against the
+    single-device runner, MD_BURSTS bursts of 8 704² frames per dtype: at
+    most 1 level on at most 0.1 % of pixels (E2's f32 limit), MP/s."""
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.eval.tiled import make_tiled_pyramid_runner_frames
+    from image_denoising_tpu_torch.models import ImprovedUNet, make_forward
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+
+    torch.manual_seed(seed + 71)
+    model = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).eval()
+    rng = np.random.default_rng(seed + 72)
+    bursts = [rng.integers(0, 256, (B, FRAME, FRAME)).astype(np.uint8)
+              for _ in range(MD_BURSTS)]
+    mesh = mesh_of(split)
+    share_chunks = _share_chunks(B * 9, split)
+    mp = MD_BURSTS * B * FRAME * FRAME / 1e6
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        runs = {}
+        for name, m in (("single", None), ("mesh", mesh)):
+            fwd = make_forward(model, device="cuda", dtype=dt, mesh=m)
+            run = make_tiled_pyramid_runner_frames(
+                fwd, B, FRAME, FRAME, TILE, OVERLAP, batch=-B, out_dtype="uint8_floor",
+                device="cuda", mesh=m)
+            run_bursts(run, bursts[:1])  # warm-up
+            fused_rdb_chain.launches = 0
+            preds, sec = run_bursts(run, bursts)
+            runs[name] = (preds, sec, fused_rdb_chain.launches)
+        (p1, s1, l1), (pm, sm, lm) = runs["single"], runs["mesh"]
+        want = 9 * split * share_chunks * MD_BURSTS
+        if lm != want:
+            raise AssertionError(f"E2 mesh {dname}: {lm} chain launches, want {want}")
+        diff = level_diff(pm, p1)
+        if not (diff["max_level_diff"] <= 1 and diff["frac_pixels_diff"] <= 1e-3):
+            raise AssertionError(f"E2 mesh {dname}: {diff} from the single-device run")
+        out[dname] = dict(launches=lm, single_launches=l1, seconds=sm, mps=mp / sm,
+                          single_mps=mp / s1, bit_equal=bool(np.array_equal(pm, p1)),
+                          **diff)
+        log(f"[multidevice] E2 {dname:8s} on a {split}-entry mesh, {MD_BURSTS} "
+            f"bursts of {B}x{FRAME}^2: {mp / sm:.4f} MP/s (one device {mp / s1:.4f}); "
+            f"{lm} chain launches ({l1} on one device); against one device: max "
+            f"{diff['max_level_diff']} levels on {diff['frac_pixels_diff']:.3e} of "
+            f"pixels, bit-equal {out[dname]['bit_equal']}")
+    return out
+
+
+def _md_e6(seed: int, bank, model, adapter, mesh_of, split: int):
+    """E6 with the int8/uint8 bank sharded over 2 and each 400-tile stack
+    split over 2: 1 burst of 4 frames, the hoisted retrieval's patches and
+    the output equal to the single-device hoisted run's; 2 retrieval
+    launches a burst."""
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.adapters import DenoiserWithMemoryAdapter
+    from image_denoising_tpu_torch.cli.evaluation_704_iqsl_memory import (
+        make_memory_mesh_call, make_memory_model_call)
+    from image_denoising_tpu_torch.eval import tiled
+    from image_denoising_tpu_torch.memory import make_ring_retrieval, shard_bank
+    from image_denoising_tpu_torch.memory.retrieval import top1_l2_retrieval
+    from image_denoising_tpu_torch.models import make_forward
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+
+    _, _, bursts = e6_frames(seed)
+    frames = bursts[1]
+    mesh = mesh_of(split)
+    grid = tiled.edge_aligned_grid(FRAME, FRAME, E6_TILE, OVERLAP)
+    f = torch.from_numpy(frames).to("cuda").float() / 255.0
+    tiles = torch.stack([f[:, r : r + E6_TILE, c : c + E6_TILE] for r, c in grid],
+                        1).reshape(E6_TILES, 1, E6_TILE, E6_TILE)
+
+    def runner(call, pre, m):
+        return tiled.make_tiled_hann_runner_frames(
+            call, E6_BURST, FRAME, FRAME, ps=E6_TILE, overlap=OVERLAP, batch=-B,
+            out_dtype="uint8_round", pre_tile_fn=pre, device="cuda", mesh=m)
+
+    fwd = make_forward(model, device="cuda")
+    call1, pre1 = make_memory_model_call(DenoiserWithMemoryAdapter(fwd, adapter), bank)
+    run1 = runner(call1, pre1, None)
+    run_bursts(run1, [frames])
+    sb = shard_bank(bank, mesh)
+    wrapper = DenoiserWithMemoryAdapter(make_forward(model, device="cuda", mesh=mesh),
+                                        adapter, make_ring_retrieval(mesh))
+    callm, prem = make_memory_mesh_call(wrapper, sb, mesh)
+    runm = runner(callm, prem, mesh)
+    run_bursts(runm, [frames])  # warm-up
+    with torch.inference_mode():
+        same_patches = torch.equal(pre1(tiles), prem(tiles))
+    p1, s1 = run_bursts(run1, [frames])
+    fused_rdb_chain.launches = 0
+    top1_l2_retrieval.launches = 0
+    pm, sm = run_bursts(runm, [frames])
+    launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
+                    top1_l2_retrieval=top1_l2_retrieval.launches)
+    share_chunks = _share_chunks(E6_TILES, split)
+    want = dict(fused_rdb_chain=9 * split * share_chunks, top1_l2_retrieval=split)
+    if launches != want:
+        raise AssertionError(f"E6 sharded: launches {launches}, want {want}")
+    same = bool(np.array_equal(pm, p1))
+    if not (same and same_patches):
+        raise AssertionError(f"E6 sharded: patches equal {same_patches}, output equal "
+                             f"{same} to the single-device hoisted run")
+    mp = E6_BURST * FRAME * FRAME / 1e6
+    log(f"[multidevice] E6 float32, bank sharded over {split} ({sb.n_local} rows a "
+        f"shard) and tiles split over {split}, 1 burst of {E6_BURST}x{FRAME}^2: "
+        f"{mp / sm:.4f} MP/s (one device {mp / s1:.4f}); retrieved patches and output "
+        f"equal to the single-device run's; launches {launches}")
+    return dict(launches=launches, seconds=sm, mps=mp / sm, single_mps=mp / s1,
+                same_patches=same_patches, same_output=same)
+
+
+def _md_steps(clean, noisy, make_step, step_args, counters):
+    """2 warm-up and 10 timed steps of ``make_step()`` (batch i: ``clean[i]``,
+    ``noisy[i]`` where they are lists, then ``step_args(i)``), the timed ones under
+    set_sync_debug_mode("error"), losses fetched one step late: (losses,
+    ms/step, the counters' launches in the 12 steps)."""
+    import numpy as np
+    import torch
+
+    step = make_step()
+    for c in counters:
+        c.launches = 0
+    losses, pending = [], None
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if i >= TRAIN_WARMUP else 0)
+        try:
+            m = step(clean[i] if isinstance(clean, list) else clean,
+                     noisy[i] if isinstance(noisy, list) else noisy, *step_args(i))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if pending is not None:
+            losses.append(float(pending["loss"]))
+        pending = m
+    losses.append(float(pending["loss"]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    return losses, ms, [c.launches for c in counters]
+
+
+def _md_train(seed: int, bank, mesh_of, split: int):
+    """The data-parallel steps, 12 each, against the single-device steps,
+    each also by its first step's loss and gradient: the structure step
+    (f32) on a 2-entry mesh and on a 3-entry one, both at batch 4; the N2N
+    step on a 2-entry mesh (one sub-sampler launch a step); the memory
+    finetune step with the int8 bank sharded over 2 (the batch whole;
+    retrieved indices equal to the unsharded bank's)."""
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.adapters import (DenoiserWithMemoryAdapter,
+                                                    build_memory_adapter,
+                                                    select_memory_patch)
+    from image_denoising_tpu_torch.memory import (MemoryBank, make_ring_retrieval,
+                                                  shard_bank)
+    from image_denoising_tpu_torch.memory.retrieval import top1_l2_retrieval
+    from image_denoising_tpu_torch.models import ImprovedUNet, make_forward
+    from image_denoising_tpu_torch.ops import AugmentNoise, OperationSeed
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair_fused
+    from image_denoising_tpu_torch.train import (create_train_state,
+                                                 make_memory_finetune_step,
+                                                 make_n2n_train_step,
+                                                 make_structure_train_step)
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    def first_step(make_model, make_step, batch, mesh):
+        """One step from the same weights on the same batch: (loss, the
+        gradient of every parameter, flattened)."""
+        model = make_model()
+        m = make_step(model, mesh)(*batch)
+        loss = float(m["loss"])
+        return loss, torch.cat([p.grad.flatten() for p in model.parameters()])
+
+    def check_first_step(what, make_model, make_step, batch, k):
+        """The data-parallel step's first loss and gradient against one
+        device's: the loss within 1e-5 relative (cuDNN sums a chunk's convs
+        in another order than the batch's), the gradient within
+        TRAIN_LOSS_RTOL of its largest entry."""
+        loss1, g1 = first_step(make_model, make_step, batch, None)
+        lossk, gk = first_step(make_model, make_step, batch, mesh_of(k))
+        loss_rel = abs(lossk - loss1) / abs(loss1)
+        grad_rel = float((gk - g1).abs().max() / g1.abs().max())
+        log(f"[multidevice] {what} on a {k}-entry mesh, first step from the same "
+            f"weights: loss {lossk:.8f} against {loss1:.8f} ({loss_rel:.3g} relative, "
+            f"limit 1e-5), gradient within {grad_rel:.3g} of its largest entry (limit "
+            f"{TRAIN_LOSS_RTOL})")
+        if not (loss_rel <= 1e-5 and grad_rel <= TRAIN_LOSS_RTOL):
+            raise AssertionError(f"{what} k={k}: first step {loss_rel}, {grad_rel}")
+        return dict(first_loss_rel=loss_rel, first_grad_rel=grad_rel)
+
+    # [structure]'s f32 configuration (its seeded weights and batch), where
+    # the two-forward step's 12 losses meet TRAIN_LOSS_RTOL: Adam's first
+    # steps move every parameter by about lr, whatever its gradient's size,
+    # so rounding-level differences part the trajectories at a rate that
+    # depends on the weights and the batch
+    out = {}
+    torch.manual_seed(seed)
+    init = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).state_dict()
+    clean, noisy = struct_pair(seed)
+
+    def make_model():
+        model = ImprovedUNet(1, 1, NF)
+        model.load_state_dict(init)
+        return model.to("cuda")
+
+    def make_structure(model, mesh):
+        return make_structure_train_step(model, create_train_state(model, lr=3e-4),
+                                         mesh=mesh)
+
+    def structure(mesh):
+        return _md_steps(clean, noisy, lambda: make_structure(make_model(), mesh),
+                         lambda i: (), (fused_rdb_chain,))
+
+    ref, ref_ms, _ = structure(None)
+    mp = TRAIN_B * TRAIN_FRAME ** 2 / 1e6
+    for k in (split, MD_UNEVEN):
+        first = check_first_step("structure step f32", make_model, make_structure,
+                                 (clean, noisy), k)
+        losses, ms, (chain,) = structure(mesh_of(k))
+        r = rel(losses, ref)
+        out[f"structure_k{k}"] = dict(losses=losses, single_losses=ref, ms=ms,
+                                      mps=mp / ms * 1e3, single_ms=ref_ms,
+                                      max_rel_loss_diff=r, **first)
+        log(f"[multidevice] structure step f32 on a {k}-entry mesh, batch {TRAIN_B}x"
+            f"{TRAIN_FRAME}^2: {ms:.2f} ms/step (one device {ref_ms:.2f}); 12 losses "
+            f"within {r:.3g} relative of one device's (limit {TRAIN_LOSS_RTOL}); timed "
+            f"steps under set_sync_debug_mode('error'); chain launches {chain}")
+        if not r <= TRAIN_LOSS_RTOL or chain:
+            raise AssertionError(f"structure k={k}: losses {r} apart, {chain} chain launches")
+
+    # [train]'s N2N configuration: its seeded weights, frames and step seeds
+    torch.manual_seed(seed)
+    init = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).state_dict()
+    frames = n2n_frames(seed, TRAIN_B)[..., None].astype(np.float32)
+    aug = AugmentNoise("gauss25")
+
+    def make_n2n(model, mesh, seeds=None):
+        seeds = seeds or OperationSeed(seed)
+        step = make_n2n_train_step(model, create_train_state(model, lr=3e-4),
+                                   noise_fn=aug.add_train_noise, increase_ratio=2.0,
+                                   n_epoch=TRAIN_EPOCHS, mesh=mesh)
+        return lambda c, nz: step(c, nz, seeds.next(), 1)
+
+    def n2n(mesh):
+        return _md_steps(frames, frames, lambda: make_n2n(make_model(), mesh),
+                         lambda i: (), (subsample_pair_fused,))
+
+    first = check_first_step("N2N step", make_model, make_n2n, (frames, frames), split)
+    ref, ref_ms, (ref_sub,) = n2n(None)
+    losses, ms, (sub,) = n2n(mesh_of(split))
+    r = rel(losses, ref)
+    out["n2n"] = dict(losses=losses, single_losses=ref, ms=ms, single_ms=ref_ms,
+                      launches=sub, max_rel_loss_diff=r, **first)
+    log(f"[multidevice] N2N step on a {split}-entry mesh, batch {TRAIN_B}x"
+        f"{TRAIN_FRAME}^2: {ms:.2f} ms/step (one device {ref_ms:.2f}); sub-sampler "
+        f"launches {sub} in {TRAIN_WARMUP + TRAIN_STEPS} steps; losses within {r:.3g} "
+        f"relative (limit {TRAIN_LOSS_RTOL})")
+    if sub != TRAIN_WARMUP + TRAIN_STEPS or ref_sub != sub or not r <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"N2N mesh: {sub} launches, losses {r} apart")
+
+    # the memory finetune step with the int8 bank sharded over 2
+    torch.manual_seed(seed + 75)
+    base = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).eval()
+    fwd = make_forward(base, device="cuda")
+    rng = np.random.default_rng(seed + 75)
+    cf, nf_, _ = e6_frames(seed)
+    batches = []
+    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+        pick = rng.integers(0, E6_PAIRS, FT_B)
+        ys, xs = rng.integers(0, FRAME - E6_TILE, (2, FT_B))
+        cl = np.stack([cf[p][y : y + E6_TILE, x : x + E6_TILE] for p, y, x in zip(pick, ys, xs)])
+        nz = np.stack([nf_[p][y : y + E6_TILE, x : x + E6_TILE] for p, y, x in zip(pick, ys, xs)])
+        batches.append(((cl[..., None] / np.float32(255)).astype(np.float32),
+                        (nz[..., None] / np.float32(255)).astype(np.float32)))
+    mesh = mesh_of(split)
+    sharded = shard_bank(bank, mesh)
+    cfg = {"t1": 0.3, "t2": 0.7, "tau": 0.1, "margin": 0.0, "ce_factor": 0.5}
+
+    def finetune(banks, retrieval_fn):
+        def make():
+            torch.manual_seed(seed + 76)
+            adapter = build_memory_adapter("hyper_gated_fft", 1, E6_HIDDEN).to("cuda")
+            return make_memory_finetune_step(
+                DenoiserWithMemoryAdapter(fwd, adapter, retrieval_fn),
+                create_train_state(adapter, lr=FT_LR), lambda_grad=FT_LAMBDA,
+                lambda_iqsl=FT_LAMBDA, iqsl_cfg=cfg)
+        return _md_steps([c for c, _ in batches], [nz for _, nz in batches], make,
+                         lambda i: (banks.noise_flat, banks.clean, banks.sq_norms),
+                         (top1_l2_retrieval, fused_rdb_chain))
+
+    ref, ref_ms, ref_launches = finetune(bank, None)
+    losses, ms, (top1, chain) = finetune(sharded, make_ring_retrieval(mesh, queries_sharded=False))
+    r = rel(losses, ref)
+    # the indices themselves: the bank with each row's index as its patch
+    rows = torch.arange(bank.size, dtype=torch.int32, device="cuda").reshape(-1, 1, 1, 1)
+    by_row = MemoryBank(bank.noise_flat, rows, bank.sq_norms, E6_TILE, E6_STRIDE)
+    sharded_rows = shard_bank(by_row, mesh)
+    ring = make_ring_retrieval(mesh, queries_sharded=False)
+    differ = 0
+    for _, nz in batches:
+        q = torch.from_numpy(nz).to("cuda")
+        differ += int((ring(q, sharded_rows.noise_flat, sharded_rows.clean,
+                            sharded_rows.sq_norms)
+                       != select_memory_patch(q, by_row.noise_flat, by_row.clean,
+                                              by_row.sq_norms)).sum())
+    out["finetune_sharded"] = dict(losses=losses, ms=ms, single_ms=ref_ms,
+                                   launches=dict(top1_l2_retrieval=top1,
+                                                 fused_rdb_chain=chain),
+                                   max_rel_loss_diff=r, differing_indices=differ)
+    log(f"[multidevice] memory finetune step, int8 bank sharded over {split}, batch "
+        f"{FT_B}x{E6_TILE}^2 whole: {ms:.2f} ms/step (one bank {ref_ms:.2f}); losses "
+        f"within {r:.3g} relative (limit {TRAIN_LOSS_RTOL}); {differ} of "
+        f"{FT_B * len(batches)} retrieved indices differ; launches in 12 steps: "
+        f"retrieval {top1} (one bank {ref_launches[0]}), chain {chain}")
+    if (differ or not r <= TRAIN_LOSS_RTOL
+            or top1 != split * (TRAIN_WARMUP + TRAIN_STEPS)):
+        raise AssertionError(f"finetune sharded: {differ} indices, losses {r} apart, "
+                             f"{top1} retrieval launches")
+    return out
+
+
+def _md_clis(seed: int):
+    """The CLIs over ``make_mesh()`` (every visible card) with
+    and without the flags: train --parallel (2 steps, losses within
+    TRAIN_LOSS_RTOL), evaluation_704 --parallel, evaluation_704_iqsl_memory
+    --parallel --bank_sharded and denoise --parallel on 5 frames (the same
+    PNGs), finetune_memory --bank_sharded for 1 epoch (the same epoch mean
+    L1 within TRAIN_LOSS_RTOL); on one card the same launches too."""
+    import re
+    import tempfile
+
+    import torch
+
+    from image_denoising_tpu_torch.adapters import build_memory_adapter
+    from image_denoising_tpu_torch.ckpt import save_checkpoint
+    from image_denoising_tpu_torch.cli import (denoise, evaluation_704,
+                                               evaluation_704_iqsl_memory,
+                                               finetune_memory, train)
+    from image_denoising_tpu_torch.models import ImprovedUNet
+
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        clean, noise = serving_frames(seed + 77, MD_CLI_FRAMES)
+        data = os.path.join(tmp, "data")
+        _write_pairs(data, clean, noise)
+        torch.manual_seed(seed + 77)
+        base = save_checkpoint(ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF),
+                               os.path.join(tmp, "base"), "model", 1)
+        adapter = save_checkpoint(build_memory_adapter("hyper_gated_fft", 1, E6_HIDDEN),
+                                  os.path.join(tmp, "adapter"), "adapter_only", 1)
+        train_line = re.compile(r"Loss1=(\d+\.\d+), Loss_Full=(\d+\.\d+)")
+        l1_line = re.compile(r"End of epoch 1, mean L1=(\d+\.\d+)")
+        nf = ["--n_feature", str(NF)]
+        tiles = ["--tile", str(TILE), "--overlap", str(OVERLAP)]
+        mem = ["--patch_size", str(E6_TILE), "--adapter_hidden", str(E6_HIDDEN),
+               "--memory_stride", str(MD_CLI_STRIDE)]
+        cases = {
+            "train": (train.main, nf + ["--data_dir", data, "--arch", "UNetImproved",
+                                        "--batchsize", "2", "--n_epoch", "1",
+                                        "--max_steps_per_epoch", "2"],
+                      ["--parallel"], "save_model_path", train_line),
+            "evaluation_704": (evaluation_704.main,
+                               nf + tiles + ["--data_dir", data, "--checkpoint", base],
+                               ["--parallel"], "save_dir", None),
+            "evaluation_704_iqsl_memory": (
+                evaluation_704_iqsl_memory.main,
+                nf + mem + ["--data_dir", data, "--base_ckpt", base, "--adapter_ckpt",
+                            adapter, "--overlap", str(OVERLAP), "--bank_dtype", "int8",
+                            "--clean_bank_dtype", "uint8"],
+                ["--parallel", "--bank_sharded"], "save_dir", None),
+            "denoise": (denoise.main, nf + tiles + ["--input_dir", os.path.join(data, "noise"),
+                                                    "--checkpoint", base],
+                        ["--parallel"], "save_dir", None),
+            "finetune_memory": (finetune_memory.main,
+                                nf + mem + ["--data_dir", data, "--pretrained_ckpt", base,
+                                            "--patches_per_image", "2", "--n_epoch", "1"],
+                                ["--bank_sharded"], "save_model_path", l1_line),
+        }
+        for name, (main, args, flags, where, line) in cases.items():
+            runs = {}
+            for tag, extra in (("without", []), ("with", flags)):
+                target = os.path.join(tmp, f"{name}_{tag}")
+                runs[tag] = run_cli(main, args + extra + [f"--{where}", target])
+                runs[tag]["dir"] = target
+            a, b = runs["with"], runs["without"]
+            if line is None:
+                same = _same_files(a["dir"], b["dir"])
+                agree = f"the same {len(os.listdir(a['dir']))} files: {same}"
+            else:
+                va = [float(x) for m in line.findall(a["stdout"]) for x in
+                      (m if isinstance(m, tuple) else (m,))]
+                vb = [float(x) for m in line.findall(b["stdout"]) for x in
+                      (m if isinstance(m, tuple) else (m,))]
+                r = max(abs(x - y) / abs(y) for x, y in zip(va, vb)) if vb else float("nan")
+                same = bool(vb) and len(va) == len(vb) and r <= TRAIN_LOSS_RTOL
+                agree = f"{len(va)} logged losses within {r:.3g} relative"
+            out[name] = dict(flags=flags, seconds=a["seconds"],
+                             seconds_without=b["seconds"], launches=a["launches"],
+                             launches_without=b["launches"], same_output=same)
+            log(f"[multidevice] {name} {' '.join(flags)} on make_mesh() "
+                f"({torch.cuda.device_count()} card): {a['seconds']:.2f} s (without "
+                f"{b['seconds']:.2f} s); {agree}; launches {a['launches']} (without "
+                f"{b['launches']})")
+            # over several cards a tile stack is padded to a multiple of
+            # them, which adds launches; over one card the runs are the same
+            if not same or (torch.cuda.device_count() == 1
+                            and a["launches"] != b["launches"]):
+                raise AssertionError(f"{name} {flags}: output or launches differ from "
+                                     "the run without the flags")
+    return out
+
+
+def multidevice_cards(seed: int) -> int:
+    """``--multidevice-cards``: the [multidevice] phase with each mesh made
+    of the machine's first k cards (``make_mesh(devices=["cuda:0", ...,
+    "cuda:{k-1}"])``) in place of one card repeated, E2, E6 and the
+    data-parallel steps split over MD_CARDS cards and the CLIs over every
+    card: the same checks, with peer copies and the cards running at once.
+    Prints each card's name and power limit, the phase's lines and one JSON
+    line of its numbers; 1 where there are fewer than MD_CARDS cards."""
+    import torch
+
+    from image_denoising_tpu_torch.ops import _build
+    from image_denoising_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    if n < MD_CARDS:
+        print(f"chip_smoke: --multidevice-cards needs {MD_CARDS} CUDA cards, found {n}",
+              file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    for i, line in enumerate(smi):
+        log(f"[cards] cuda:{i} {line}")
+    log(f"[cards] {n} cards; cuda:0 reaches the others by peer access: "
+        f"{[torch.cuda.can_device_access_peer(0, i) for i in range(1, n)]}")
+    t0 = time.perf_counter()
+    sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
+    out = phase_multidevice(
+        seed, mesh_of=lambda k: make_mesh(devices=[f"cuda:{i}" for i in range(k)]),
+        split=MD_CARDS)
+    log(json.dumps({"cards": smi, "multidevice": out}, default=str))
+    return 0
+
+
+def multidevice_launches(multi):
+    """[multidevice]'s launches of each kernel, by the kernels line's
+    entries: chain by compute dtype, retrieval by bank dtype."""
+    cli = multi["cli"]
+    chain = {"float32": multi["e2"]["float32"]["launches"]
+             + multi["e6"]["launches"]["fused_rdb_chain"]
+             + multi["train"]["finetune_sharded"]["launches"]["fused_rdb_chain"]
+             + sum(cli[k]["launches"]["fused_rdb_chain"] for k in
+                   ("evaluation_704", "evaluation_704_iqsl_memory", "finetune_memory")),
+             "bfloat16": multi["e2"]["bfloat16"]["launches"]
+             + cli["denoise"]["launches"]["fused_rdb_chain"]}
+    top1 = {d: sum(r["launches"] for r in multi["retrieval"][d].values())
+            for d in multi["retrieval"]}
+    top1["int8"] += (multi["e6"]["launches"]["top1_l2_retrieval"]
+                     + multi["train"]["finetune_sharded"]["launches"]["top1_l2_retrieval"]
+                     + cli["evaluation_704_iqsl_memory"]["launches"]["top1_l2_retrieval"])
+    top1["float32"] += cli["finetune_memory"]["launches"]["top1_l2_retrieval"]
+    return dict(fused_rdb_chain=chain, top1_l2_retrieval=top1,
+                subsample_pair=multi["train"]["n2n"]["launches"])
+
+
+def phase_multidevice(seed: int, mesh_of=_md_mesh, split: int = MD_MESH):
+    """Every multi-device path: the sharded retrieval over 2 and 4 shards,
+    E2 and E6 with their tile stacks split over ``split`` (E6 with the
+    sharded bank), the data-parallel steps over ``split`` and 3 and the
+    CLIs' flags. ``mesh_of(k)`` gives a mesh of k entries: the one card
+    repeated (``_md_mesh``), or k distinct cards (``multidevice_cards``)."""
+    import torch
+
+    from image_denoising_tpu_torch.adapters import build_memory_adapter
+    from image_denoising_tpu_torch.memory import build_memory_bank_from_frames
+    from image_denoising_tpu_torch.models import ImprovedUNet
+
+    t0 = time.perf_counter()
+    out = dict(retrieval=_md_retrieval(seed, mesh_of), e2=_md_e2(seed, mesh_of, split))
+    clean, noise, _ = e6_frames(seed)
+    bank = build_memory_bank_from_frames(clean, noise, E6_TILE, E6_STRIDE,
+                                         bank_dtype="int8", clean_dtype="uint8",
+                                         device="cuda")
+    torch.manual_seed(seed)
+    model = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).eval()
+    adapter = build_memory_adapter("hyper_gated_fft", 1, E6_HIDDEN)
+    with torch.no_grad():  # every weight non-zero, as in [memory]
+        for p in adapter.parameters():
+            fan_in = p[0].numel() if p.dim() > 1 else 16
+            p.uniform_(-fan_in ** -0.5, fan_in ** -0.5)
+    adapter = adapter.to("cuda").eval()
+    out["e6"] = _md_e6(seed, bank, model, adapter, mesh_of, split)
+    out["train"] = _md_train(seed, bank, mesh_of, split)
+    del bank
+    torch.cuda.empty_cache()
+    out["cli"] = _md_clis(seed)
+    out["phase_seconds"] = time.perf_counter() - t0
+    one = len(mesh_of(2).distinct()) == 1
+    log(f"[multidevice] the phase: {out['phase_seconds']:.2f} s. "
+        + ("Each mesh repeats one card: the copies between devices are no-ops; peer "
+           "copies, concurrency across cards and scaling are not measured here"
+           if one else "Each mesh is distinct cards"))
+    return out
+
+
 def _preds(out):
     """A runner's predictions: the pyramid engine returns (preds, L1)."""
     return out[0] if isinstance(out, tuple) else out
@@ -2828,6 +3489,9 @@ def main(argv=None) -> int:
                     help="only time the sub-sampler kernel of the port in CHECKOUT "
                          "(with L2 flushed and in L2, at N=4 352^2) and print one JSON "
                          "line, to compare two checkouts on one card")
+    ap.add_argument("--multidevice-cards", action="store_true",
+                    help="only run the [multidevice] phase on the machine's first "
+                         f"{MD_CARDS} distinct cards (a machine with {MD_CARDS} or more)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2848,6 +3512,8 @@ def main(argv=None) -> int:
                          matmul=torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.multidevice_cards:
+        return multidevice_cards(args.seed)
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2894,8 +3560,10 @@ def main(argv=None) -> int:
         fine = phase_finetune(args.seed, keep)
         serving = phase_serving(args.seed, fine["kept"])
         networks = phase_networks(args.seed, fine["kept"])
+    multi = phase_multidevice(args.seed)
     ft_launches = {k: fine["float32"]["launches"][k] + fine["int8"]["launches"][k]
                    for k in ("fused_rdb_chain", "top1_l2_retrieval")}
+    md = multidevice_launches(multi)
 
     summary = []
     for dname, rows in chain_e2.items():
@@ -2906,12 +3574,13 @@ def main(argv=None) -> int:
             launches=main_path[dname]["launches"]
             + memory[dname]["launches"]["fused_rdb_chain"]
             + (ft_launches["fused_rdb_chain"] if dname == "float32" else 0)
-            + serving["launches"][dname],
+            + serving["launches"][dname] + md["fused_rdb_chain"][dname],
             launches_by_path={"E2": main_path[dname]["launches"],
                               "E6": memory[dname]["launches"]["fused_rdb_chain"],
                               "finetune": (ft_launches["fused_rdb_chain"]
                                            if dname == "float32" else 0),
-                              "serving": serving["launches"][dname]},
+                              "serving": serving["launches"][dname],
+                              "multidevice": md["fused_rdb_chain"][dname]},
             max_abs_err=max(r["max_abs_err"] for r in rows + e6_rows),
             ms=sum(r["ms"] for r in rows),
             plain_ms=sum(r["plain_ms"] for r in rows),
@@ -2937,7 +3606,8 @@ def main(argv=None) -> int:
                    if dname in fine else 0,
                    "serving": serving["launches"]["int8"] if dname == "int8" else 0,
                    "E6 UNet base": networks["cli"]["e6"]["launches"]["top1_l2_retrieval"]
-                   if dname == "int8" else 0}
+                   if dname == "int8" else 0,
+                   "multidevice": md["top1_l2_retrieval"].get(dname, 0)}
         summary.append(dict(
             name="top1_l2_retrieval", dtype=dname, route="cuda", design=ROUTES[dname][0],
             source=TOP1_SOURCE, replaces=TOP1_REPLACES, launches=sum(by_path.values()),
@@ -2947,7 +3617,10 @@ def main(argv=None) -> int:
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
             bound_by=big["bound_by"], library_ms=big["library_ms"],
             b8={k: small[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-            b4={k: ft[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}))
+            b4={k: ft[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            sharded={k: {f: r[f] for f in ("ms", "unsharded_ms", "launches",
+                                            "differing_indices")}
+                     for k, r in multi["retrieval"].get(dname, {}).items()}))
     sub = subsample[f"n{TRAIN_B}_c1_{TRAIN_FRAME}x{TRAIN_FRAME}_float32"]
     sub704 = subsample[f"n{TRAIN_B}_c1_{FRAME}x{FRAME}_float32"]
     n2n_unet = networks["train"]["n2n_unet"]["launches"]
@@ -2955,9 +3628,9 @@ def main(argv=None) -> int:
         name="subsample_pair", dtype="float32", route="cuda",
         design="4 cells a thread, 16-byte vectors, exact grid (CUDA cores)",
         source=SUB_SOURCE,
-        replaces=SUB_REPLACES, launches=train["launches"],
+        replaces=SUB_REPLACES, launches=train["launches"] + md["subsample_pair"],
         launches_by_path={"N2N train": train["launches"], "train CLI": train_cli["launches"],
-                          "N2N UNet 704^2": n2n_unet},
+                          "N2N UNet 704^2": n2n_unet, "multidevice": md["subsample_pair"]},
         max_abs_err=max(r["max_abs_err"] for r in subsample.values()),
         ms=sub["ms"], plain_ms=sub["plain_ms"], bound_ms=sub["bound_ms"],
         bound_by=sub["bound_by"], library_ms=None, wrapper_ms=sub["wrapper_ms"],
@@ -2976,7 +3649,7 @@ def main(argv=None) -> int:
                                     top1=top1, subsample=subsample, launch_floor=floor),
                        main=main_path, memory=memory, train=train, train_cli=train_cli,
                        structure=structure, hpo=hpo, finetune=fine, serving=serving,
-                       networks=networks, summary=summary),
+                       networks=networks, multidevice=multi, summary=summary),
                   f, indent=1)
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
         f"of one {B}-tile E2 chunk (e6: of one E6 chunk); design is the route "
@@ -3000,7 +3673,10 @@ def main(argv=None) -> int:
         "shape, with the launches of [networks]' 12 N2N steps of UNet-48; "
         "launches_by_path[serving]: the [serving] CLI "
         "runs (chain float32 / bfloat16 by the runs' compute dtype; retrieval: E6's "
-        "int8 bank)")
+        "int8 bank); launches_by_path[multidevice]: [multidevice]'s paths on meshes "
+        "of the one card (E2 and E6 split, the sharded retrieval's first call per "
+        "shard count and batch, the data-parallel steps, the CLIs with their flags); "
+        "sharded: ms per sharded retrieval call by shard count and batch")
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

@@ -19,13 +19,14 @@ CUDA kernel on the card (in every bank regime), its plain version on the CPU.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..memory.retrieval import top1_l2_retrieval
+from ..memory.retrieval import retrieval_queries, top1_l2_retrieval
+from ..parallel.mesh import module_on
 
 __all__ = [
     "DenoiserWithAdapter",
@@ -72,41 +73,40 @@ def select_memory_patch(noisy, memory_noise_flat, memory_clean, sq_norms=None):
     (D = P·P·C); memory_clean: [N, P, P, C]. Returns [B, P, P, C] float32.
 
     An int8 bank takes centered-int8 queries ``round(x·255) − 128``
-    (``torch.round`` rounds half to even, as ``jnp.round`` does): for
-    uint8-sourced tiles the distances are then exact integers.
+    (``memory/retrieval.py::retrieval_queries``): for uint8-sourced tiles
+    the distances are then exact integers.
     """
-    b = noisy.shape[0]
-    flat = noisy.detach().reshape(b, -1)
-    if memory_noise_flat.dtype == torch.int8:
-        q = (torch.round(flat * 255.0) - 128.0).to(torch.int8)
-        if sq_norms is None:
-            bi = memory_noise_flat.int()
-            sq_norms = (bi * bi).sum(dim=1, dtype=torch.int32)
-    else:
-        q = flat
-        if sq_norms is None:
-            sq_norms = (memory_noise_flat.float() ** 2).sum(dim=1)
+    q, sq_norms = retrieval_queries(noisy, memory_noise_flat.dtype, sq_norms,
+                                    memory_noise_flat)
     idx = top1_l2_retrieval(q, memory_noise_flat, sq_norms)
     return _clean01(memory_clean[idx.long()])
 
 
 def batched_select_memory_patch(noisy, memory_noise_flat, memory_clean,
-                                sq_norms=None, chunk: int = 128):
+                                sq_norms=None, chunk: int = 128,
+                                retrieval_fn: Optional[Callable] = None):
     """One retrieval pass over a whole tile stack in chunks of ``chunk``
     queries, the tail chunk zero-padded (the hoisted retrieval of the tiled
-    evaluators). Each query's result does not depend on the chunking."""
+    evaluators). Each query's result does not depend on the chunking.
+    ``retrieval_fn`` (default ``select_memory_patch``) retrieves each chunk:
+    ``memory/sharded.py::make_ring_retrieval`` over a sharded bank."""
+    select = retrieval_fn or select_memory_patch
     t = noisy.shape[0]
     if t <= chunk:
-        return select_memory_patch(noisy, memory_noise_flat, memory_clean,
-                                   sq_norms)
+        return select(noisy, memory_noise_flat, memory_clean, sq_norms)
     pad = (-t) % chunk
     q = noisy
     if pad:
         q = torch.cat([q, q.new_zeros((pad,) + tuple(q.shape[1:]))])
-    mem = [select_memory_patch(q[s : s + chunk], memory_noise_flat,
-                               memory_clean, sq_norms)
+    mem = [select(q[s : s + chunk], memory_noise_flat, memory_clean, sq_norms)
            for s in range(0, q.shape[0], chunk)]
     return torch.cat(mem)[:t]
+
+
+def _base_on(base_forward, device):
+    """The base's forward for one device: a ``parallel.PerDevice`` base's
+    copy there, any other callable as it is."""
+    return base_forward.on(device) if hasattr(base_forward, "on") else base_forward
 
 
 class DenoiserWithAdapter(nn.Module):
@@ -120,6 +120,16 @@ class DenoiserWithAdapter(nn.Module):
     def forward(self, x):
         return self.adapter(x, _frozen_base(self.base_forward, x))
 
+    def replica(self, device):
+        """This wrapper on one device of a mesh: the base's forward there and
+        ``parallel.module_on(adapter, device)`` (differentiable); itself
+        where nothing would change. Build it anew each step."""
+        base = _base_on(self.base_forward, device)
+        adapter = module_on(self.adapter, device)
+        if base is self.base_forward and adapter is self.adapter:
+            return self
+        return type(self)(base, adapter).train(self.training)
+
 
 class DenoiserWithMemoryAdapter(nn.Module):
     """Frozen base + memory adapter over NCHW tiles.
@@ -130,12 +140,24 @@ class DenoiserWithMemoryAdapter(nn.Module):
     the tiled evaluator, which retrieves once per tile stack. In a training
     step the batch (any size: a tail batch of 1–3 patches too) retrieves
     inside the forward, one kernel launch per step on the card.
+    ``retrieval_fn`` (default ``select_memory_patch``) takes the place of
+    the retrieval, as in the JAX wrapper: ``memory/sharded.py::
+    make_ring_retrieval`` over a ``shard_bank`` bank (one launch per shard).
     """
 
-    def __init__(self, base_forward: Callable, adapter: nn.Module):
+    def __init__(self, base_forward: Callable, adapter: nn.Module,
+                 retrieval_fn: Optional[Callable] = None):
         super().__init__()
         self.base_forward = base_forward
         self.adapter = adapter
+        self.retrieval_fn = retrieval_fn
+
+    def retrieve(self, noisy, memory_noise_flat, memory_clean, bank_sq_norms=None):
+        """The retrieved clean patches of NCHW ``noisy``, NCHW float32."""
+        select = self.retrieval_fn or select_memory_patch
+        mem = select(noisy.permute(0, 2, 3, 1), memory_noise_flat, memory_clean,
+                     bank_sq_norms)
+        return mem.permute(0, 3, 1, 2)
 
     def forward(self, noisy, memory_noise_flat=None, memory_clean=None,
                 bank_sq_norms=None, mem_clean=None):
@@ -144,8 +166,14 @@ class DenoiserWithMemoryAdapter(nn.Module):
             if memory_noise_flat is None or memory_clean is None:
                 raise ValueError("pass the bank (memory_noise_flat, "
                                  "memory_clean) or mem_clean")
-            mem = select_memory_patch(noisy.permute(0, 2, 3, 1),
-                                      memory_noise_flat, memory_clean,
+            mem_clean = self.retrieve(noisy, memory_noise_flat, memory_clean,
                                       bank_sq_norms)
-            mem_clean = mem.permute(0, 3, 1, 2)
         return self.adapter(noisy, base_out, _clean01(mem_clean))
+
+    def replica(self, device):
+        """As ``DenoiserWithAdapter.replica``; the retrieval stays the same."""
+        base = _base_on(self.base_forward, device)
+        adapter = module_on(self.adapter, device)
+        if base is self.base_forward and adapter is self.adapter:
+            return self
+        return type(self)(base, adapter, self.retrieval_fn).train(self.training)

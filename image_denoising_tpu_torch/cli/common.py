@@ -5,8 +5,9 @@ trainer and the finetuners (counterpart of
 Model construction, ``.ckpt`` and ``.pth`` loading, PNG writing, the
 per-image metrics file, the lazy burst stream of ``--frame_burst`` with its
 on-device scoring hook, the whole-frame forward of the adapter evaluators,
-the ``--host_workers`` pool of the per-frame host pass, and the ``--dtype``
-and ``--blindspot`` flags.
+the ``--host_workers`` pool of the per-frame host pass, the ``--dtype``
+and ``--blindspot`` flags, and the devices of ``--device``,
+``--gpu_devices``, ``--parallel`` and ``--bank_sharded``.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ __all__ = [
     "add_host_workers_flag",
     "HostWorkPool",
     "make_metrics_finalize",
-    "refuse_unported",
+    "cli_mesh",
     "cli_device",
     "load_frozen_base",
     "iqsl_config",
@@ -185,28 +186,53 @@ def drain_burst(item, cache, fetch_pred=True, pick=lambda out: (out, ())):
     return chunk
 
 
-def batched_frame_forward(fwd, frames, parallel: bool = False, device="cuda"):
+def batched_frame_forward(fwd, frames, parallel: bool = False, device="cuda",
+                          mesh=None):
     """Whole-frame inference over a list of [H, W, C] float01 frames.
 
     ``fwd`` takes and returns NCHW tensors. Frames are grouped by shape and
     run at batch 1, as the reference's single-GPU path does; the result is
     the per-frame [H, W, C] float32 predictions, in input order.
-    ``parallel=True`` (frames sharded over several cards) is not ported.
+    ``parallel=True`` is the ``--parallel`` wiring (the reference's
+    ``nn.DataParallel``, ``evaluation_adapter.py:114-115``): frames of one
+    shape go in groups of the mesh's size (``mesh``, default every card),
+    one frame per device, each run by the device's forward (``fwd.on`` of a
+    ``parallel.PerDevice``); a ragged tail is padded by repeating its last
+    frame and cropped after.
     """
+    from ..parallel.mesh import forward_over_mesh
+
+    group = 1
     if parallel:
-        raise NotImplementedError(
-            "--parallel not ported to the PyTorch package yet (ROADMAP.md "
-            "queue 1 item 8)")
+        if mesh is None:
+            from ..parallel import mesh as pmesh
+
+            mesh = pmesh.make_mesh()
+        group = mesh.size
+        device = mesh.primary
+        print(f"frame-parallel inference over {group} devices")
+    on = getattr(fwd, "on", None)
     by_shape: dict = {}
     for i, f in enumerate(frames):
         by_shape.setdefault(np.shape(f), []).append(i)
     preds = [None] * len(frames)
     with torch.inference_mode():
         for _, idxs in sorted(by_shape.items()):
-            for i in idxs:
-                x = torch.from_numpy(np.asarray(frames[i], np.float32)).to(device)
-                out = fwd(x.permute(2, 0, 1)[None])[0]
-                preds[i] = out.permute(1, 2, 0).float().cpu().numpy()
+            for s in range(0, len(idxs), group):
+                chunk = idxs[s : s + group]
+                batch = np.stack([np.asarray(frames[i], np.float32) for i in chunk])
+                if len(chunk) < group:
+                    batch = np.concatenate(
+                        [batch, np.repeat(batch[-1:], group - len(chunk), 0)])
+                x = torch.from_numpy(batch).to(device).permute(0, 3, 1, 2)
+                if parallel:
+                    out = forward_over_mesh(
+                        mesh, lambda d, c: (on(d) if on else fwd)(c), x)
+                else:
+                    out = fwd(x)
+                out = out[: len(chunk)].permute(0, 2, 3, 1).float().cpu().numpy()
+                for j, i in enumerate(chunk):
+                    preds[i] = out[j]
     return preds
 
 
@@ -362,41 +388,61 @@ class MetricsWriter:
 
 # the finetuners (cli/finetune.py, finetune_iqsl.py, finetune_memory.py)
 
-def refuse_unported(opt, flags=("parallel",)):
-    """NotImplementedError, before anything is loaded, for the flags that
-    wait for multi-device (``--parallel``, ``--bank_sharded`` and several
-    ``--gpu_devices``, ROADMAP.md queue 1 item 8)."""
-    refused = [f"--{n} (ROADMAP.md queue 1 item 8)" for n in flags if getattr(opt, n)]
-    if "," in getattr(opt, "gpu_devices", ""):
-        refused.append("--gpu_devices with several cards (ROADMAP.md queue 1 item 8)")
-    if refused:
-        raise NotImplementedError(
-            f"{', '.join(refused)} not ported to the PyTorch package yet")
+def _gpu_ids(opt):
+    """The card indices ``--gpu_devices`` names ("0", or a list "0,1")."""
+    return [int(i) for i in str(getattr(opt, "gpu_devices", "0")).split(",") if i.strip()]
 
 
-def cli_device(opt, refused=("parallel",)) -> str:
-    """The device an evaluator runs on: ``cpu`` for ``--device cpu``, else
-    the card ``--gpu_devices`` names (``cuda:N``). Refuses the unported
-    ``refused`` flags first, and raises where there is no card."""
+def cli_mesh(opt):
+    """The device mesh of ``--parallel`` / ``--bank_sharded``: the cards
+    ``--gpu_devices`` names where it names more than one, else every
+    visible card (the JAX package's ``make_mesh()``); ``--device cpu``
+    gives a mesh of one CPU device."""
+    from ..parallel import mesh as pmesh
+
+    if opt.device == "cpu":
+        devices = ["cpu"]
+    else:
+        ids = _gpu_ids(opt)
+        devices = [f"cuda:{i}" for i in ids] if len(ids) > 1 else None
+    mesh = pmesh.make_mesh(devices=devices)
+    for d in mesh.distinct():
+        if d.type == "cuda" and d.index is not None and d.index >= torch.cuda.device_count():
+            raise RuntimeError(f"--gpu_devices names {d}, but only "
+                               f"{torch.cuda.device_count()} cards are visible")
+    return mesh
+
+
+def cli_device(opt, mesh=None) -> str:
+    """The device a CLI runs on: the first device of ``mesh`` where it has
+    one (``--parallel``), else ``cpu`` for ``--device cpu``, else the first
+    card ``--gpu_devices`` names (``cuda:N``), as the reference's
+    ``CUDA_VISIBLE_DEVICES`` + ``.cuda()`` does. Raises where there is no
+    card."""
     from ..utils.device import resolve_device
 
-    refuse_unported(opt, refused)
-    device = "cpu" if opt.device == "cpu" else f"cuda:{int(getattr(opt, 'gpu_devices', '0'))}"
+    if mesh is not None:
+        device = str(mesh.primary)
+    elif opt.device == "cpu":
+        device = "cpu"
+    else:
+        device = f"cuda:{_gpu_ids(opt)[0]}"
     resolve_device(device)  # fail before any loading when there is no GPU
     return device
 
 
-def load_frozen_base(opt, device):
+def load_frozen_base(opt, device, mesh=None):
     """(base module, its frozen forward on ``device``): the ``--arch``
     network with ``--pretrained_ckpt``'s weights, run by ``make_forward``
-    (the chain kernel for an ImprovedUNet) in the ``--dtype`` compute dtype."""
+    (the chain kernel for an ImprovedUNet) in the ``--dtype`` compute dtype;
+    with a ``mesh``, one copy per device (``parallel.PerDevice``)."""
     from ..models.fused_forward import make_forward
 
     base = load_params(opt.pretrained_ckpt,
                        build_model(opt.arch, opt.n_channel, opt.n_feature))
     print(f"Loaded base weights from {opt.pretrained_ckpt}")
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    return base, make_forward(base, device=device, dtype=dtype)
+    return base, make_forward(base, device=device, dtype=dtype, mesh=mesh)
 
 
 def iqsl_config(opt):

@@ -17,8 +17,8 @@ so host memory holds the bursts in flight, not the directory. Two inputs
 with one stem (``a.png``, ``a.tif``) keep their extension in the output
 name. Same flags as the JAX CLI plus ``--device {cuda,cpu}``;
 ``--arch UNet|RESNET|UNetImproved`` or the ``--log_name`` dispatch picks
-the network, ``--blindspot`` the blind-spot UNet/RESNET; ``--parallel`` is
-parsed and refused (not ported yet).
+the network, ``--blindspot`` the blind-spot UNet/RESNET; ``--parallel``
+splits each burst's tile stack over every visible card.
 
 Run: ``python -m image_denoising_tpu_torch.cli.denoise --input_dir frames
 --checkpoint model.ckpt`` (``--device cpu`` off the card).
@@ -48,7 +48,8 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="'cuda': the current card; 'cpu': the plain chain")
-    parser.add_argument("--parallel", action="store_true", help="not ported yet")
+    parser.add_argument("--parallel", action="store_true",
+                        help="shard the tile batch over all devices in the mesh")
     parser.add_argument("--tile", type=int, default=352)
     parser.add_argument("--overlap", type=int, default=64)
     parser.add_argument("--tile_batch", type=int, default=-8,
@@ -85,10 +86,11 @@ def output_names(paths, save_dir: str, suffix: str):
 def run(opt):
     from ..data.pairs import load_image_f32
     from ..models.fused_forward import make_forward
-    from .common import (HostWorkPool, build_network, cli_device, load_params,
-                         save_png)
+    from .common import (HostWorkPool, build_network, cli_device, cli_mesh,
+                         load_params, save_png)
 
-    device = cli_device(opt, ("parallel",))
+    mesh = cli_mesh(opt) if opt.parallel else None
+    device = cli_device(opt, mesh)
     os.makedirs(opt.save_dir, exist_ok=True)
     paths = sorted(p for p in glob.glob(os.path.join(opt.input_dir, "*"))
                    if os.path.isfile(p))
@@ -100,9 +102,11 @@ def run(opt):
         build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature,
                       blindspot=opt.blindspot))
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    fwd = make_forward(network, device=device, dtype=dtype)
+    fwd = make_forward(network, device=device, dtype=dtype, mesh=mesh)
     print(f"Loaded checkpoint from {opt.checkpoint}; "
           f"denoising {len(paths)} frames from {opt.input_dir}")
+    if mesh is not None:
+        print(f"tile-parallel over {mesh.size} devices")
 
     out_dtype = "uint8_floor" if opt.rounding == "floor" else "uint8_round"
     out_path = output_names(paths, opt.save_dir, opt.suffix)
@@ -128,13 +132,13 @@ def run(opt):
     # --host_workers: PNG encode (PIL releases the GIL in zlib) runs in a
     # thread pool; progress lines still print in frame order
     with HostWorkPool(opt.host_workers, _finalize) as pool:
-        _run_frames(opt, paths, pool, _encode, _load, fwd, out_dtype, device)
+        _run_frames(opt, paths, pool, _encode, _load, fwd, out_dtype, device, mesh)
 
     print(f"Wrote {n_done} denoised frames to {opt.save_dir}")
     return n_done
 
 
-def _run_frames(opt, paths, pool, encode, load, fwd, out_dtype, device):
+def _run_frames(opt, paths, pool, encode, load, fwd, out_dtype, device, mesh):
     from ..eval.tiled import denoise_tiled_pyramid, make_tiled_pyramid_runner_frames
 
     if opt.frame_burst > 1:
@@ -154,7 +158,7 @@ def _run_frames(opt, paths, pool, encode, load, fwd, out_dtype, device):
         def make_runner(h, w):
             return make_tiled_pyramid_runner_frames(
                 fwd, fb, h, w, opt.tile, opt.overlap, batch=opt.tile_batch,
-                out_dtype=out_dtype, device=device)
+                out_dtype=out_dtype, device=device, mesh=mesh)
 
         for chunk, (out_dev, _l1), _ in iter_bursts(by_shape, load, fb, make_runner):
             out = out_dev.cpu().numpy()
@@ -164,7 +168,8 @@ def _run_frames(opt, paths, pool, encode, load, fwd, out_dtype, device):
         for j, p in enumerate(paths):
             pred255, _l1 = denoise_tiled_pyramid(
                 fwd, load(j), ps=opt.tile, overlap=opt.overlap,
-                batch=opt.tile_batch, out_dtype=out_dtype, device=device)
+                batch=opt.tile_batch, out_dtype=out_dtype, device=device,
+                mesh=mesh)
             pool.submit(encode, pred255, p)
 
 

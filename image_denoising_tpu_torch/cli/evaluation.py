@@ -14,8 +14,8 @@ PNGs are asked for. ``--host_workers N`` runs the per-frame host pass
 (fetch, metrics, PNG encode) in a thread pool, finalized in frame order.
 Same flags as the JAX CLI plus ``--device {cuda,cpu}``; ``--arch UNet|RESNET|UNetImproved``
 or the ``--log_name`` dispatch picks the network, ``--blindspot`` the
-blind-spot UNet/RESNET; several ``--gpu_devices`` are parsed and refused
-(not ported yet).
+blind-spot UNet/RESNET; a ``--gpu_devices`` list runs on its first card,
+as the reference's ``CUDA_VISIBLE_DEVICES`` + ``.cuda()`` does.
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation --data_dir d
 --checkpoint model.ckpt`` (``--device cpu`` off the card). H and W must be
@@ -42,7 +42,8 @@ def parse_args(argv=None):
     parser.add_argument("--arch", type=str, default=None,
                         help="explicit architecture (overrides log_name dispatch)")
     parser.add_argument("--gpu_devices", default="0", type=str,
-                        help="index N of the card to run on (cuda:N)")
+                        help="card index N (cuda:N); of a list '0,1' the "
+                             "first")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="'cuda': the card --gpu_devices names; 'cpu': "
@@ -71,7 +72,7 @@ def evaluate(opt):
     from .common import (HostWorkPool, MetricsWriter, build_network, cli_device,
                          load_params, make_metrics_finalize, save_png)
 
-    device = cli_device(opt, ())
+    device = cli_device(opt)
     os.makedirs(opt.save_dir, exist_ok=True)
     clean_imgs, noisy_imgs, clean_paths, noisy_paths = validation_denoise(opt.data_dir)
 

@@ -5,13 +5,15 @@ pyramid weight blending, uint8 via clip(p·255) with NO +0.5 (reference
 quirk, ``evaluation_704.py:120``). The network runs through
 ``make_forward``: for an ImprovedUNet on a CUDA device every level block goes through the
 hand-written chain kernel. Same flags and output files as the JAX CLI, plus
-``--device {cuda,cpu}``: ``cuda`` runs on the one card ``--gpu_devices``
-names (``cuda:N``). ``--device_metrics`` scores each burst on the device
+``--device {cuda,cpu}``: ``cuda`` runs on the first card ``--gpu_devices``
+names (``cuda:N``). ``--parallel`` splits each tile stack over the cards
+(``parallel.make_mesh``: the ``--gpu_devices`` list where it names several,
+else every visible card), each running its share in ``--tile_batch``
+chunks. ``--device_metrics`` scores each burst on the device
 (``metrics/device.py``), ``--host_workers N`` runs the per-frame host pass
 in a thread pool and ``--profile_dir`` traces the denoise loop.
 ``--arch UNet|RESNET|UNetImproved`` or the ``--log_name`` dispatch picks
-the network, ``--blindspot`` the blind-spot UNet/RESNET. ``--parallel``
-and several ``--gpu_devices`` are parsed and refused (not ported yet).
+the network, ``--blindspot`` the blind-spot UNet/RESNET.
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation_704 --data_dir d
 --checkpoint model.ckpt`` (the JAX package's ``.ckpt``, or a
@@ -39,13 +41,15 @@ def parse_args(argv=None):
     parser.add_argument("--log_name", type=str, default="UNetImproved")
     parser.add_argument("--arch", type=str, default=None)
     parser.add_argument("--gpu_devices", default="0", type=str,
-                        help="index N of the card to run on (cuda:N)")
+                        help="card index N (cuda:N), or a list '0,1' of the "
+                             "cards --parallel uses (the first without it)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="'cuda': the card --gpu_devices names; 'cpu': "
                              "the plain chain")
     parser.add_argument("--parallel", action="store_true",
-                        help="not ported yet")
+                        help="split each tile stack over the cards (the "
+                             "reference's DataParallel analog)")
     parser.add_argument("--tile", type=int, default=352)
     parser.add_argument("--overlap", type=int, default=64)
     parser.add_argument("--tile_batch", type=int, default=-1,
@@ -88,10 +92,11 @@ def evaluate(opt):
     from ..models.fused_forward import make_forward
     from ..utils.profiling import trace
     from .common import (HostWorkPool, MetricsWriter, build_network, cli_device,
-                         drain_burst, iter_bursts, load_params, make_clean_post,
-                         make_metrics_finalize, save_png)
+                         cli_mesh, drain_burst, iter_bursts, load_params,
+                         make_clean_post, make_metrics_finalize, save_png)
 
-    device = cli_device(opt, ("parallel",))
+    mesh = cli_mesh(opt) if opt.parallel else None
+    device = cli_device(opt, mesh)
     os.makedirs(opt.save_dir, exist_ok=True)
     clean_imgs, noisy_imgs, clean_paths, noisy_paths = validation_denoise(opt.data_dir)
 
@@ -100,8 +105,10 @@ def evaluate(opt):
         build_network(opt.arch, opt.log_name, opt.n_channel, opt.n_feature,
                       blindspot=opt.blindspot))
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    fwd = make_forward(network, device=device, dtype=dtype)
+    fwd = make_forward(network, device=device, dtype=dtype, mesh=mesh)
     print(f"Loaded checkpoint from {opt.checkpoint}")
+    if mesh is not None:
+        print(f"tile-parallel over {mesh.size} devices")
 
     # --frame_burst: N same-shape frames per runner call, up to three bursts
     # in flight; the loop below drains them on demand, so the host pass of
@@ -129,7 +136,7 @@ def evaluate(opt):
             return make_tiled_pyramid_runner_frames(
                 fwd, fb, h, w, opt.tile, opt.overlap,
                 batch=opt.tile_batch, out_dtype="uint8_floor",
-                device=device)
+                device=device, mesh=mesh)
 
         post = None
         if opt.device_metrics:
@@ -189,7 +196,7 @@ def evaluate(opt):
                 pred255, l1_val = denoise_tiled_pyramid(
                     fwd, noisy_u8, ps=opt.tile, overlap=opt.overlap,
                     batch=opt.tile_batch, out_dtype="uint8_floor",
-                    device=device)
+                    device=device, mesh=mesh)
 
             pool.submit(_host_pass, i, clean_name, noisy_name, clean_u8,
                         noisy_u8, pred255, l1_val, dev_m)

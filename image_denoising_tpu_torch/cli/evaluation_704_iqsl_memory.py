@@ -10,14 +10,19 @@ every level block through the chain kernel; ``--arch UNet`` or ``RESNET``
 serve their module) and retrieval through the top-1 kernel. By
 default retrieval is hoisted: one pass over the whole tile stack before the
 chunked forward, the retrieved patches riding along as a second channel.
+``--parallel`` splits each tile stack over the cards (the ``--gpu_devices``
+list where it names several, else every visible card); ``--bank_sharded``
+splits both banks over them too (``memory/sharded.py``: one retrieval
+launch per shard, the same patches as the whole bank gives), and implies
+the tile split, as in JAX. The hoisted pass stays under ``--bank_sharded``
+(JAX turns it off there): its indices are the same, and a burst then
+launches k retrievals instead of k per chunk.
 
 Same flags, defaults and output files (``*_denoised_mem.png``,
 ``metrics.txt``) as the JAX CLI, plus ``--device {cuda,cpu}``: ``cuda`` runs
-on the one card ``--gpu_devices`` names (``cuda:N``). ``--device_metrics``
+on the first card ``--gpu_devices`` names (``cuda:N``). ``--device_metrics``
 scores PSNR (and IQ-IoU) of each burst on the device, ``--host_workers N``
-runs the per-frame host pass in a thread pool. ``--parallel``,
-``--bank_sharded`` and several ``--gpu_devices`` are parsed and refused (not
-ported yet).
+runs the per-frame host pass in a thread pool.
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation_704_iqsl_memory
 --data_dir d --base_ckpt b.ckpt --adapter_ckpt a.ckpt``: ``.ckpt`` files as
@@ -52,12 +57,14 @@ def parse_args(argv=None):
     parser.add_argument("--save_dir", type=str,
                         default="./results_704_eval_adapter_memory")
     parser.add_argument("--gpu_devices", default="0", type=str,
-                        help="index N of the card to run on (cuda:N)")
+                        help="card index N (cuda:N), or a list '0,1' of the "
+                             "cards --parallel / --bank_sharded use")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="'cuda': the card --gpu_devices names; 'cpu': "
                              "the plain versions of the kernels")
-    parser.add_argument("--parallel", action="store_true", help="not ported yet")
+    parser.add_argument("--parallel", action="store_true",
+                        help="split each tile stack over the cards")
     parser.add_argument("--n_feature", type=int, default=48)
     parser.add_argument("--n_channel", type=int, default=1)
     parser.add_argument("--adapter_hidden", type=int, default=16)
@@ -73,7 +80,10 @@ def parse_args(argv=None):
                              "retrieval always runs the top-1 kernel; this "
                              "flag changes only the padding")
     parser.add_argument("--bank_sharded", action="store_true",
-                        help="not ported yet")
+                        help="shard BOTH banks over the cards: each scans its "
+                             "1/k with the retrieval kernel and the keys merge "
+                             "to the whole bank's first minimum. Implies the "
+                             "tile split of --parallel")
     parser.add_argument("--bank_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16", "int8"],
                         help="noise-bank storage dtype. bf16 halves the "
@@ -136,7 +146,8 @@ def make_memory_model_call(wrapper, bank, n_channel: int = 1,
     one pass (``retrieval_chunk`` > 0: in query chunks of that size) and
     appends it as extra channels; ``model_call`` splits the stack again.
     Otherwise ``pre_tile_fn`` is None and each forward chunk retrieves its
-    own patches.
+    own patches. Retrieval is the wrapper's (``retrieval_fn``: the sharded
+    bank's over a ``ShardedBank``).
     """
     from ..adapters import batched_select_memory_patch
 
@@ -154,12 +165,36 @@ def make_memory_model_call(wrapper, bank, n_channel: int = 1,
     def pre_tile_fn(tiles):
         mem = batched_select_memory_patch(
             tiles.permute(0, 2, 3, 1), bank.noise_flat, bank.clean,
-            bank.sq_norms, chunk=chunk)
+            bank.sq_norms, chunk=chunk, retrieval_fn=wrapper.retrieval_fn)
         return torch.cat([tiles, mem.permute(0, 3, 1, 2).to(tiles.dtype)], 1)
 
     def model_call(stack):
         return wrapper(stack[:, :c], mem_clean=stack[:, c:])
 
+    return model_call, pre_tile_fn
+
+
+def make_memory_mesh_call(wrapper, bank, mesh, n_channel: int = 1,
+                          hoist: bool = True, retrieval_chunk: int = 0):
+    """``make_memory_model_call`` over a mesh: ``pre_tile_fn`` on the first
+    device, and a ``parallel.PerDevice`` model call whose copy on each
+    device runs that device's base forward and adapter
+    (``wrapper.replica``) on its share of the tiles. Without hoisting, an
+    unsharded bank is copied to each card (a repeated device shares it)."""
+    from dataclasses import replace
+
+    from ..memory import ShardedBank
+    from ..parallel import PerDevice, replicate
+
+    banks = dict.fromkeys(mesh.devices, bank)
+    if not (isinstance(bank, ShardedBank) or hoist):
+        copies = replicate(mesh, (bank.noise_flat, bank.clean, bank.sq_norms))
+        banks = {d: replace(bank, noise_flat=n, clean=c, sq_norms=q)
+                 for d, (n, c, q) in zip(mesh.devices, copies)}
+    _, pre_tile_fn = make_memory_model_call(wrapper, bank, n_channel, hoist,
+                                            retrieval_chunk)
+    model_call = PerDevice(mesh, lambda d: make_memory_model_call(
+        wrapper.replica(d), banks[d], n_channel, hoist, retrieval_chunk)[0])
     return model_call, pre_tile_fn
 
 
@@ -181,11 +216,13 @@ def evaluate(opt):
     from ..memory import build_memory_bank
     from ..metrics import calculate_psnr, compute_iq_iou, make_device_metrics
     from ..models.fused_forward import make_forward
+    from ..memory import make_ring_retrieval, shard_bank
     from .common import (HostWorkPool, MetricsWriter, build_network, cli_device,
-                         drain_burst, iter_bursts, load_params, make_clean_post,
-                         make_metrics_finalize, save_png)
+                         cli_mesh, drain_burst, iter_bursts, load_params,
+                         make_clean_post, make_metrics_finalize, save_png)
 
-    device = cli_device(opt, ("parallel", "bank_sharded"))
+    mesh = cli_mesh(opt) if opt.parallel or opt.bank_sharded else None
+    device = cli_device(opt, mesh)
     os.makedirs(opt.save_dir, exist_ok=True)
     clean_imgs, noisy_imgs, clean_paths, noisy_paths = validation_denoise(opt.data_dir)
     clean_all, noise_all = list_pairs(opt.data_dir)
@@ -195,19 +232,32 @@ def evaluate(opt):
         patch_size=opt.patch_size, stride=opt.memory_stride,
         bank_dtype=opt.bank_dtype, clean_dtype=opt.clean_bank_dtype,
         pad_to=512 if opt.pallas_retrieval else 0, device=device)
+    retrieval_fn = None
+    if mesh is not None:
+        print(f"tile-parallel over {mesh.size} devices")
+    if opt.bank_sharded:
+        bank = shard_bank(bank, mesh)
+        retrieval_fn = make_ring_retrieval(mesh, queries_sharded=True)
+        print(f"memory bank sharded over {mesh.size} devices "
+              f"(~{bank.noise_flat[0].nbytes / 1e6:.1f} MB noise bank per device)")
 
     base = load_params(opt.base_ckpt, build_network(
         opt.arch, None, opt.n_channel, opt.n_feature))
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    fwd = make_forward(base, device=device, dtype=dtype)
+    fwd = make_forward(base, device=device, dtype=dtype, mesh=mesh)
     adapter = build_memory_adapter(opt.adapter_variant, opt.n_channel,
                                    opt.adapter_hidden)
     adapter.load_state_dict(load_checkpoint(opt.adapter_ckpt, arch=opt.adapter_variant),
                             strict=True)
-    wrapper = DenoiserWithMemoryAdapter(fwd, adapter).to(device).eval()
+    wrapper = DenoiserWithMemoryAdapter(fwd, adapter, retrieval_fn).to(device).eval()
     print(f"Loaded base from {opt.base_ckpt}; adapter from {opt.adapter_ckpt}")
-    model_call, pre_tile_fn = make_memory_model_call(
-        wrapper, bank, opt.n_channel, opt.hoist_retrieval, opt.retrieval_chunk)
+    if mesh is None:
+        model_call, pre_tile_fn = make_memory_model_call(
+            wrapper, bank, opt.n_channel, opt.hoist_retrieval, opt.retrieval_chunk)
+    else:
+        model_call, pre_tile_fn = make_memory_mesh_call(
+            wrapper, bank, mesh, opt.n_channel, opt.hoist_retrieval,
+            opt.retrieval_chunk)
 
     pred_cache: dict = {}
     burst_stream = None
@@ -228,7 +278,8 @@ def evaluate(opt):
             return make_tiled_hann_runner_frames(
                 model_call, fb, h, w, ps=opt.patch_size,
                 overlap=opt.overlap, batch=opt.tile_batch,
-                out_dtype="uint8_round", pre_tile_fn=pre_tile_fn, device=device)
+                out_dtype="uint8_round", pre_tile_fn=pre_tile_fn, device=device,
+                mesh=mesh)
 
         post = None
         if opt.device_metrics:
@@ -284,7 +335,7 @@ def evaluate(opt):
                     model_call, np.asarray(noisy), ps=opt.patch_size,
                     overlap=opt.overlap, batch=opt.tile_batch,
                     out_dtype="uint8_round", pre_tile_fn=pre_tile_fn,
-                    device=device)[..., 0]
+                    device=device, mesh=mesh)[..., 0]
             pool.submit(_host_pass, i, noisy_name, clean255, pred255, dev_m)
 
     if opt.timing_json and drain_log:

@@ -10,8 +10,9 @@ ImprovedUNet base's level blocks go through the chain kernel; ``--arch``
 picks UNet or RESNET), saves
 ``*_denoised.png`` (clip(p·255 + 0.5), mode L for one channel) and prints
 PSNR when ``clean/`` exists. Unknown flags are ignored, as in the JAX CLI.
-Same flags plus ``--device {cuda,cpu}``; ``--parallel`` and several
-``--gpu_devices`` are parsed and refused (not ported yet).
+Same flags plus ``--device {cuda,cpu}``. ``--parallel`` runs the frames
+in groups of the mesh's size, one per card (the ``--gpu_devices`` list
+where it names several, else every visible card), as the JAX CLI does.
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation_adapter --data_dir
 d --ckpt epoch_adapter_001.ckpt`` (``--device cpu`` off the card).
@@ -36,12 +37,14 @@ def parse_args(argv=None):
                         choices=["UNet", "RESNET", "UNetImproved"])
     parser.add_argument("--save_dir", type=str, default="./results_infer_adapter")
     parser.add_argument("--gpu_devices", default="0", type=str,
-                        help="index N of the card to run on (cuda:N)")
+                        help="card index N (cuda:N), or a list '0,1' of the "
+                             "cards --parallel uses (the first without it)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="'cuda': the card --gpu_devices names; 'cpu': "
                              "the plain chain")
-    parser.add_argument("--parallel", action="store_true", help="not ported yet")
+    parser.add_argument("--parallel", action="store_true",
+                        help="one frame per card, in groups of the cards")
     parser.add_argument("--n_feature", type=int, default=48)
     parser.add_argument("--n_channel", type=int, default=1)
     parser.add_argument("--adapter_hidden", type=int, default=16)
@@ -57,11 +60,13 @@ def parse_args(argv=None):
     return args
 
 
-def build_adapter_denoiser(opt, device, base_ckpt: str, adapter_ckpt=None):
+def build_adapter_denoiser(opt, device, base_ckpt: str, adapter_ckpt=None,
+                           mesh=None):
     """``DenoiserWithAdapter(make_forward(base), adapter)`` on
     ``device``, the base in the ``--dtype`` compute dtype. Without
     ``adapter_ckpt``, ``base_ckpt`` is a combined file: its ``base`` and
-    ``adapter`` parts."""
+    ``adapter`` parts. With a ``mesh``, a ``parallel.PerDevice`` of it:
+    one copy of the base and the adapter per device."""
     from ..adapters import DenoiserWithAdapter, OutputAdapter
     from ..ckpt.io import load_checkpoint
     from ..models.fused_forward import make_forward
@@ -78,8 +83,13 @@ def build_adapter_denoiser(opt, device, base_ckpt: str, adapter_ckpt=None):
                                             prefix="adapter" if combined else ""),
                             strict=True)
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    fwd = make_forward(base, device=device, dtype=dtype)
-    return DenoiserWithAdapter(fwd, adapter).to(device).eval()
+    fwd = make_forward(base, device=device, dtype=dtype, mesh=mesh)
+    wrapper = DenoiserWithAdapter(fwd, adapter).to(device).eval()
+    if mesh is None:
+        return wrapper
+    from ..parallel import PerDevice
+
+    return PerDevice(mesh, wrapper.replica)
 
 
 def load_frames(paths):
@@ -98,9 +108,11 @@ def main(argv=None):
 
     from ..data.pairs import load_image_f32
     from ..metrics import calculate_psnr
-    from .common import HostWorkPool, batched_frame_forward, cli_device, save_png
+    from .common import (HostWorkPool, batched_frame_forward, cli_device, cli_mesh,
+                         save_png)
 
-    device = cli_device(opt)
+    mesh = cli_mesh(opt) if opt.parallel else None
+    device = cli_device(opt, mesh)
     noise_dir = os.path.join(opt.data_dir, "noise")
     clean_dir = os.path.join(opt.data_dir, "clean")
     os.makedirs(opt.save_dir, exist_ok=True)
@@ -114,10 +126,10 @@ def main(argv=None):
         print("[Warning] clean/ and noise/ have different counts; PSNR may be misaligned.")
     print(f"Found {len(noise_paths)} noisy images for inference.")
 
-    wrapper = build_adapter_denoiser(opt, device, opt.ckpt)
+    wrapper = build_adapter_denoiser(opt, device, opt.ckpt, mesh=mesh)
     print(f"Loaded adapter+base weights from {opt.ckpt}")
     preds = batched_frame_forward(wrapper, load_frames(noise_paths),
-                                  parallel=opt.parallel, device=device)
+                                  parallel=opt.parallel, device=device, mesh=mesh)
 
     psnrs = []
 

@@ -8,8 +8,8 @@ files), and adds PSNR, SSIM and, with ``--compute_iq_iou``, the 3-class
 intensity-quantized IoU against ``clean/``, averaged into ``metrics.txt``.
 Whole frames run through ``DenoiserWithAdapter(make_forward(base),
 adapter)``. Unknown flags are ignored, as in the JAX CLI. Same flags plus
-``--device {cuda,cpu}``; ``--parallel`` and several ``--gpu_devices`` are
-parsed and refused (not ported yet).
+``--device {cuda,cpu}``; ``--parallel`` runs the frames in groups of the
+mesh's size, one per card, as ``cli/evaluation_adapter.py`` does.
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation_adapter_iqsl
 --data_dir d --base_ckpt model.ckpt --adapter_ckpt adapter_only.ckpt
@@ -34,12 +34,14 @@ def parse_args(argv=None):
                         choices=["UNet", "RESNET", "UNetImproved"])
     parser.add_argument("--save_dir", type=str, default="./results_infer_adapter_iqsl")
     parser.add_argument("--gpu_devices", default="0", type=str,
-                        help="index N of the card to run on (cuda:N)")
+                        help="card index N (cuda:N), or a list '0,1' of the "
+                             "cards --parallel uses (the first without it)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="'cuda': the card --gpu_devices names; 'cpu': "
                              "the plain chain")
-    parser.add_argument("--parallel", action="store_true", help="not ported yet")
+    parser.add_argument("--parallel", action="store_true",
+                        help="one frame per card, in groups of the cards")
     parser.add_argument("--n_feature", type=int, default=48)
     parser.add_argument("--n_channel", type=int, default=1)
     parser.add_argument("--adapter_hidden", type=int, default=16)
@@ -64,10 +66,11 @@ def main(argv=None):
     from ..data.pairs import load_image_f32
     from ..metrics import calculate_psnr, calculate_ssim, compute_iq_iou
     from .common import (HostWorkPool, MetricsWriter, batched_frame_forward,
-                         cli_device, make_metrics_finalize, save_png)
+                         cli_device, cli_mesh, make_metrics_finalize, save_png)
     from .evaluation_adapter import build_adapter_denoiser, load_frames
 
-    device = cli_device(opt)
+    mesh = cli_mesh(opt) if opt.parallel else None
+    device = cli_device(opt, mesh)
     os.makedirs(opt.save_dir, exist_ok=True)
     noise_paths = sorted(glob.glob(os.path.join(opt.data_dir, "noise", "*")))
     clean_paths = sorted(glob.glob(os.path.join(opt.data_dir, "clean", "*")))
@@ -75,10 +78,11 @@ def main(argv=None):
         raise RuntimeError(f"No files under {opt.data_dir}/noise")
     has_clean = len(clean_paths) > 0
 
-    wrapper = build_adapter_denoiser(opt, device, opt.base_ckpt, opt.adapter_ckpt)
+    wrapper = build_adapter_denoiser(opt, device, opt.base_ckpt, opt.adapter_ckpt,
+                                     mesh=mesh)
     print(f"Loaded base from {opt.base_ckpt}; adapter from {opt.adapter_ckpt}")
     preds = batched_frame_forward(wrapper, load_frames(noise_paths),
-                                  parallel=opt.parallel, device=device)
+                                  parallel=opt.parallel, device=device, mesh=mesh)
 
     writer = MetricsWriter()
 

@@ -13,8 +13,10 @@ On a CUDA device the base is ``make_forward``, built once: for an
 ImprovedUNet the training batches and the whole validation frames run
 every level block through the chain kernel; ``--arch UNet`` or ``RESNET``
 runs that module. Same flags as the JAX CLI, plus ``--device
-{cuda,cpu}``; ``--parallel`` and several ``--gpu_devices`` are parsed and
-refused (ROADMAP.md queue 1 item 8).
+{cuda,cpu}``. ``--parallel`` splits each batch over the cards (the
+``--gpu_devices`` list where it names several, else every visible card):
+each runs its own copy of the base and the adapter on its share, and the
+loss and its gradient are the whole batch's.
 
 Run: ``python -m image_denoising_tpu_torch.cli.finetune --data_dir d
 --pretrained_ckpt model.ckpt``.
@@ -29,8 +31,6 @@ import time
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device
-from .common import refuse_unported
 
 
 def parse_args(argv=None, iqsl: bool = False):
@@ -46,11 +46,13 @@ def parse_args(argv=None, iqsl: bool = False):
                         default="UNetImproved_adapter_iqsl_ft" if iqsl
                         else "UNetImproved_adapter_ft")
     parser.add_argument("--gpu_devices", default="0", type=str,
-                        help="index N of the card to train on (cuda:N)")
+                        help="card index N (cuda:N), or a list '0,1' of the "
+                             "cards --parallel uses (the first without it)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="'cuda': the card --gpu_devices names; 'cpu': "
                              "the plain versions of the kernels")
-    parser.add_argument("--parallel", action="store_true", help="not ported yet")
+    parser.add_argument("--parallel", action="store_true",
+                        help="data-parallel over the cards")
     parser.add_argument("--n_feature", type=int, default=48)
     parser.add_argument("--n_channel", type=int, default=1)
     parser.add_argument("--lr", type=float, default=1e-4)
@@ -83,8 +85,10 @@ def train_adapter(opt, iqsl: bool = False):
     all pairs validated, ``epoch_adapter`` files) or ``finetune_iqsl.py``
     (``iqsl=True``: + IQSL, the first 10 pairs validated,
     ``epoch_adapter_only`` files). Returns the train state."""
-    refuse_unported(opt)
-    device = resolve_device("cpu" if opt.device == "cpu" else f"cuda:{int(opt.gpu_devices)}")
+    from .common import cli_device, cli_mesh
+
+    mesh = cli_mesh(opt) if opt.parallel else None
+    device = torch.device(cli_device(opt, mesh))
     systime = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M")
 
     from ..adapters import DenoiserWithAdapter, OutputAdapter
@@ -99,14 +103,16 @@ def train_adapter(opt, iqsl: bool = False):
     valid = validation_denoise(opt.data_dir, limit=10 if iqsl else None)
     iqsl_cfg = iqsl_config(opt) if iqsl else None
 
-    base, base_fwd = load_frozen_base(opt, device)
+    base, base_fwd = load_frozen_base(opt, device, mesh)
+    if mesh is not None:
+        print(f"data-parallel over {mesh.size} devices")
     torch.manual_seed(opt.seed)
     adapter = OutputAdapter(opt.n_channel, opt.adapter_hidden).to(device)
     wrapper = DenoiserWithAdapter(base_fwd, adapter)
     state = create_train_state(adapter, lr=opt.lr)
     step = make_adapter_finetune_step(
         wrapper, state, lambda_grad=opt.lambda_grad,
-        lambda_iqsl=opt.lambda_iqsl if iqsl else 0.0, iqsl_cfg=iqsl_cfg)
+        lambda_iqsl=opt.lambda_iqsl if iqsl else 0.0, iqsl_cfg=iqsl_cfg, mesh=mesh)
 
     if not iqsl:
         print(f"==> Start finetuning with adapter + patches. Num epochs={opt.n_epoch}, "

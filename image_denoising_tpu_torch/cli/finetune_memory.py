@@ -17,9 +17,13 @@ each training step retrieves its batch's bank patches with the top-1
 kernel inside the forward; nothing falls back to the CPU.
 
 Same flags as the JAX CLI, plus ``--device {cuda,cpu}``: ``cuda`` runs on
-the card ``--gpu_devices`` names (``cuda:N``). ``--parallel``,
-``--bank_sharded`` and several ``--gpu_devices`` are parsed and refused
-(ROADMAP.md queue 1 item 8).
+the first card ``--gpu_devices`` names (``cuda:N``). ``--parallel`` splits
+each batch over the cards (the ``--gpu_devices`` list where it names
+several, else every visible card), each with its own copy of the base and
+the adapter, after one retrieval over the whole batch. ``--bank_sharded``
+splits both banks over the cards (``memory/sharded.py``: one retrieval
+launch per shard, the whole bank's patches); the batch then stays whole,
+as in JAX, so with both flags ``--parallel`` adds no batch split.
 
 Run: ``python -m image_denoising_tpu_torch.cli.finetune_memory --data_dir d
 --pretrained_ckpt model.ckpt``.
@@ -35,8 +39,6 @@ import numpy as np
 import torch
 
 from ..adapters.memory_adapters import MEMORY_ADAPTERS
-from ..utils.device import resolve_device
-from .common import refuse_unported
 
 
 def parse_args(argv=None):
@@ -49,11 +51,13 @@ def parse_args(argv=None):
     parser.add_argument("--save_model_path", type=str, default="./results_ft")
     parser.add_argument("--log_name", type=str, default="UNetImproved_memory_adapter_ft")
     parser.add_argument("--gpu_devices", default="0", type=str,
-                        help="index N of the card to train on (cuda:N)")
+                        help="card index N (cuda:N), or a list '0,1' of the "
+                             "cards --parallel uses (the first without it)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="'cuda': the card --gpu_devices names; 'cpu': "
                              "the plain versions of the kernels")
-    parser.add_argument("--parallel", action="store_true", help="not ported yet")
+    parser.add_argument("--parallel", action="store_true",
+                        help="data-parallel over the cards")
     parser.add_argument("--n_feature", type=int, default=48)
     parser.add_argument("--n_channel", type=int, default=1)
     parser.add_argument("--lr", type=float, default=1e-4)
@@ -82,7 +86,10 @@ def parse_args(argv=None):
                              "TPU kernel's tile grid needs. On a CUDA device "
                              "retrieval always runs the top-1 kernel; this "
                              "flag changes only the padding")
-    parser.add_argument("--bank_sharded", action="store_true", help="not ported yet")
+    parser.add_argument("--bank_sharded", action="store_true",
+                        help="shard BOTH banks over the cards: each scans its "
+                             "1/k with the retrieval kernel; the batch stays "
+                             "whole, so --parallel adds no batch split")
     parser.add_argument("--bank_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16", "int8"],
                         help="noise-bank storage dtype. bf16 halves the "
@@ -103,16 +110,17 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
-    refuse_unported(opt, ("parallel", "bank_sharded"))
+    from .common import cli_device, cli_mesh
 
-    device = resolve_device("cpu" if opt.device == "cpu" else f"cuda:{int(opt.gpu_devices)}")
+    mesh = cli_mesh(opt) if opt.parallel or opt.bank_sharded else None
+    device = torch.device(cli_device(opt, mesh))
     systime = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M")
 
     from ..adapters import DenoiserWithMemoryAdapter, build_memory_adapter
     from ..ckpt import save_checkpoint
     from ..data import DenoisePatchDataset, list_pairs, validation_denoise
     from ..eval.tiled import make_tiled_hann_runner
-    from ..memory import build_memory_bank
+    from ..memory import build_memory_bank, make_ring_retrieval, shard_bank
     from ..metrics import calculate_psnr
     from ..train import create_train_state, make_memory_finetune_step
     from .common import iqsl_config, load_frozen_base, run_epoch, save_png
@@ -131,14 +139,32 @@ def main(argv=None):
         clean_dtype=opt.clean_bank_dtype, pad_to=512 if opt.pallas_retrieval else 0,
         device=device)
 
-    _, base_fwd = load_frozen_base(opt, device)
+    # batch DP only without a sharded bank: with one the batch stays whole,
+    # and so does the base's forward of it
+    dp_mesh = mesh if opt.parallel and not opt.bank_sharded else None
+    _, base_fwd = load_frozen_base(opt, device, dp_mesh)
+    if opt.parallel:
+        print(f"data-parallel over {mesh.size} devices")
+    retrieval_fn = None
+    if opt.bank_sharded:
+        # the training batches (and the validation's tile chunks) are small
+        # and stay whole; only the BANKS shard, each card scanning its 1/k
+        bank = shard_bank(bank, mesh)
+        retrieval_fn = make_ring_retrieval(mesh, queries_sharded=False)
+        print(f"memory bank sharded over {mesh.size} devices "
+              f"(~{bank.noise_flat[0].nbytes / 1e6:.1f} MB noise bank per device)")
+        if opt.parallel:
+            print("[bank_sharded] training batch stays replicated (the ring "
+                  "replicates queries; only banks shard) — --parallel adds "
+                  "no batch DP here")
     torch.manual_seed(opt.seed)
     adapter = build_memory_adapter(opt.adapter_variant, opt.n_channel,
                                    opt.adapter_hidden).to(device)
-    wrapper = DenoiserWithMemoryAdapter(base_fwd, adapter)
+    wrapper = DenoiserWithMemoryAdapter(base_fwd, adapter, retrieval_fn)
     state = create_train_state(adapter, lr=opt.lr)
-    step = make_memory_finetune_step(wrapper, state, lambda_grad=opt.lambda_grad,
-                                     lambda_iqsl=opt.lambda_iqsl, iqsl_cfg=iqsl_cfg)
+    step = make_memory_finetune_step(
+        wrapper, state, lambda_grad=opt.lambda_grad, lambda_iqsl=opt.lambda_iqsl,
+        iqsl_cfg=iqsl_cfg, mesh=dp_mesh)
 
     print(
         f"==> Start finetuning with MEMORY adapter + patches + IQSL. "

@@ -24,8 +24,10 @@ computes in bfloat16 with float32 parameters; ``--remat`` /
 dispatch picks the network (``UNET``, ``UNET…blindspot``, ``RESNET``,
 ``UNetImproved``), ``--blindspot`` the blind-spot UNet/RESNET with
 ``--arch``; the UNet needs H and W divisible by 32, and by 64 for ``--loss
-n2n``. Parsed and refused, for a later slice (ROADMAP.md queue 1 item 8):
-``--parallel`` and several ``--gpu_devices``.
+n2n``. ``--parallel`` makes each step data-parallel over the cards (the
+``--gpu_devices`` list where it names several, else every visible card;
+``train/steps.py``): the batch split over them, the loss and gradient the
+whole batch's; without it the trainer runs on the first card of the list.
 
 Run: ``python -m image_denoising_tpu_torch.cli.train --arch UNetImproved
 --data_dir data``.
@@ -49,13 +51,14 @@ def parse_args(argv=None):
     parser.add_argument("--save_model_path", type=str, default="./results")
     parser.add_argument("--log_name", type=str, default="unet_gauss25_b4e100r02")
     parser.add_argument("--gpu_devices", default="0", type=str,
-                        help="index N of the card to train on (cuda:N)")
+                        help="card index N (cuda:N), or a list '0,1' of the "
+                             "cards --parallel uses (the first without it)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="'cuda': the card --gpu_devices names; 'cpu': "
                              "the plain versions of the kernels")
     parser.add_argument("--parallel", action="store_true",
-                        help="not ported yet")
+                        help="data-parallel over the cards")
     parser.add_argument("--n_feature", type=int, default=48)
     parser.add_argument("--n_channel", type=int, default=1)
     parser.add_argument("--lr", type=float, default=3e-4)
@@ -115,13 +118,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
-    from ..utils.device import resolve_device
-    from .common import refuse_unported
+    from .common import cli_device, cli_mesh
 
-    refuse_unported(opt)
-
-    device = resolve_device(
-        "cpu" if opt.device == "cpu" else f"cuda:{int(opt.gpu_devices)}")
+    mesh = cli_mesh(opt) if opt.parallel else None
+    device = torch.device(cli_device(opt, mesh))
     systime = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M")
 
     from ..ckpt import save_checkpoint
@@ -144,17 +144,20 @@ def main(argv=None):
         load_params(opt.resume, network)
         print(f"Resumed params from {opt.resume}")
     network = network.to(device)
+    if mesh is not None:
+        print(f"data-parallel over {mesh.size} devices")
 
     state = create_train_state(network, lr=opt.lr)
     milestones = reference_milestones(opt.n_epoch)
     if opt.loss == "structure":
-        step_fn = make_structure_train_step(network, state, alpha=opt.Lambda1)
+        step_fn = make_structure_train_step(network, state, alpha=opt.Lambda1,
+                                            mesh=mesh)
     else:
         aug = AugmentNoise(opt.noisetype)
         step_fn = make_n2n_train_step(
             network, state, noise_fn=aug.add_train_noise,
             increase_ratio=opt.increase_ratio, n_epoch=opt.n_epoch,
-            lambda1=opt.Lambda1, lambda2=opt.Lambda2,
+            lambda1=opt.Lambda1, lambda2=opt.Lambda2, mesh=mesh,
         )
     opseeds = OperationSeed(opt.seed)
 

@@ -18,8 +18,10 @@ The reference's Optuna flow (``train_opt.py``) on the port's own TPE engine
   at {0.5, 0.75}·n_epoch, ``epoch_final_XXX.ckpt`` every ``--n_snapshot``
   epochs, ``A_log.csv``, and a render every 10 epochs.
 
-Trial placement: trial n runs on ``cuda:{n % torch.cuda.device_count()}``
-inside ``torch.cuda.device(...)`` (with ``--n_jobs`` > 1 each trial's
+Trial placement: trial n runs on the (n mod k)-th of the cards a
+``--gpu_devices`` list names (``0,1``: ``cuda:0``, ``cuda:1``, ``cuda:0``,
+...), or of every visible card when it names one, inside
+``torch.cuda.device(...)`` (with ``--n_jobs`` > 1 each trial's
 thread has its own current device), and its ``device`` attribute records
 where the model's parameters are. Initial weights come from
 ``torch.manual_seed(init_seed)`` and torch's default init, which is the
@@ -29,8 +31,9 @@ device; each epoch's loss sum stays there and is fetched once an epoch,
 where JAX reads every step's loss.
 
 Same flags as the JAX CLI, plus ``--device {cuda,cpu}`` (``cuda`` by
-default). Parsed and refused for a later slice (ROADMAP.md):
-``--parallel`` and several ``--gpu_devices``.
+default). ``--parallel`` is parsed and has no effect, as in the JAX CLI
+(trials, not batches, spread over the cards); the final retrain runs on
+the first card of the list.
 
 Run: ``python -m image_denoising_tpu_torch.cli.train_opt --data_dir data``.
 """
@@ -63,7 +66,8 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="'cuda': trial n on cuda:{n %% device count}; 'cpu': "
                              "every trial on the CPU")
-    parser.add_argument("--parallel", action="store_true", help="not ported yet")
+    parser.add_argument("--parallel", action="store_true",
+                        help="accepted for the JAX CLI's launch lines; no effect")
     parser.add_argument("--n_epoch", type=int, default=20)
     parser.add_argument("--n_snapshot", type=int, default=1)
     parser.add_argument("--batchsize", type=int, default=4)
@@ -137,17 +141,19 @@ def train_epochs(model, ds, lr: float, seed: int, epochs: int, milestones,
     return last_loss
 
 
+def trial_devices(args):
+    """The devices trials take in turn (trial n on the (n mod k)-th): the
+    cards a ``--gpu_devices`` list names, or every visible card when it
+    names one (``cli_mesh``); ``[cpu]`` for ``--device cpu``. Raises where
+    there is no card, before anything is loaded."""
+    from .common import cli_mesh
+
+    return list(cli_mesh(args).devices)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    from ..utils.device import resolve_device
-    from .common import refuse_unported
-
-    refuse_unported(args)
-    if args.device == "cpu":
-        devices = [torch.device("cpu")]
-    else:
-        resolve_device("cuda")  # fail before any loading when there is no GPU
-        devices = [torch.device(f"cuda:{i}") for i in range(torch.cuda.device_count())]
+    devices = trial_devices(args)
     systime = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M")
 
     from ..ckpt import save_checkpoint

@@ -24,6 +24,16 @@ The tile grid is static per frame geometry and computed on the host; the
 gather, the chunked forward, the blend and the quantisation run on the
 device. Model calls take and return NCHW ``[k, C, ps, ps]`` tiles.
 
+``mesh=`` (``parallel.make_mesh``) splits the tile stack over the mesh's
+devices, the counterpart of JAX's ``_shard_tiles``: the stack is padded
+with zero tiles to a device multiple, each device runs its share in the
+runner's chunk size (a ``parallel.PerDevice`` model call, as
+``make_forward(mesh=)`` gives, runs each share on its device's copy), and
+the predictions are gathered on the first device, which also cuts the
+tiles and blends and quantises the frames. JAX turns a negative ``batch`` into one forward under a mesh,
+because its chunk loop is a sequential ``lax.map``; the port's chunk loop
+launches asynchronously on each device, so it keeps the chunk size.
+
 Where the JAX package has two blend forms (an unrolled pad-and-add for ≤256
 tiles and a scatter loop above that), PyTorch needs one: an in-place add of
 each weighted tile into the canvas, in tile order, which is both.
@@ -35,6 +45,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import forward_over_mesh
 from ..utils.device import resolve_device
 
 __all__ = [
@@ -143,6 +154,26 @@ def _chunked_forward(model_call, tiles, batch: int):
     return torch.cat(outs)
 
 
+def _forward(model_call, tiles, batch: int, mesh):
+    """``_chunked_forward`` of the whole stack, or with a mesh of each
+    device's share of it (zero tiles pad T to a device multiple and are
+    cropped after), gathered on the mesh's first device."""
+    if mesh is None:
+        return _chunked_forward(model_call, tiles, batch)
+    t, k = tiles.shape[0], mesh.size
+    if t % k:
+        tiles = torch.cat([tiles, tiles.new_zeros((k - t % k,) + tuple(tiles.shape[1:]))])
+    on = getattr(model_call, "on", None)
+    out = forward_over_mesh(
+        mesh, lambda d, share: _chunked_forward(on(d) if on else model_call, share, batch),
+        tiles)
+    return out[:t]
+
+
+def _runner_device(device, mesh):
+    return resolve_device(mesh.primary if mesh is not None else device)
+
+
 def _quantize(out01, out_dtype: str):
     """'uint8_floor' = clip(p·255) without +0.5 (evaluation_704.py:120);
     'uint8_round' = clip(p·255 + 0.5); 'float32' passes through."""
@@ -188,11 +219,11 @@ class _PyramidGeometry:
         return canvas * self.inv_contrib
 
 
-def _run_frames(geo, model_call, frames255, batch, out_dtype, device):
+def _run_frames(geo, model_call, frames255, batch, out_dtype, device, mesh):
     imgs = torch.as_tensor(frames255).to(device).float() / 255.0  # [F,H,W]
     tiles = geo.gather(imgs)                                     # [F,T,ps,ps]
     f, t, ps = tiles.shape[0], tiles.shape[1], geo.ps
-    preds = _chunked_forward(model_call, tiles.reshape(f * t, 1, ps, ps), batch)
+    preds = _forward(model_call, tiles.reshape(f * t, 1, ps, ps), batch, mesh)
     preds = preds.reshape(f, t, ps, ps).float()
     l1 = torch.mean(torch.abs(preds - tiles), dim=(2, 3)).mean(dim=1)
     return _quantize(geo.blend(preds), out_dtype), l1
@@ -200,19 +231,20 @@ def _run_frames(geo, model_call, frames255, batch, out_dtype, device):
 
 def make_tiled_pyramid_runner(
     model_call: Callable, h: int, w: int, ps: int = 352, overlap: int = 64,
-    batch: int = 0, *, out_dtype: str = "float32", device="cuda",
+    batch: int = 0, *, out_dtype: str = "float32", device="cuda", mesh=None,
 ):
-    """frame [H, W] in [0, 255] → (pred [H, W], mean tile L1), on ``device``.
+    """frame [H, W] in [0, 255] → (pred [H, W], mean tile L1), on ``device``
+    (with a ``mesh``, on its first device, the tiles split over it).
 
     ``out_dtype`` in {'float32', 'uint8_floor', 'uint8_round'}.
     """
-    dev = resolve_device(device)
+    dev = _runner_device(device, mesh)
     geo = _PyramidGeometry(h, w, ps, overlap, dev)
 
     @torch.inference_mode()
     def run(noisy255):
         out, l1 = _run_frames(geo, model_call, torch.as_tensor(noisy255)[None],
-                              batch, out_dtype, dev)
+                              batch, out_dtype, dev, mesh)
         return out[0], l1[0]
 
     return run
@@ -221,16 +253,17 @@ def make_tiled_pyramid_runner(
 def make_tiled_pyramid_runner_frames(
     model_call: Callable, n_frames: int, h: int, w: int, ps: int = 352,
     overlap: int = 64, batch: int = 0, *, out_dtype: str = "float32",
-    device="cuda",
+    device="cuda", mesh=None,
 ):
     """Frame-batched variant: [F, H, W] in [0, 255] → ([F, H, W] pred, [F] L1).
 
     All F·T tiles run through ``_chunked_forward`` as one stack (``batch=-k``
-    for k-tile chunks: the serving shape is F=8, k=8) and the blends run
-    over all frames at once. Frames may be a numpy array or a tensor on any
-    device; results stay on ``device``.
+    for k-tile chunks: the serving shape is F=8, k=8; with a ``mesh``, each
+    device's share of it) and the blends run over all frames at once.
+    Frames may be a numpy array or a tensor on any device; results stay on
+    ``device`` (the mesh's first device).
     """
-    dev = resolve_device(device)
+    dev = _runner_device(device, mesh)
     geo = _PyramidGeometry(h, w, ps, overlap, dev)
 
     @torch.inference_mode()
@@ -239,7 +272,7 @@ def make_tiled_pyramid_runner_frames(
         if tuple(frames.shape) != (n_frames, h, w):
             raise ValueError(f"expected frames of shape {(n_frames, h, w)}, "
                              f"got {tuple(frames.shape)}")
-        return _run_frames(geo, model_call, frames, batch, out_dtype, dev)
+        return _run_frames(geo, model_call, frames, batch, out_dtype, dev, mesh)
 
     return run
 
@@ -252,6 +285,7 @@ def denoise_tiled_pyramid(
     batch: int = 0,
     out_dtype: str = "float32",
     device="cuda",
+    mesh=None,
 ):
     """Tiled-352 pyramid-blend full-frame denoise (evaluation_704.py engine).
 
@@ -264,7 +298,7 @@ def denoise_tiled_pyramid(
         raise ValueError("tiled pyramid eval is single-channel")
     h, w = noisy.shape
     run = make_tiled_pyramid_runner(model_call, h, w, ps, overlap, batch,
-                                    out_dtype=out_dtype, device=device)
+                                    out_dtype=out_dtype, device=device, mesh=mesh)
     out, l1 = run(noisy)
     return out.cpu().numpy(), float(l1)
 
@@ -305,36 +339,37 @@ class _HannGeometry:
 
 
 def _run_hann_frames(geo, model_call, frames255, batch, out_dtype, device,
-                     pre_tile_fn):
+                     pre_tile_fn, mesh):
     imgs = torch.as_tensor(frames255).to(device).float() / 255.0  # [F,H,W]
     tiles = geo.gather(imgs)                                     # [F,T,ps,ps]
     f, t, ps = tiles.shape[0], tiles.shape[1], geo.ps
     tiles = tiles.reshape(f * t, 1, ps, ps)
     if pre_tile_fn is not None:
         tiles = pre_tile_fn(tiles)
-    preds = _chunked_forward(model_call, tiles, batch)[:, 0]
+    preds = _forward(model_call, tiles, batch, mesh)[:, 0]
     return _quantize(geo.blend(preds.reshape(f, t, ps, ps)), out_dtype)
 
 
 def make_tiled_hann_runner(
     model_call: Callable, h: int, w: int, ps: int = 128, overlap: int = 64,
     batch: int = 0, *, out_dtype: str = "float32",
-    pre_tile_fn: Optional[Callable] = None, device="cuda",
+    pre_tile_fn: Optional[Callable] = None, device="cuda", mesh=None,
 ):
-    """frame [H, W] in [0, 255] → pred [H, W], on ``device``.
+    """frame [H, W] in [0, 255] → pred [H, W], on ``device`` (with a
+    ``mesh``, on its first device, the tiles split over it).
 
     ``pre_tile_fn(tiles) -> tiles'`` runs once on the whole NCHW
-    ``[T, 1, ps, ps]`` stack before the chunked forward; ``model_call``
-    then takes chunks of what it returns and gives NCHW predictions, of
-    which channel 0 is blended.
+    ``[T, 1, ps, ps]`` stack before the chunked forward, on the first
+    device; ``model_call`` then takes chunks of what it returns and gives
+    NCHW predictions, of which channel 0 is blended.
     """
-    dev = resolve_device(device)
+    dev = _runner_device(device, mesh)
     geo = _HannGeometry(h, w, ps, overlap, dev)
 
     @torch.inference_mode()
     def run(noisy255):
         return _run_hann_frames(geo, model_call, torch.as_tensor(noisy255)[None],
-                                batch, out_dtype, dev, pre_tile_fn)[0]
+                                batch, out_dtype, dev, pre_tile_fn, mesh)[0]
 
     return run
 
@@ -342,15 +377,16 @@ def make_tiled_hann_runner(
 def make_tiled_hann_runner_frames(
     model_call: Callable, n_frames: int, h: int, w: int, ps: int = 128,
     overlap: int = 64, batch: int = 0, *, out_dtype: str = "float32",
-    pre_tile_fn: Optional[Callable] = None, device="cuda",
+    pre_tile_fn: Optional[Callable] = None, device="cuda", mesh=None,
 ):
     """Frame-batched Hann variant: [F, H, W] in [0, 255] → [F, H, W] pred.
 
     All F·T tiles go through ``pre_tile_fn`` once and through
     ``_chunked_forward`` as one stack (``batch=-k`` for k-tile chunks: the
-    serving shape is F=4, k=8); the blends run over all frames at once.
+    serving shape is F=4, k=8; with a ``mesh``, each device's share of the
+    stack); the blends run over all frames at once.
     """
-    dev = resolve_device(device)
+    dev = _runner_device(device, mesh)
     geo = _HannGeometry(h, w, ps, overlap, dev)
 
     @torch.inference_mode()
@@ -360,7 +396,7 @@ def make_tiled_hann_runner_frames(
             raise ValueError(f"expected frames of shape {(n_frames, h, w)}, "
                              f"got {tuple(frames.shape)}")
         return _run_hann_frames(geo, model_call, frames, batch, out_dtype, dev,
-                                pre_tile_fn)
+                                pre_tile_fn, mesh)
 
     return run
 
@@ -374,6 +410,7 @@ def denoise_tiled_hann(
     out_dtype: str = "float32",
     pre_tile_fn: Optional[Callable] = None,
     device="cuda",
+    mesh=None,
 ):
     """Hann²-blended patchwise denoise (denoise_full_image_patchwise engine).
 
@@ -388,5 +425,5 @@ def denoise_tiled_hann(
     h, w = noisy.shape
     run = make_tiled_hann_runner(model_call, h, w, ps, overlap, batch,
                                  out_dtype=out_dtype, pre_tile_fn=pre_tile_fn,
-                                 device=device)
+                                 device=device, mesh=mesh)
     return run(noisy).cpu().numpy()[..., None]

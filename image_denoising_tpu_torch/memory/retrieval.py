@@ -18,6 +18,14 @@ it runs ``top1_l2_retrieval_reference``. There is no fallback on CUDA.
 ``top1_l2_retrieval.launches`` counts the calls that ran the kernel.
 Unlike the TPU kernel's grid, N need not be a multiple of a tile; rows
 padded by ``pad_bank_for_retrieval`` carry the worst norm and never win.
+
+``top1_l2_keys`` returns, instead of the index, the 64-bit key the kernel
+already computes for the winner: an order-preserving form of the distance
+in the high word and the row in the low word (``csrc/retrieval.cu``,
+``make_key``), here as int64 whose signed order is the lexicographic order
+of (distance, row). Keys from several banks compare directly, which is how
+``memory/sharded.py`` merges its shards exactly. It runs the same kernel,
+and its launches count in ``top1_l2_retrieval.launches``.
 """
 from __future__ import annotations
 
@@ -26,10 +34,16 @@ import ctypes
 import torch
 
 __all__ = [
+    "KEY_ROW_MASK",
     "pad_bank_for_retrieval",
+    "retrieval_queries",
+    "top1_l2_keys",
+    "top1_l2_keys_reference",
     "top1_l2_retrieval",
     "top1_l2_retrieval_reference",
 ]
+
+KEY_ROW_MASK = 0xFFFFFFFF  # a key's low word: the bank row
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -84,6 +98,28 @@ def _prepare(queries_flat, bank_flat, sq_norms):
     return queries_flat.to(bank_flat.dtype), sq_norms.to(torch.float32)
 
 
+def _plain_min(queries_flat, bank_flat, sq_norms, chunk: int = 4096):
+    """(least distance, first row reaching it) per query, in the arithmetic
+    of ``top1_l2_retrieval_reference``: the distance float32, or int32 for
+    int8 banks (exact, clamped to int32 as the kernel's key is)."""
+    q, sqn = _prepare(queries_flat, bank_flat, sq_norms)
+    if bank_flat.dtype == torch.int8:
+        qd = q.double()
+        n = bank_flat.shape[0]
+        dists = torch.empty((q.shape[0], n), dtype=torch.float64, device=q.device)
+        for s in range(0, n, chunk):
+            blk = bank_flat[s : s + chunk].double()
+            dists[:, s : s + chunk] = sqn[s : s + chunk].double() - 2.0 * (qd @ blk.T)
+        idx = dists.argmin(dim=1)
+        best = dists.gather(1, idx[:, None])[:, 0]
+        info = torch.iinfo(torch.int32)
+        return best.clamp(info.min, info.max).to(torch.int32), idx
+    ab = q.float() @ bank_flat.float().T
+    dists = sqn[None, :] - 2.0 * ab
+    idx = dists.argmin(dim=1)
+    return dists.gather(1, idx[:, None])[:, 0], idx
+
+
 def top1_l2_retrieval_reference(queries_flat, bank_flat, sq_norms,
                                 chunk: int = 4096):
     """Plain PyTorch version.
@@ -94,17 +130,24 @@ def top1_l2_retrieval_reference(queries_flat, bank_flat, sq_norms,
     float64 over N-chunks of ``chunk`` rows, which is exact
     (|2ab| ≤ 2·D·128² < 2⁵³) and keeps the float64 copy of the bank small.
     """
-    q, sqn = _prepare(queries_flat, bank_flat, sq_norms)
-    if bank_flat.dtype == torch.int8:
-        qd = q.double()
-        n = bank_flat.shape[0]
-        dists = torch.empty((q.shape[0], n), dtype=torch.float64, device=q.device)
-        for s in range(0, n, chunk):
-            blk = bank_flat[s : s + chunk].double()
-            dists[:, s : s + chunk] = sqn[s : s + chunk].double() - 2.0 * (qd @ blk.T)
-        return dists.argmin(dim=1).to(torch.int32)
-    ab = q.float() @ bank_flat.float().T
-    return (sqn[None, :] - 2.0 * ab).argmin(dim=1).to(torch.int32)
+    return _plain_min(queries_flat, bank_flat, sq_norms, chunk)[1].to(torch.int32)
+
+
+def _encode_keys(dist, rows):
+    """(distance, row) → int64 keys in (distance, row) order: the distance's
+    order-preserving int32 (float32: its bits, the magnitude bits flipped
+    when negative, -0 taken as +0; int32: itself) times 2³² plus the row.
+    The kernel's key with its top bit flipped."""
+    if dist.dtype == torch.float32:
+        bits = torch.where(dist == 0, torch.zeros_like(dist), dist).view(torch.int32)
+        dist = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return dist.long() * (1 << 32) + rows.long()
+
+
+def top1_l2_keys_reference(queries_flat, bank_flat, sq_norms, chunk: int = 4096):
+    """Plain version of ``top1_l2_keys``: the winner's (distance, row) of
+    ``top1_l2_retrieval_reference`` as an int64 key."""
+    return _encode_keys(*_plain_min(queries_flat, bank_flat, sq_norms, chunk))
 
 
 def _top1_cuda(q, bank, sqn):
@@ -129,7 +172,14 @@ def _top1_cuda(q, bank, sqn):
         raise RuntimeError(f"top1_l2_retrieval kernel launch failed: CUDA error "
                            f"{err} (B={b}, N={n}, D={d}, bank {bank.dtype})")
     top1_l2_retrieval.launches += 1
-    return out
+    return keys, out
+
+
+def _on_device(queries_flat, bank_flat, sq_norms, what):
+    if bank_flat.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU, not {bank_flat.device}")
+    q, sqn = _prepare(queries_flat, bank_flat, sq_norms)
+    return _top1_cuda(q.contiguous(), bank_flat, sqn.contiguous())
 
 
 def top1_l2_retrieval(queries_flat, bank_flat, sq_norms):
@@ -143,11 +193,39 @@ def top1_l2_retrieval(queries_flat, bank_flat, sq_norms):
     """
     if bank_flat.device.type == "cpu":
         return top1_l2_retrieval_reference(queries_flat, bank_flat, sq_norms)
-    if bank_flat.device.type != "cuda":
-        raise ValueError(f"top1_l2_retrieval runs on CUDA or CPU, not "
-                         f"{bank_flat.device}")
-    q, sqn = _prepare(queries_flat, bank_flat, sq_norms)
-    return _top1_cuda(q.contiguous(), bank_flat, sqn.contiguous())
+    return _on_device(queries_flat, bank_flat, sq_norms, "top1_l2_retrieval")[1]
 
 
 top1_l2_retrieval.launches = 0
+
+
+def top1_l2_keys(queries, bank, sq_norms):
+    """The winner of ``top1_l2_retrieval`` as an int64 key [B]: signed order
+    = (distance, row) order, ``key & KEY_ROW_MASK`` = the row. Same operands
+    and regimes; a CPU tensor takes ``top1_l2_keys_reference``, a CUDA
+    tensor runs the retrieval kernel (one launch) or raises. Keys of one
+    query against different banks compare as their distances do, and on a
+    tie the lower row wins."""
+    if bank.device.type == "cpu":
+        return top1_l2_keys_reference(queries, bank, sq_norms)
+    keys = _on_device(queries, bank, sq_norms, "top1_l2_keys")[0]
+    return keys ^ torch.iinfo(torch.int64).min  # unsigned order → signed
+
+
+def retrieval_queries(noisy, bank_dtype, sq_norms=None, bank_flat=None):
+    """The query operand of a bank regime from patches in [0, 1] (any
+    shape, flattened per patch): centered int8 ``round(x·255) − 128`` for an
+    int8 bank (``torch.round`` rounds half to even, as ``jnp.round`` does:
+    for uint8-sourced tiles the distances are then exact integers), the
+    float patches otherwise. With ``bank_flat`` and no ``sq_norms`` it also
+    computes the norms; returns (queries, sq_norms)."""
+    flat = noisy.detach().reshape(noisy.shape[0], -1)
+    if bank_dtype == torch.int8:
+        q = (torch.round(flat * 255.0) - 128.0).to(torch.int8)
+        if sq_norms is None and bank_flat is not None:
+            bi = bank_flat.int()
+            sq_norms = (bi * bi).sum(dim=1, dtype=torch.int32)
+        return q, sq_norms
+    if sq_norms is None and bank_flat is not None:
+        sq_norms = (bank_flat.float() ** 2).sum(dim=1)
+    return flat, sq_norms

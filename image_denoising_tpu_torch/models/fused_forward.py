@@ -165,11 +165,18 @@ def make_fused_forward(model, device="cuda", dtype: Optional[torch.dtype] = None
     return fwd
 
 
-def make_forward(model, device="cuda", dtype: Optional[torch.dtype] = None):
+def make_forward(model, device="cuda", dtype: Optional[torch.dtype] = None,
+                 mesh=None):
     """``fwd(x)`` with the contract of ``model(x)`` (NCHW in and out) on
     ``device`` in the compute ``dtype`` (default float32), the forward every
     serving CLI and frozen base runs: ``make_fused_forward`` for an
     ImprovedUNet (the chain kernel), else the module itself.
+
+    With a ``mesh`` (``parallel.make_mesh``) it is a ``parallel.PerDevice``:
+    one such forward per distinct device of the mesh (the weights copied
+    once to each; a repeated device shares one copy), ``fwd.on(device)``
+    that device's forward, and ``fwd(x)`` the batch split over the mesh and
+    gathered on its first device; ``device`` is then not used.
 
     For UNet and RESNET the module is copied to the device once, in
     ``channels_last``, its weights cast to ``dtype`` (the convs would cast
@@ -177,6 +184,10 @@ def make_forward(model, device="cuda", dtype: Optional[torch.dtype] = None):
     so the input and every concatenation keep the JAX package's dtypes. The
     caller's module is not touched.
     """
+    if mesh is not None:
+        from ..parallel.mesh import PerDevice
+
+        return PerDevice(mesh, lambda d: make_forward(model, device=d, dtype=dtype))
     if isinstance(model, ImprovedUNet):
         return make_fused_forward(model, device=device, dtype=dtype)
     dev = resolve_device(device)

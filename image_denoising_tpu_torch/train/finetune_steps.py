@@ -10,6 +10,17 @@ in eager PyTorch and returns the metrics as device tensors, so the caller
 fetches them when it likes (the CLIs one step late); no op of a step waits
 for the card.
 
+``mesh=`` (``parallel.make_mesh``) makes a step data-parallel, as the JAX
+step under a sharded batch: the batch is split over the mesh, each device
+runs the frozen base (its own copy of the forward: the chain kernel for an
+ImprovedUNet) and the adapter (``wrapper.replica``) on its chunk, and the
+predictions are gathered on the first device, where the loss is taken over
+the whole batch (IQSL's Dice sums over it) and one backward leaves the
+global gradient on the adapter. A memory step retrieves its patches once,
+on the first device, over the whole batch, and splits them with the batch.
+With a sharded bank (``memory/sharded.py``, the wrapper's ``retrieval_fn``)
+the CLI keeps the batch whole, as JAX's ``queries_sharded=False`` does.
+
 Loss semantics:
 * plain — L1 + λ_grad·gradient (finetune.py:277-298)
 * iqsl  — + λ_iqsl·IQSL (finetune_iqsl.py / finetune_memory.py)
@@ -19,6 +30,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..losses import gradient_loss, iqsl_loss, l1_loss
+from ..parallel.mesh import forward_over_mesh
 from .state import TrainState
 from .steps import to_nchw01
 
@@ -39,14 +51,28 @@ def _total_loss(pred, clean01, lambda_grad, lambda_iqsl, iqsl_cfg):
     return total, {"l1": loss_l1, "grad": loss_grad, "iqsl": loss_iq}
 
 
-def _make_step(wrapper, state: TrainState, lambda_grad, lambda_iqsl, iqsl_cfg):
+def _predict(wrapper, mesh, noisy, bank):
+    """The wrapper's prediction of ``noisy``, on one device or over the mesh."""
+    if mesh is None:
+        return wrapper(noisy, *bank)
+    # every replica before any forward (as train/steps.py::_apply)
+    reps = {d: wrapper.replica(d) for d in mesh.distinct()}
+    if bank:
+        mem = wrapper.retrieve(noisy, *bank)
+        return forward_over_mesh(
+            mesh, lambda d, n, m: reps[d](n, mem_clean=m), noisy, mem)
+    return forward_over_mesh(mesh, lambda d, n: reps[d](n), noisy)
+
+
+def _make_step(wrapper, state: TrainState, lambda_grad, lambda_iqsl, iqsl_cfg,
+               mesh=None):
     device = next(wrapper.adapter.parameters()).device
     cfg = iqsl_cfg or {}
 
     def step(clean01, noisy01, *bank):
         clean = to_nchw01(clean01, device, scale=1.0)
         noisy = to_nchw01(noisy01, device, scale=1.0)
-        pred = wrapper(noisy, *bank)
+        pred = _predict(wrapper, mesh, noisy, bank)
         loss, parts = _total_loss(pred, clean, lambda_grad, lambda_iqsl, cfg)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -59,18 +85,19 @@ def _make_step(wrapper, state: TrainState, lambda_grad, lambda_iqsl, iqsl_cfg):
 
 def make_adapter_finetune_step(wrapper, state: TrainState, lambda_grad: float = 0.1,
                                lambda_iqsl: float = 0.0,
-                               iqsl_cfg: Optional[dict] = None):
+                               iqsl_cfg: Optional[dict] = None, mesh=None):
     """Step for ``DenoiserWithAdapter``: ``step(clean01, noisy01) ->
     {"loss", "l1", "grad", "iqsl"}``, batches NHWC in [0,1]; ``state`` is
-    ``create_train_state(wrapper.adapter, lr)``."""
-    return _make_step(wrapper, state, lambda_grad, lambda_iqsl, iqsl_cfg)
+    ``create_train_state(wrapper.adapter, lr)``; ``mesh``: data-parallel."""
+    return _make_step(wrapper, state, lambda_grad, lambda_iqsl, iqsl_cfg, mesh)
 
 
 def make_memory_finetune_step(wrapper, state: TrainState, lambda_grad: float = 0.1,
                               lambda_iqsl: float = 0.0,
-                              iqsl_cfg: Optional[dict] = None):
+                              iqsl_cfg: Optional[dict] = None, mesh=None):
     """Step for ``DenoiserWithMemoryAdapter``: ``step(clean01, noisy01,
     bank_noise_flat, bank_clean, bank_sq_norms) -> {"loss", "l1", "grad",
     "iqsl"}``, the banks device-resident. Each step retrieves its batch's
-    patches inside the forward: one retrieval launch on the card."""
-    return _make_step(wrapper, state, lambda_grad, lambda_iqsl, iqsl_cfg)
+    patches once: one retrieval launch on the card, or one per shard of a
+    sharded bank. ``mesh``: data-parallel."""
+    return _make_step(wrapper, state, lambda_grad, lambda_iqsl, iqsl_cfg, mesh)

@@ -13,6 +13,19 @@ JAX's ``lax.cond`` does. The N2N step uses no guard, as in JAX.
 [synthetic noise] → one call to the sub-sampler kernel → no-grad f(noisy)
 → f(sub1) → regularized loss → backward → Adam. Every forward runs the
 module (cuDNN on the card): the chain kernel has no backward, as in JAX.
+
+``mesh=`` (``parallel.make_mesh``) makes a step data-parallel, as the JAX
+step is under a sharded batch: the batch comes to the mesh's first device,
+is split into per-device chunks (``parallel.shard_batch``), each device
+runs the network on its chunk (``parallel.module_on``: differentiable
+copies of the parameters on another card, the module itself on the first),
+and the outputs are gathered back, where the loss is taken over the whole
+batch. One backward then leaves the global batch's gradient on the
+parameters, and Adam and the guard run there unchanged. No network of the
+repo has a batch statistic (GroupNorm is per sample), so a chunk's forward
+is the batch's, sample by sample. The N2N step draws its noise and runs
+the sub-sampler once on the first device over the whole batch (the draw is
+keyed by the image's index in the call), then splits.
 """
 from __future__ import annotations
 
@@ -24,6 +37,7 @@ import torch
 from ..losses import l1_loss, n2n_regularized_loss, structure_loss
 from ..ops.neighbor import generate_subimages, subsample_pair_fused
 from ..ops.rng import split_seed
+from ..parallel.mesh import forward_over_mesh, module_on
 from .state import TrainState
 
 __all__ = ["make_l1_train_step", "make_n2n_train_step", "make_structure_train_step",
@@ -41,6 +55,18 @@ def to_nchw01(batch, device: torch.device, scale: float = 255.0) -> torch.Tensor
         else:
             t = t.to(device)
     return t.permute(0, 3, 1, 2).float().contiguous() / scale
+
+
+def _apply(model, mesh, fn, *batch):
+    """``fn(net, *batch)`` with ``net`` the model, or over the mesh: each
+    device's chunk through ``fn(module_on(model, device), *chunk)``, the
+    outputs gathered on the first device. Every replica is made before any
+    forward runs: its parameter copies run on the first device's stream,
+    where they would wait behind that device's forward."""
+    if mesh is None:
+        return fn(model, *batch)
+    nets = {d: module_on(model, d) for d in mesh.distinct()}
+    return forward_over_mesh(mesh, lambda d, *c: fn(nets[d], *c), *batch)
 
 
 @torch.no_grad()
@@ -88,6 +114,7 @@ def make_structure_train_step(
     guards: bool = False,
     grad_clip: Optional[float] = None,
     fused: bool = True,
+    mesh=None,
 ):
     """A-domain trainer step (reference ``train.py:354-368``):
     ``step(clean255, noisy255) -> {"loss", "l1"}``, frames NHWC in [0,255].
@@ -97,19 +124,22 @@ def make_structure_train_step(
     (convs, pools and GroupNorm are per sample, the loss terms elementwise),
     with every conv at twice the batch. ``fused=False`` keeps the literal
     two forwards. ``l1`` is L1(network(noisy), clean), the log's ``Loss1``.
+    ``mesh``: data-parallel (module docstring); each device runs its
+    chunk's fused forward.
     """
     device = next(model.parameters()).device
+
+    def forward(net, noisy01, clean01):
+        if fused:
+            b = noisy01.shape[0]
+            both = net(torch.cat([noisy01, clean01], 0))
+            return both[:b], both[b:]
+        return net(noisy01), net(clean01)
 
     def step(clean255, noisy255):
         clean01 = to_nchw01(clean255, device)
         noisy01 = to_nchw01(noisy255, device)
-        if fused:
-            b = noisy01.shape[0]
-            both = model(torch.cat([noisy01, clean01], 0))
-            pred_n, pred_c = both[:b], both[b:]
-        else:
-            pred_n = model(noisy01)
-            pred_c = model(clean01)
+        pred_n, pred_c = _apply(model, mesh, forward, noisy01, clean01)
         loss = structure_loss(pred_n, pred_c, clean01, alpha, beta, gamma)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -126,12 +156,13 @@ def make_structure_train_step(
 
 
 def make_l1_train_step(model: torch.nn.Module, state: TrainState, guards: bool = True,
-                       grad_clip: Optional[float] = 1.0, inputs_01: bool = True):
+                       grad_clip: Optional[float] = 1.0, inputs_01: bool = True,
+                       mesh=None):
     """HPO trainer step (reference ``train_opt.py:118-160``): L1 loss and the
     full guard set; ``step(clean, noisy) -> {"loss", "grad_norm", "ok"}``.
 
     ``inputs_01``: the frames are already [0,1] floats (train_opt's
-    dataset); else [0,255].
+    dataset); else [0,255]. ``mesh``: data-parallel (module docstring).
     """
     device = next(model.parameters()).device
     scale = 1.0 if inputs_01 else 255.0
@@ -139,7 +170,7 @@ def make_l1_train_step(model: torch.nn.Module, state: TrainState, guards: bool =
     def step(clean, noisy):
         clean01 = to_nchw01(clean, device, scale)
         noisy01 = to_nchw01(noisy, device, scale)
-        loss = l1_loss(model(noisy01), clean01)
+        loss = l1_loss(_apply(model, mesh, lambda net, x: net(x), noisy01), clean01)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         gnorm, ok = _guarded_update(state, loss, grad_clip=grad_clip,
@@ -159,6 +190,7 @@ def make_n2n_train_step(
     subsample: Callable = subsample_pair_fused,
     lambda1: float = 1.0,
     lambda2: float = 1.0,
+    mesh=None,
 ):
     """``step(clean255, noisy255, seed, epoch) -> {"loss", "loss_rec",
     "loss_reg"}`` on ``state``; frames NHWC in [0,255], seed a 64-bit int.
@@ -168,7 +200,9 @@ def make_n2n_train_step(
     device) and a mask seed; without it the step trains on ``noisy255`` and
     the seed is the mask seed. ``subsample(seed, noisy01)`` returns
     ``(sub1, sub2, (sel1, sel2))``; it is the kernel's wrapper unless a test
-    injects selectors drawn elsewhere.
+    injects selectors drawn elsewhere. ``mesh``: data-parallel (module
+    docstring); the noise and the sub-sampler run once, over the whole
+    batch, on the first device, and both forwards split over the mesh.
     """
     device = next(model.parameters()).device
     gen = torch.Generator(device=device) if noise_fn is not None else None
@@ -185,10 +219,10 @@ def make_n2n_train_step(
         lam = float(np.float32(epoch) / np.float32(n_epoch) * np.float32(increase_ratio))
         sub1, sub2, (sel1, sel2) = subsample(mask_seed, noisy01)
         with torch.no_grad():
-            denoised = model(noisy01)
+            denoised = _apply(model, mesh, lambda net, x: net(x), noisy01)
             den_sub1 = generate_subimages(denoised, sel1)
             den_sub2 = generate_subimages(denoised, sel2)
-        pred = model(sub1)
+        pred = _apply(model, mesh, lambda net, x: net(x), sub1)
         total, (l_rec, l_reg) = n2n_regularized_loss(
             pred, sub2, den_sub1, den_sub2, lam, lambda1=lambda1, lambda2=lambda2)
         state.optimizer.zero_grad(set_to_none=True)

@@ -67,3 +67,25 @@ def seeded_network_params(arch: str, n_feature: int, seed: int, blindspot: bool 
         in_nc=in_nc, out_nc=in_nc, n_feature=n_feature, blindspot=blindspot)
     x = jax.ShapeDtypeStruct((1, size, size, in_nc), np.float32)
     return model, seeded_params(model, x, seed=seed)
+
+
+def patch_cpu_mesh(monkeypatch, k: int = 4):
+    """Send the port's ``make_mesh()`` (what the CLIs' ``--parallel`` and
+    ``--bank_sharded`` build) to k CPU devices, as the JAX tests run on 8
+    virtual CPU devices. Returns that mesh."""
+    from image_denoising_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.Mesh(["cpu"] * k)
+    monkeypatch.setattr(pmesh, "make_mesh", lambda n_devices=None, devices=None: mesh)
+    return mesh
+
+
+def same_files(dir_a, dir_b):
+    """Both directories hold the same file names with the same bytes."""
+    import os
+
+    names = sorted(os.listdir(dir_a))
+    assert names == sorted(os.listdir(dir_b))
+    for f in names:
+        with open(os.path.join(dir_a, f), "rb") as fa, open(os.path.join(dir_b, f), "rb") as fb:
+            assert fa.read() == fb.read(), f

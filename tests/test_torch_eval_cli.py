@@ -105,11 +105,15 @@ def test_eval704_host_workers_and_profile_dir(dataset_and_ckpt, tmp_path, capsys
 
 @pytest.mark.parametrize("flag", [["--parallel"], ["--blindspot"],
                                   ["--gpu_devices", "0,1"]])
-def test_eval704_refuses_flags_of_later_slices(dataset_and_ckpt, tmp_path, flag):
-    """--parallel and several cards wait for multi-device (ROADMAP.md queue
-    1 item 8) and raise. --blindspot, refused until the other networks were
-    ported, now runs: with --arch UNet on a blind-spot UNet-8 ``.pth`` the
-    port's E2 matches the JAX CLI within the limits of
+def test_eval704_refuses_flags_of_later_slices(dataset_and_ckpt, tmp_path, flag,
+                                               monkeypatch, capsys):
+    """Flags that waited for later slices now run. --parallel (multi-device)
+    splits each tile stack over a mesh of 4 CPU devices: at the pinned
+    1-tile chunks every PNG and metrics.txt equal the run without it,
+    frame by frame and in bursts. A --gpu_devices list runs on its first
+    device (here the CPU), with the same output. --blindspot, refused until
+    the other networks were ported: with --arch UNet on a blind-spot
+    UNet-8 ``.pth`` the port's E2 matches the JAX CLI within the limits of
     test_eval704_matches_jax_cli."""
     data, ckpt = dataset_and_ckpt
     if flag == ["--blindspot"]:
@@ -126,6 +130,17 @@ def test_eval704_refuses_flags_of_later_slices(dataset_and_ckpt, tmp_path, flag)
         assert abs(out["ssim"] - ref["ssim"]) <= 1e-4
         assert abs(out["l1"] - ref["l1"]) <= 1e-5
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval704.main(ARGS + ["--data_dir", data, "--checkpoint", ckpt,
-                             "--save_dir", str(tmp_path), "--device", "cpu"] + flag)
+    from _torch_port_helpers import patch_cpu_mesh, same_files
+
+    patch_cpu_mesh(monkeypatch, 4)
+    common = ARGS + ["--data_dir", data, "--checkpoint", ckpt, "--device", "cpu",
+                     "--tile_batch", "-1"]
+    for burst in ([], ["--frame_burst", "2"]):
+        tag = "burst" if burst else "frames"
+        ref = eval704.main(common + burst + ["--save_dir", str(tmp_path / f"ref_{tag}")])
+        capsys.readouterr()
+        out = eval704.main(common + burst + flag + ["--save_dir", str(tmp_path / tag)])
+        assert ("tile-parallel over 4 devices" in capsys.readouterr().out) == (
+            flag == ["--parallel"])
+        assert out == ref
+        same_files(tmp_path / tag, tmp_path / f"ref_{tag}")

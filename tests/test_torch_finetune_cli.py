@@ -3,7 +3,7 @@
 wrote: the files each role writes, JAX's ``load_checkpoint`` reading them,
 JAX's ``wrapper.apply`` on what it reads equal to the port's forward, the
 port's and JAX's E6 CLIs serving the ``adapter_only`` file the memory
-finetuner wrote, and the multi-device flags refused."""
+finetuner wrote, and the multi-device flags against the runs without them."""
 import glob
 import os
 
@@ -166,13 +166,36 @@ def test_train_resumes_from_a_jax_ckpt(data, tmp_path):
                                       ("finetune_memory", "--bank_sharded"),
                                       ("finetune", "--parallel"),
                                       ("finetune_iqsl", "--parallel")])
-def test_finetune_clis_refuse_multi_device_flags(data, tmp_path, cli, flag):
+def test_finetune_clis_refuse_multi_device_flags(data, tmp_path, cli, flag, monkeypatch,
+                                                 capsys):
+    """The multi-device flags, refused until multi-device was ported, now
+    run over a mesh of 4 CPU devices. --parallel splits each batch of 4
+    (and the tail of 2) over the devices: the adapter after the epoch
+    equals the single-device run's within 1e-5, the bound JAX's own
+    data-parallel test holds a step to (tests/test_train.py:194-200).
+    --bank_sharded keeps the batch whole and retrieves through the sharded
+    bank's key merge: the same patches, so the adapter is bit-equal."""
+    from _torch_port_helpers import patch_cpu_mesh
+
+    patch_cpu_mesh(monkeypatch, 4)
     main = {"finetune": finetune.main, "finetune_iqsl": finetune_iqsl.main,
             "finetune_memory": finetune_memory.main}[cli]
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        main(ARGS + [flag, "--data_dir", data["root"], "--pretrained_ckpt",
-                     data["base_ckpt"], "--save_model_path", str(tmp_path)])
-    assert os.listdir(tmp_path) == []
+    args = ARGS + ["--data_dir", data["root"], "--pretrained_ckpt", data["base_ckpt"]]
+    if cli == "finetune_memory":
+        args += ["--memory_stride", "16"]
+    ref = main(args + ["--save_model_path", str(tmp_path / "ref")])
+    capsys.readouterr()
+    out = main(args + [flag, "--save_model_path", str(tmp_path / "out")])
+    said = capsys.readouterr().out
+    assert (("data-parallel over 4 devices" in said) == (flag == "--parallel")
+            and ("sharded over 4 devices" in said) == (flag == "--bank_sharded"))
+    assert int(out.step) == int(ref.step) == 3
+    for a, b in zip(out.model.parameters(), ref.model.parameters()):
+        if flag == "--bank_sharded":
+            assert torch.equal(a, b)
+        else:
+            np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=1e-5)
+            np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=1e-5)
 
 
 def test_e2_cli_takes_a_ckpt(data, tmp_path):

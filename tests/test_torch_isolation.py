@@ -45,7 +45,8 @@ def test_port_modules_import_no_jax():
                 "cli.evaluation_704_iqsl", "cli.evaluation_adapter",
                 "cli.evaluation_adapter_iqsl", "metrics.device", "cli.train_opt",
                 "hpo.engine", "hpo.benchmark", "models.unet", "models.resnet",
-                "models.init", "models.layers", "ops.space_to_depth"):
+                "models.init", "models.layers", "ops.space_to_depth",
+                "parallel.mesh", "parallel.dryrun", "memory.sharded"):
         assert f"image_denoising_tpu_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
@@ -62,6 +63,7 @@ def _entry_points():
     from image_denoising_tpu_torch.models import (RESNET, ImprovedUNet, UNet, make_forward,
                                                   make_fused_forward)
     from image_denoising_tpu_torch.ops.neighbor import generate_mask_pair
+    from image_denoising_tpu_torch.parallel import make_mesh
 
     frame = np.zeros((32, 32), np.uint8)
     return {
@@ -108,6 +110,11 @@ def _entry_points():
         "evaluation_adapter_iqsl": lambda: evaluation_adapter_iqsl.main(
             ["--base_ckpt", "b.pth", "--adapter_ckpt", "a.pth", "--data_dir", "missing"]),
         "train_opt": lambda: train_opt.main(["--data_dir", "missing"]),
+        "make_mesh": lambda: make_mesh(),
+        "train_parallel": lambda: train.main(["--parallel", "--data_dir", "missing"]),
+        "evaluation_704_iqsl_memory_bank_sharded": lambda: evaluation_704_iqsl_memory.main(
+            ["--data_dir", "missing", "--base_ckpt", "b.pth", "--adapter_ckpt", "a.pth",
+             "--bank_sharded"]),
     }
 
 
@@ -121,7 +128,9 @@ def _entry_points():
                                   "denoise_whole_frame", "evaluation",
                                   "evaluation_704_iqsl", "denoise", "evaluation_adapter",
                                   "evaluation_adapter_iqsl", "train_opt",
-                                  "make_forward_unet", "make_forward_resnet"])
+                                  "make_forward_unet", "make_forward_resnet",
+                                  "make_mesh", "train_parallel",
+                                  "evaluation_704_iqsl_memory_bank_sharded"])
 def test_entry_points_default_to_cuda(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():

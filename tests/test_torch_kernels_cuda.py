@@ -681,3 +681,118 @@ def test_network_forward_on_card_matches_float64(cuda, arch, blindspot):
 
     d = np.abs(levels(got) - levels(want))
     assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (d.max(), (d > 0).mean())
+
+
+def _sharded_case(regime, device, b=5, n=1000, ps=8):
+    """A bank of ``n`` 8×8 patches with row 700 a copy of row 300, as a
+    ``MemoryBank`` on ``device``, and queries [B, 8, 8, 1] in [0, 1] (query
+    0 that row): uint8-exact values, so the int8 regime's centered bytes
+    are the same patches."""
+    from image_denoising_tpu_torch.memory import MemoryBank
+
+    g = torch.Generator().manual_seed(8)
+    rows = torch.randint(0, 256, (n, ps * ps), generator=g).float() / 255
+    rows[700] = rows[300]
+    pick = torch.randint(0, n, (b,), generator=g)
+    q = torch.clamp(rows[pick] + torch.randint(-3, 4, (b, ps * ps), generator=g) / 255, 0, 1)
+    q[0] = rows[300]
+    if regime == "int8":
+        noise = (torch.round(rows * 255) - 128).to(torch.int8)
+        sqn = (noise.int() ** 2).sum(1, dtype=torch.int32)
+    else:
+        noise = rows.to(getattr(torch, regime))
+        sqn = (noise.float() ** 2).sum(1)
+    clean = torch.rand((n, ps, ps, 1), generator=g)
+    bank = MemoryBank(noise.to(device), clean.to(device), sqn.to(device), ps, 4)
+    return q.reshape(b, ps, ps, 1).to(device), bank
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["float32", "bfloat16", "int8"])
+def test_top1_l2_keys_kernel_matches_plain_version(cuda, regime):
+    """The kernel's keys: the low words are the plain indices (the picks
+    are decisive, as in test_top1_l2_retrieval_kernel_matches_plain_version),
+    int8 keys equal the plain version's bit for bit (exact distances), and
+    one launch a call."""
+    from image_denoising_tpu_torch.memory.retrieval import (KEY_ROW_MASK, top1_l2_keys,
+                                                            top1_l2_keys_reference)
+
+    q, bank, sqn = _retrieval_case(regime, cuda, b=257)
+    before = top1_l2_retrieval.launches
+    keys = top1_l2_keys(q, bank, sqn)
+    torch.cuda.synchronize()
+    assert top1_l2_retrieval.launches == before + 1 and keys.dtype == torch.int64
+    want = top1_l2_keys_reference(q, bank, sqn)
+    torch.testing.assert_close(keys & KEY_ROW_MASK, want & KEY_ROW_MASK, atol=0, rtol=0)
+    assert int(keys[0] & KEY_ROW_MASK) == 300
+    if regime == "int8":
+        torch.testing.assert_close(keys, want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["float32", "bfloat16", "int8"])
+def test_sharded_retrieval_on_one_card(cuda, regime):
+    """The bank sharded over ``[cuda:0] * 3`` (rows 300 and 700, copies of
+    each other, on shards 0 and 2): three kernel launches a call, the
+    patches of the unsharded kernel, and the duplicate's first row wins."""
+    from image_denoising_tpu_torch.adapters import select_memory_patch
+    from image_denoising_tpu_torch.memory import make_ring_retrieval, shard_bank
+    from image_denoising_tpu_torch.parallel import make_mesh
+
+    q, bank = _sharded_case(regime, cuda)
+    mesh = make_mesh(devices=[cuda] * 3)
+    sb = shard_bank(bank, mesh)
+    assert 300 // sb.n_local == 0 and 700 // sb.n_local == 2
+    want = select_memory_patch(q, bank.noise_flat, bank.clean, bank.sq_norms)
+    before = top1_l2_retrieval.launches
+    got = make_ring_retrieval(mesh)(q, sb.noise_flat, sb.clean, sb.sq_norms)
+    torch.cuda.synchronize()
+    assert top1_l2_retrieval.launches == before + 3
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(got[0], bank.clean[300], atol=0, rtol=0)
+
+
+def test_wrappers_launch_on_their_tensors_device_and_stream(monkeypatch):
+    """Each kernel wrapper makes the tensor's own device current and
+    launches on that device's current stream (no default device, no
+    device-wide stream), as a launch on a card other than ``cuda:0`` needs.
+    Run on the CPU with the CUDA runtime and the libraries mocked and
+    tensors on the ``meta`` device, which stands for a second card."""
+    import contextlib
+
+    from image_denoising_tpu_torch.memory import retrieval
+    from image_denoising_tpu_torch.ops import _build, fused_block, neighbor
+
+    entered, asked = [], []
+
+    @contextlib.contextmanager
+    def device(d):
+        entered.append(torch.device(d))
+        yield
+
+    class Stream:
+        def __init__(self, d):
+            asked.append(torch.device(d))
+            self.cuda_stream = 7000 + len(str(d))
+
+    streams = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: streams.append(args[-1].value) or 0
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    for loader in ("load_retrieval", "load_neighbor", "load_fused_block"):
+        monkeypatch.setattr(_build, loader, lambda: Lib())
+    meta = torch.device("meta")
+
+    retrieval._top1_cuda(torch.empty(8, 64, device=meta), torch.empty(100, 64, device=meta),
+                         torch.empty(100, device=meta))
+    neighbor._subsample_cuda(3, torch.empty(2, 1, 16, 16, device=meta))
+    wts = FusedChainWeights.from_modules(RDB(16), res=ResBlock(16), dtype=torch.float32,
+                                         device=meta)
+    fused_block._fused_rdb_chain_cuda(torch.empty(2, 8, 8, 16, device=meta), wts, 32, 4)
+    assert entered and all(d == meta for d in entered)
+    assert asked and all(d == meta for d in asked)
+    assert streams and set(streams) == {7000 + len("meta")}

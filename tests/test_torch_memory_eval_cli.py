@@ -126,7 +126,22 @@ def test_e6_device_metrics_and_host_workers(dataset_and_ckpts, tmp_path, capsys)
 
 @pytest.mark.parametrize("flag", [["--parallel"], ["--bank_sharded"],
                                   ["--gpu_devices", "0,1"]])
-def test_e6_refuses_flags_of_later_slices(dataset_and_ckpts, tmp_path, flag):
+def test_e6_refuses_flags_of_later_slices(dataset_and_ckpts, tmp_path, flag, monkeypatch):
+    """The multi-device flags, refused until multi-device was ported, now
+    run over a mesh of 4 CPU devices: --parallel splits each tile stack,
+    --bank_sharded splits both banks too (the hoisted retrieval through the
+    sharded bank's key merge), a --gpu_devices list runs on its first
+    device. At pinned 1-tile chunks the PNGs and metrics equal the run
+    without the flag, frame by frame and in bursts."""
+    from _torch_port_helpers import patch_cpu_mesh, same_files
+
+    patch_cpu_mesh(monkeypatch, 4)
     data, ckpts = dataset_and_ckpts
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        e6.main(_args(data, ckpts, "torch", tmp_path, *flag))
+    for burst in ([], ["--frame_burst", "2"]):
+        tag = "burst" if burst else "frames"
+        ref = e6.main(_args(data, ckpts, "torch", tmp_path / f"ref_{tag}",
+                            "--tile_batch", "-1", *burst))
+        out = e6.main(_args(data, ckpts, "torch", tmp_path / tag,
+                            "--tile_batch", "-1", *burst, *flag))
+        assert out == ref
+        same_files(tmp_path / tag, tmp_path / f"ref_{tag}")

@@ -271,21 +271,35 @@ def _other_network_cli_matches_jax(data, tmp_path, cli):
     ("evaluation_adapter_iqsl", ["--parallel"]),
     ("evaluation_adapter", ["--arch", "UNet"]),
 ])
-def test_serving_clis_refuse_flags_of_later_slices(data, tmp_path, cli, flag):
-    """Flags that wait for multi-device (ROADMAP.md queue 1 item 8) raise.
-    The other networks' flags, refused until those networks were ported,
-    now run and match the JAX CLI (``_other_network_cli_matches_jax``):
-    ``--blindspot`` in E1 and denoise, ``--arch UNet`` in E4."""
+def test_serving_clis_refuse_flags_of_later_slices(data, tmp_path, cli, flag,
+                                                   monkeypatch):
+    """Flags that waited for multi-device now run over a mesh of 4 CPU
+    devices and give the output of the run without them, byte for byte:
+    ``denoise --parallel`` splits each burst's tile stack (1-tile chunks),
+    E4/E5 ``--parallel`` run the frames in groups of 4, one per device,
+    and E1's ``--gpu_devices`` list runs on its first device. The other
+    networks' flags, refused until those networks were ported, now run and
+    match the JAX CLI (``_other_network_cli_matches_jax``): ``--blindspot``
+    in E1 and denoise, ``--arch UNet`` in E4."""
     if flag in (["--blindspot"], ["--arch", "UNet"]):
         _other_network_cli_matches_jax(data, tmp_path, cli)
         return
+    from _torch_port_helpers import patch_cpu_mesh, same_files
+
+    patch_cpu_mesh(monkeypatch, 4)
     ckpt = {"evaluation": ["--checkpoint", data["base"], "--data_dir", data["root"]],
-            "denoise": ["--checkpoint", data["base"], "--input_dir", data["root"]],
+            "denoise": ["--checkpoint", data["base"], "--tile_batch", "-1",
+                        "--input_dir", os.path.join(data["root"], "noise")],
             "evaluation_adapter": ["--ckpt", data["combined"], "--data_dir", data["root"]],
             "evaluation_adapter_iqsl": ["--base_ckpt", data["base"], "--adapter_ckpt",
                                         data["adapter"], "--data_dir", data["root"]]}[cli]
     main = {"evaluation": evaluation.main, "denoise": denoise.main,
             "evaluation_adapter": evaluation_adapter.main,
             "evaluation_adapter_iqsl": evaluation_adapter_iqsl.main}[cli]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-        main(ckpt + CPU + ["--n_feature", "8", "--save_dir", str(tmp_path)] + flag)
+    args = ckpt + CPU + ["--n_feature", "8"]
+    if cli.startswith("evaluation_adapter"):
+        args += ["--adapter_hidden", "8"]
+    ref = main(args + ["--save_dir", str(tmp_path / "ref")])
+    out = main(args + ["--save_dir", str(tmp_path / "out")] + flag)
+    assert out == ref
+    same_files(tmp_path / "out", tmp_path / "ref")

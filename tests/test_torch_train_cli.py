@@ -224,19 +224,45 @@ def _other_network_matches_jax_cli(data_dir, tmp_path, capsys, flags):
     ["--gpu_devices", "0,1"],
 ])
 def test_train_cli_refuses_flags_of_later_slices(data_dir, data_dir64, tmp_path, capsys,
-                                                 flags):
-    """--parallel and several cards wait for multi-device (ROADMAP.md queue
-    1 item 8) and raise before writing anything. --blindspot (with --arch
-    UNet) and --arch RESNET, refused until those networks were ported, now
-    train and match the JAX CLI (``_other_network_matches_jax_cli``)."""
+                                                 flags, monkeypatch):
+    """--parallel, refused until multi-device was ported, now makes each
+    step data-parallel over a mesh of 4 CPU devices (batch 2: two chunks of
+    one): the N2N run's two logged steps equal the single-device run's
+    within 1e-5, the bound of JAX's own data-parallel test
+    (tests/test_train.py:194-200), and so does every gradient of a step
+    (the parameters' ``.grad`` after a one-step run). The parameters are
+    not compared: Adam's update g/(|g| + 1e-8) turns the rounding of a
+    gradient within 1e-8 of 0 into up to lr of difference. A
+    --gpu_devices list runs on its first device (the CPU here): the same
+    run. --blindspot (with --arch UNet) and --arch RESNET, refused until
+    those networks were ported, now train and match the JAX CLI
+    (``_other_network_matches_jax_cli``)."""
     if flags in (["--blindspot"], ["--arch", "RESNET"]):
         _other_network_matches_jax_cli(data_dir64, tmp_path, capsys, flags)
         return
-    args = ["--device", "cpu", "--loss", "n2n", "--data_dir", data_dir,
-            "--save_model_path", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(args + flags)
-    assert os.listdir(tmp_path) == []
+    from _torch_port_helpers import patch_cpu_mesh
+
+    patch_cpu_mesh(monkeypatch, 4)
+    args = ["--device", "cpu", "--loss", "n2n", "--data_dir", data_dir, "--arch",
+            "UNetImproved", "--n_feature", "8", "--batchsize", "2", "--n_epoch", "1"]
+    runs = {}
+    for name, extra in (("ref", []), ("out", flags)):
+        for steps in ("1", "2"):
+            capsys.readouterr()
+            state = train.main(args + extra + ["--max_steps_per_epoch", steps,
+                                               "--save_model_path",
+                                               str(tmp_path / name / steps)])
+            said = capsys.readouterr().out
+            runs[name, steps] = (state, STEP_LINE.findall(said), said)
+    assert ("data-parallel over 4 devices" in runs["out", "2"][2]) == (flags == ["--parallel"])
+    lines, lines_ref = runs["out", "2"][1], runs["ref", "2"][1]
+    assert len(lines) == len(lines_ref) == 2
+    got = np.array([[float(a), float(b)] for _, _, a, b in lines])
+    want = np.array([[float(a), float(b)] for _, _, a, b in lines_ref])
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    for a, b in zip(runs["out", "1"][0].model.parameters(),
+                    runs["ref", "1"][0].model.parameters()):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=1e-5)
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,8 @@
 (2 trials on 48² frames, then the final retrain), its init snapshots read
 by the JAX package and their ``w0_sum`` against JAX's first flax leaf, a
 trial's loss reproduced from its snapshot, the tuning loop against the JAX
-package's from one shared snapshot, and the refused ``--parallel``."""
+package's from one shared snapshot, and JAX's ``--parallel`` and
+``--gpu_devices`` launch flags."""
 import glob
 import json
 import os
@@ -10,6 +11,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 import pytest
 
 from image_denoising_tpu import train as jax_train
@@ -192,7 +194,34 @@ def test_two_jobs_train_trials_in_threads(tmp_path):
     assert len(open(tmp_path / "trials.log").read().splitlines()) == 2
 
 
-def test_parallel_is_refused(tmp_path):
-    for flags in (["--parallel"], ["--gpu_devices", "0,1"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_opt.main(["--data_dir", str(tmp_path), "--device", "cpu", *flags])
+def test_parallel_is_refused(tmp_path, monkeypatch):
+    """``--parallel``, refused until multi-device was ported, is parsed and
+    has no effect, as in the JAX CLI, and a ``--gpu_devices`` list is taken:
+    JAX's launch flags run, with the same trials, values and snapshots as
+    the run without them. The list places trials round-robin on its cards
+    (``trial_devices``, read here with three cards made visible); a single
+    index leaves every visible card in the rotation."""
+    _png_pairs(tmp_path / "data", 2, 48, 5)
+    args = ["--data_dir", str(tmp_path / "data"), "--device", "cpu", "--n_trials", "2",
+            "--tune_epochs", "1", "--n_epoch", "1", "--batchsize", "2"]
+    studies = {}
+    for name, flags in (("ref", []), ("par", ["--parallel", "--gpu_devices", "0,1"])):
+        studies[name] = train_opt.main(args + flags + [
+            "--storage", f"sqlite:///{tmp_path / name}.db",
+            "--trials_log", str(tmp_path / f"{name}.log"),
+            "--save_model_path", str(tmp_path / name)])
+    for a, b in zip(studies["par"].trials, studies["ref"].trials):
+        assert (a.params, a.value, a.user_attrs["w0_sum"]) == \
+            (b.params, b.value, b.user_attrs["w0_sum"])
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+
+    def placed(*flags):
+        devs = train_opt.trial_devices(train_opt.parse_args(["--data_dir", "d", *flags]))
+        return [str(d) for d in devs]
+
+    assert placed("--gpu_devices", "2,0") == ["cuda:2", "cuda:0"]
+    assert placed() == placed("--gpu_devices", "1") == ["cuda:0", "cuda:1", "cuda:2"]
+    with pytest.raises(RuntimeError, match="only 3 cards"):
+        placed("--gpu_devices", "0,3")
