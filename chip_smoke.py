@@ -8,7 +8,8 @@
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device  — the card's name and power limit.
   2. build   — nvcc builds csrc/fused_block.cu, csrc/retrieval.cu and
-               csrc/neighbor.cu for sm_90a, all at once (seconds printed).
+               csrc/neighbor.cu for sm_90a and g++ the host patch sampler
+               csrc/patch_sampler.cpp, all at once (seconds printed).
   3. kernels — each kernel against its plain PyTorch version (TF32 off),
                with its route (wgmma bf16, wgmma s8, 3xTF32 for float32,
                CUDA cores) and the earlier CUDA-core kernel's time (PERF.md):
@@ -107,9 +108,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                parts, peak GB, one profiled step's busy share and kernel
                launches. Then cli.finetune, cli.finetune_iqsl and
                cli.finetune_memory for 1 epoch of --patches_per_image 2 (a
-               tail batch) over the .ckpt base, and the E6 CLI serving the
-               adapter_only .ckpt the memory finetuner wrote.
-  10. serving — the serving CLIs through their main, with PyTorch's default
+               tail batch) over the .ckpt base, each on the native patch
+               stream, and the E6 CLI serving the adapter_only .ckpt the
+               memory finetuner wrote.
+  10. data   — the finetuners' patch stream: the native sampler
+               (csrc/patch_sampler.cpp) bit-equal to its plain numpy version
+               over every batch of one shuffled epoch at the finetune preset
+               (5 seeded 704² uint8 pairs, patch 128, batch 4, 16 patches a
+               pair: 20 batches) through DenoisePatchDataset.batches, with 1
+               and 4 threads, and at C = 3 frames of 130 x 200, patch 127, a
+               tail batch of 2; host ms per batch of the native sampler (4
+               threads, and 1), the numpy stream and the plain version at
+               batch 4 and 32 of 128², beside [finetune]'s ms/step. Then
+               cli.finetune_memory.main with scripts/cuda/finetune_memory.sh's
+               flags (read by cli/launchers.py, as the launcher tests read
+               them; data, base .ckpt and output swapped, --n_epoch 1: 20
+               steps at full width, the float32 stride-4 bank): its first
+               batch the plain sampler's batch 0, epoch_adapter_only_001.ckpt
+               read back bit-equal, chain and retrieval launches, seconds,
+               ms/step from its log, peak GB.
+  11. serving — the serving CLIs through their main, with PyTorch's default
                TF32 flags, over 9 seeded 704² pairs (a burst of 8 and a tail
                of 1) and [finetune]'s base and adapters: denoise at its
                defaults (bf16, bursts of 8, host pass inline and in 4
@@ -128,7 +146,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                retrieval launches counted per run. Frames, seconds, frames/s,
                denoise MP/s, the host pass's s/frame and the device metrics'
                ms per burst.
-  11. networks — UNet-48, the blind-spot UNet-48 and RESNET-48 (seeded init)
+  12. networks — UNet-48, the blind-spot UNet-48 and RESNET-48 (seeded init)
                through E2's runner over make_forward (cuDNN; bursts of 8
                704² frames, 1 warm-up and 2 timed bursts per dtype): float32
                within 1 level on 1e-3 of pixels of the module in float64
@@ -145,7 +163,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                log name, cli.denoise --arch RESNET and
                cli.evaluation_704_iqsl_memory --arch UNet over [finetune]'s
                memory adapter (1 retrieval launch a burst, no chain launch).
-  12. multidevice — every multi-device path on meshes that repeat the one
+  13. multidevice — every multi-device path on meshes that repeat the one
                card (make_mesh(devices=["cuda:0"] * k)): the sharded
                retrieval (memory/sharded.py) at the production bank
                (N = 105,125, D = 16,384, int8 and float32) over 2 and 4
@@ -174,6 +192,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import copy
+import io
 import json
 import os
 import shutil
@@ -1829,6 +1848,8 @@ def phase_finetune(seed: int, keep_dir: str):
         "int8 runs")
 
     dataset = DenoisePatchDataset(data, patch_size=E6_TILE, patches_per_image=FT_PATCHES)
+    log(f"[finetune] patch stream: "
+        f"{'native sampler' if dataset.native is not None else 'numpy stream'}")
     stream = dataset.batches(FT_B, np.random.default_rng(seed))
     batches = [next(stream) for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
     base_before = [t.clone() for t in model.state_dict().values()]
@@ -2022,7 +2043,8 @@ def _finetune_clis(data, base_ckpt, tmp, seed):
         top1_l2_retrieval.launches = 0
         save = os.path.join(tmp, name)
         t0 = time.perf_counter()
-        state = main(common + extra + ["--save_model_path", save])
+        with patch_streams() as seen:
+            state = main(common + extra + ["--save_model_path", save])
         sec = time.perf_counter() - t0
         launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
                         top1_l2_retrieval=top1_l2_retrieval.launches)
@@ -2031,11 +2053,14 @@ def _finetune_clis(data, base_ckpt, tmp, seed):
         pngs = glob.glob(os.path.join(save, "*", "val_*", "*.png"))
         ok = (int(state.step) == 3 and launches["fused_rdb_chain"] > 0 and pngs
               and (launches["top1_l2_retrieval"] > 0 or name != "finetune_memory")
-              and (sorted(tree) == ["adapter", "base"]) == (role == "adapter"))
+              and (sorted(tree) == ["adapter", "base"]) == (role == "adapter")
+              and [r["native"] for r in seen] == [True])
         out[name] = dict(seconds=sec, launches=launches, steps=int(state.step),
-                         checkpoint=os.path.basename(ckpt), pngs=len(pngs), path=ckpt)
+                         checkpoint=os.path.basename(ckpt), pngs=len(pngs), path=ckpt,
+                         stream=stream_name(seen))
         log(f"[finetune] cli.{name}.main, 1 epoch of 10 patches (batches 4, 4, 2) over "
-            f"the .ckpt base: {sec:.2f} s; {int(state.step)} steps; wrote "
+            f"the .ckpt base, patch stream: {stream_name(seen)}: {sec:.2f} s; "
+            f"{int(state.step)} steps; wrote "
             f"{os.path.basename(ckpt)}; {len(pngs)} validation PNG(s); launches {launches}")
         if not ok:
             raise AssertionError(f"finetune CLI {name}: {out[name]}")
@@ -2058,6 +2083,261 @@ def _finetune_clis(data, base_ckpt, tmp, seed):
         f"launches {launches}")
     if not (np.isfinite(avg["psnr"]) and all(launches.values())):
         raise AssertionError(f"finetune: E6 CLI over the finetuned adapter: {out['e6']}")
+    return out
+
+
+# [data]: the finetuners' patch stream. The native sampler (csrc/patch_sampler.cpp)
+# against its plain numpy version over one shuffled epoch at the finetune
+# preset (5 pairs of 704², patch 128, batch 4, 16 patches a pair: 20 batches)
+# with 1 and 4 threads, and at an odd shape (C = 3 frames of 130 x 200, patch
+# 127, 2 pairs of 3 patches: batches of 4 and a tail of 2); host ms per batch
+# at batch 4 and 32 (DATA_TIME_BATCHES calls each); then the memory finetuner
+# through its CUDA twin's flags for 1 epoch
+DATA_THREADS = (1, 4)
+DATA_ODD = dict(c=3, h=130, w=200, patch=127, pairs=2, per_image=3)
+DATA_TIME_BATCHES, DATA_TIME_CALLS = (4, 32), 20
+DATA_TWIN = os.path.join("scripts", "cuda", "finetune_memory.sh")
+
+
+@contextlib.contextmanager
+def patch_streams():
+    """Record each DenoisePatchDataset.batches stream in the block: whether
+    the native sampler drew it, and (a copy of) its first batch, which is
+    what a finetune CLI's first step receives."""
+    from image_denoising_tpu_torch.data import pairs
+
+    orig = pairs.DenoisePatchDataset.batches
+    seen = []
+
+    def batches(self, *args, **kwargs):
+        rec = dict(native=self.native is not None, first=None)
+        seen.append(rec)
+        for i, b in enumerate(orig(self, *args, **kwargs)):
+            if i == 0:
+                rec["first"] = (b[0].copy(), b[1].copy())
+            yield b
+
+    pairs.DenoisePatchDataset.batches = batches
+    try:
+        yield seen
+    finally:
+        pairs.DenoisePatchDataset.batches = orig
+
+
+def stream_name(seen) -> str:
+    kinds = {"native sampler" if r["native"] else "numpy stream" for r in seen}
+    return " + ".join(sorted(kinds)) or "none"
+
+
+def plain_patch_epoch(images, per_image, batch, patch, rng):
+    """One epoch of DenoisePatchDataset's native stream (tail batch kept)
+    from the plain sampler: the shuffle of the items, the batch seed drawn
+    after it, and each batch keyed by its index, its items mapped to their
+    pairs."""
+    import numpy as np
+
+    from image_denoising_tpu_torch.data.native_sampler import sample_plain
+
+    order = np.arange(len(images) * per_image)
+    rng.shuffle(order)
+    batch_seed = int(rng.integers(0, 2**63 - 1))
+    return [sample_plain(images, batch_seed, bi, order[s:s + batch] // per_image, patch)
+            for bi, s in enumerate(range(0, len(order), batch))]
+
+
+def _same_batches(got, want) -> bool:
+    import numpy as np
+
+    return len(got) == len(want) and all(
+        g.shape == w.shape and np.array_equal(g.view(np.uint32), w.view(np.uint32))
+        for gb, wb in zip(got, want) for g, w in zip(gb, wb))
+
+
+def phase_data(seed: int, step_ms: float):
+    """The finetuners' patch stream on the card's machine: the native
+    sampler bit-equal to its plain version through DenoisePatchDataset, its
+    host ms per batch beside the numpy stream's and the plain version's,
+    then the memory finetuner run through scripts/cuda/finetune_memory.sh's
+    flags (data, base and output swapped, 1 epoch): its first batch the
+    plain sampler's batch 0, its adapter .ckpt read back, its launches.
+    ``step_ms`` is [finetune]'s float32 ms/step, logged beside the sampler's
+    ms per batch."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.adapters import build_memory_adapter
+    from image_denoising_tpu_torch.ckpt import load_checkpoint, save_checkpoint
+    from image_denoising_tpu_torch.cli import finetune_memory
+    from image_denoising_tpu_torch.cli.launchers import flag_values, read_launcher
+    from image_denoising_tpu_torch.data import DenoisePatchDataset
+    from image_denoising_tpu_torch.data.native_sampler import NativePatchSampler, sample_plain
+    from image_denoising_tpu_torch.memory.retrieval import top1_l2_retrieval
+    from image_denoising_tpu_torch.models import ImprovedUNet
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+
+    t_phase = time.perf_counter()
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp_ctx = tempfile.TemporaryDirectory(dir=build_dir)
+    tmp = tmp_ctx.name
+    clean, noise, _ = e6_frames(seed)
+    data = os.path.join(tmp, "data")
+    _write_pairs(data, clean, noise)
+    out = {}
+
+    # the preset's epoch, native against plain, with 1 and 4 threads
+    ds = DenoisePatchDataset(data, patch_size=E6_TILE, patches_per_image=FT_PATCHES)
+    if ds.native is None:
+        raise AssertionError("data: the uint8 preset frames did not take the native sampler")
+    images = [(c.astype(np.uint8), n.astype(np.uint8)) for c, n in ds.images]
+    want = plain_patch_epoch(images, FT_PATCHES, FT_B, E6_TILE, np.random.default_rng(seed))
+    for threads in DATA_THREADS:
+        ds.native.n_threads = threads
+        got = list(ds.batches(FT_B, np.random.default_rng(seed)))
+        same = _same_batches(got, want)
+        log(f"[data] native sampler, {threads} thread(s): one shuffled epoch of "
+            f"{len(got)} batches of {FT_B} x {E6_TILE}^2 from {len(images)} {FRAME}^2 uint8 "
+            f"pairs through DenoisePatchDataset.batches, bit-equal to the plain version: "
+            f"{same}")
+        if not (same and len(got) == E6_PAIRS * FT_PATCHES // FT_B):
+            raise AssertionError(f"data: native sampler ({threads} threads) differs from "
+                                 "the plain version at the preset")
+    out["preset_batches"] = len(want)
+
+    # an odd shape: RGB frames, a patch of 127, a tail batch of 2
+    odd = DATA_ODD
+    rng = np.random.default_rng(seed + 11)
+    odd_frames = [rng.integers(0, 256, (odd["h"], odd["w"], odd["c"])).astype(np.uint8)
+                  for _ in range(2 * odd["pairs"])]
+    odd_dir = os.path.join(tmp, "odd")
+    _write_pairs(odd_dir, odd_frames[:odd["pairs"]], odd_frames[odd["pairs"]:])
+    ds_odd = DenoisePatchDataset(odd_dir, patch_size=odd["patch"],
+                                 patches_per_image=odd["per_image"])
+    odd_images = [(c.astype(np.uint8), n.astype(np.uint8)) for c, n in ds_odd.images]
+    got = list(ds_odd.batches(FT_B, np.random.default_rng(seed)))
+    want_odd = plain_patch_epoch(odd_images, odd["per_image"], FT_B, odd["patch"],
+                                 np.random.default_rng(seed))
+    sizes = [c.shape[0] for c, _ in got]
+    same = (ds_odd.native is not None and _same_batches(got, want_odd)
+            and sizes == [4, 2] and got[0][0].shape[1:] == (odd["patch"], odd["patch"], 3))
+    log(f"[data] native sampler at C = {odd['c']}, {odd['h']} x {odd['w']} frames, patch "
+        f"{odd['patch']}: batches of {sizes}, bit-equal to the plain version: {same}")
+    if not same:
+        raise AssertionError("data: native sampler differs from the plain version at the "
+                             "odd shape")
+
+    # host ms per batch: the native sampler (4 threads), the numpy stream, the
+    # plain version
+    ds.native.n_threads = 4
+    ds_np = DenoisePatchDataset(data, patch_size=E6_TILE, patches_per_image=FT_PATCHES,
+                                use_native=False)
+    one_thread = NativePatchSampler(images, n_threads=1)
+    n_items = len(ds)
+    timing = {}
+    for batch in DATA_TIME_BATCHES:
+        rng = np.random.default_rng(seed + batch)
+        idxs = [rng.integers(0, n_items, batch) for _ in range(DATA_TIME_CALLS)]
+
+        def numpy_batch(i, bi):
+            pairs = [ds_np.sample(int(k), rng) for k in i]
+            return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+        fns = dict(
+            native=lambda i, bi: ds.native.sample(seed, bi, i // FT_PATCHES, E6_TILE),
+            native_1_thread=lambda i, bi: one_thread.sample(seed, bi, i // FT_PATCHES,
+                                                            E6_TILE),
+            numpy=numpy_batch,
+            plain=lambda i, bi: sample_plain(images, seed, bi, i // FT_PATCHES, E6_TILE))
+        row = {}
+        for name, fn in fns.items():
+            fn(idxs[0], 0)  # warm-up
+            t0 = time.perf_counter()
+            for bi, i in enumerate(idxs):
+                fn(i, bi)
+            row[name] = (time.perf_counter() - t0) / DATA_TIME_CALLS * 1e3
+        timing[batch] = row
+        log(f"[data] host ms per batch of {batch} x {E6_TILE}^2 ({DATA_TIME_CALLS} calls): "
+            f"native sampler (4 threads) {row['native']:.3f} (1 thread "
+            f"{row['native_1_thread']:.3f}), numpy stream "
+            f"{row['numpy']:.3f}, plain version {row['plain']:.3f}; [finetune]'s float32 "
+            f"memory step at batch {FT_B} {step_ms:.2f} ms")
+    out["ms_per_batch"] = timing
+
+    # the memory finetuner through its CUDA twin's flags
+    ((module, argv),) = read_launcher(os.path.join(REPO, DATA_TWIN))
+    if module != "image_denoising_tpu_torch.cli.finetune_memory":
+        raise AssertionError(f"data: {DATA_TWIN} calls {module}")
+    torch.manual_seed(seed)
+    base_ckpt = save_checkpoint(ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF),
+                                os.path.join(tmp, "base"), "model", 1)
+    save = os.path.join(tmp, "run")
+    swap = {"--data_dir": data, "--pretrained_ckpt": base_ckpt, "--save_model_path": save,
+            "--n_epoch": "1"}
+    args = []
+    for i, tok in enumerate(argv):
+        args.append(swap[argv[i - 1]] if i and argv[i - 1] in swap else tok)
+    flags = flag_values(args)
+    if any(flags.get(k) != v for k, v in swap.items()):
+        raise AssertionError(f"data: the twin's argv lacks {sorted(swap)}: {argv}")
+    steps = -(-E6_PAIRS * int(flags["--patches_per_image"]) // int(flags["--batchsize"]))
+    log(f"[data] {DATA_TWIN}: cli.finetune_memory.main with its flags "
+        f"({' '.join(a for a in argv if a.startswith('--'))}), --data_dir, "
+        f"--pretrained_ckpt and --save_model_path swapped and --n_epoch 1 ({steps} steps)")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_rdb_chain.launches = 0
+    top1_l2_retrieval.launches = 0
+    t0 = time.perf_counter()
+    with patch_streams() as seen, contextlib.redirect_stdout(buf):
+        state = finetune_memory.main(args)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
+                    top1_l2_retrieval=top1_l2_retrieval.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    said = buf.getvalue()
+    for line in said.splitlines():
+        if line.startswith(("==>", "End of epoch", "Val ", "Epoch [")):
+            log(f"[data]   {line}")
+    epoch_s = re.search(r"End of epoch 1, .*time=([0-9.]+)s", said)
+    ms_step = float(epoch_s.group(1)) / steps * 1e3 if epoch_s else float("nan")
+    seed_flag = int(flags.get("--seed") or 0)
+    batch0 = plain_patch_epoch(images, int(flags["--patches_per_image"]),
+                               int(flags["--batchsize"]), int(flags["--patch_size"]),
+                               np.random.default_rng(seed_flag))[0]
+    first_ok = (len(seen) == 1 and seen[0]["native"]
+                and _same_batches([seen[0]["first"]], [batch0]))
+    (ckpt,) = [os.path.join(dp, f) for dp, _, fs in os.walk(save) for f in fs
+               if f == "epoch_adapter_only_001.ckpt"]
+    variant = flags.get("--adapter_variant") or "hyper_gated_fft"  # the CLI's default
+    back = build_memory_adapter(variant, int(flags["--n_channel"]),
+                                int(flags["--adapter_hidden"]))
+    back.load_state_dict(load_checkpoint(ckpt, arch=variant), strict=True)
+    read_back = all(torch.equal(_bits(a.detach().cpu()), _bits(b))
+                    for a, b in zip(state.model.parameters(), back.parameters()))
+    out["cli"] = dict(seconds=sec, steps=int(state.step), ms_per_step_from_log=ms_step,
+                      launches=launches, peak_gb=peak_gb, stream=stream_name(seen),
+                      first_batch_equals_plain=first_ok, checkpoint=os.path.basename(ckpt),
+                      read_back=read_back, argv=args)
+    log(f"[data] cli.finetune_memory through the twin: {sec:.2f} s; {int(state.step)} steps "
+        f"at {ms_step:.2f} ms/step (the CLI's epoch time over {steps} steps); patch stream: "
+        f"{stream_name(seen)}; first batch equals the plain sampler's batch 0 for "
+        f"default_rng({seed_flag}): {first_ok}; wrote {os.path.basename(ckpt)}, read back "
+        f"bit-equal: {read_back}; launches {launches} (chain 9 a step and the validation's, "
+        f"retrieval 1 a step and 1 a validation frame); peak memory {peak_gb:.2f} GB")
+    if not (int(state.step) == steps and first_ok and read_back
+            and launches["fused_rdb_chain"] >= 9 * steps
+            and launches["top1_l2_retrieval"] >= steps and np.isfinite(ms_step)):
+        raise AssertionError(f"data: the memory finetuner through its twin: {out['cli']}")
+    del state
+    torch.cuda.empty_cache()
+    tmp_ctx.cleanup()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[data] phase {out['seconds']:.2f} s")
     return out
 
 
@@ -3523,18 +3803,24 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu")
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(_build.build, sources))  # one nvcc each, together
+    host_sources = ("patch_sampler.cpp",)  # g++, for the finetuners' patch stream
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + len(host_sources)) as pool:
+        # one nvcc or g++ each, together
+        futures = ([pool.submit(_build.build, src) for src in sources]
+                   + [pool.submit(_build.build_host, src) for src in host_sources])
+        built = [f.result() for f in futures]
     build_s = time.perf_counter() - t0
     for (so, nvcc_log) in built:
         log(f"[build] {so.name}")
         for line in nvcc_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {line.strip()}")
-    log(f"[build] {len(sources)} sources in {build_s:.2f} s")
+    log(f"[build] {len(sources)} CUDA and {len(host_sources)} host sources in "
+        f"{build_s:.2f} s")
     _build.load_fused_block()
     _build.load_retrieval()
     _build.load_neighbor()
+    _build.load_patch_sampler()
 
     chain_e2 = phase_chain(args.seed, chain_shapes(TILE), "E2")
     chain_e6 = phase_chain(args.seed + 1, chain_shapes(E6_TILE), "E6")
@@ -3558,12 +3844,14 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as keep:
         fine = phase_finetune(args.seed, keep)
+        data = phase_data(args.seed, fine["float32"]["ms_per_step"])
         serving = phase_serving(args.seed, fine["kept"])
         networks = phase_networks(args.seed, fine["kept"])
     multi = phase_multidevice(args.seed)
     ft_launches = {k: fine["float32"]["launches"][k] + fine["int8"]["launches"][k]
                    for k in ("fused_rdb_chain", "top1_l2_retrieval")}
     md = multidevice_launches(multi)
+    data_launches = data["cli"]["launches"]  # the float32 finetuner and bank of the twin
 
     summary = []
     for dname, rows in chain_e2.items():
@@ -3574,11 +3862,14 @@ def main(argv=None) -> int:
             launches=main_path[dname]["launches"]
             + memory[dname]["launches"]["fused_rdb_chain"]
             + (ft_launches["fused_rdb_chain"] if dname == "float32" else 0)
+            + (data_launches["fused_rdb_chain"] if dname == "float32" else 0)
             + serving["launches"][dname] + md["fused_rdb_chain"][dname],
             launches_by_path={"E2": main_path[dname]["launches"],
                               "E6": memory[dname]["launches"]["fused_rdb_chain"],
                               "finetune": (ft_launches["fused_rdb_chain"]
                                            if dname == "float32" else 0),
+                              "data": (data_launches["fused_rdb_chain"]
+                                       if dname == "float32" else 0),
                               "serving": serving["launches"][dname],
                               "multidevice": md["fused_rdb_chain"][dname]},
             max_abs_err=max(r["max_abs_err"] for r in rows + e6_rows),
@@ -3604,6 +3895,7 @@ def main(argv=None) -> int:
         by_path = {"E6": launches,
                    "finetune": fine[dname]["launches"]["top1_l2_retrieval"]
                    if dname in fine else 0,
+                   "data": data_launches["top1_l2_retrieval"] if dname == "float32" else 0,
                    "serving": serving["launches"]["int8"] if dname == "int8" else 0,
                    "E6 UNet base": networks["cli"]["e6"]["launches"]["top1_l2_retrieval"]
                    if dname == "int8" else 0,
@@ -3648,7 +3940,8 @@ def main(argv=None) -> int:
                                     chain_ft4x128=chain_ft, chain_ft1x704=chain_frame,
                                     top1=top1, subsample=subsample, launch_floor=floor),
                        main=main_path, memory=memory, train=train, train_cli=train_cli,
-                       structure=structure, hpo=hpo, finetune=fine, serving=serving,
+                       structure=structure, hpo=hpo, finetune=fine, data=data,
+                       serving=serving,
                        networks=networks, multidevice=multi, summary=summary),
                   f, indent=1)
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
@@ -3661,6 +3954,8 @@ def main(argv=None) -> int:
         "largest float64 distance excess of the kernel's pick over the best row; "
         "launches per entry from the E2 and E6 runs and the 10 timed steps of each "
         "[finetune] bank (float32 entries: the float32 bank; int8: the int8 bank); "
+        "launches_by_path[data]: the memory finetuner's run through "
+        "scripts/cuda/finetune_memory.sh in [data] (float32, its float32 bank); "
         "ft4x128/ft1x704: the chain at the finetune step's 4x128^2 and the "
         "whole-frame 1x704^2; b4: retrieval at the step's B=4. subsample_pair: "
         "N=4 352^2 C=1 f32 (c3: C=3 f32/bf16); ms is the kernel's device time "

@@ -32,7 +32,7 @@ import torch
 
 from . import msgpack
 from .pth_export import params_to_state_dict
-from .pth_import import state_dict_to_params
+from .pth_import import read_pth, state_dict_to_params
 
 __all__ = ["checkpoint_path", "load_checkpoint", "load_params_tree", "module_arch",
            "restore_train_state", "save_checkpoint", "save_train_state",
@@ -117,9 +117,7 @@ def load_checkpoint(path: str, arch: Optional[str] = None,
     ``epoch_adapter`` file.
     """
     if path.endswith(".pth"):
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        if any(k.startswith("module.") for k in state):
-            state = {k.replace("module.", "", 1): v for k, v in state.items()}
+        state = read_pth(path)
         if prefix:
             state = {k[len(prefix) + 1:]: v for k, v in state.items()
                      if k.startswith(prefix + ".")}

@@ -1,6 +1,7 @@
 """Reference-layout state dicts → JAX param trees.
 
-Counterpart of ``image_denoising_tpu/ckpt/pth_import.py::import_pth`` for
+Counterpart of ``image_denoising_tpu/ckpt/pth_import.py`` (``load_state_dict``,
+``import_pth``) for
 every network (UNet, RESNET, ImprovedUNet), the output adapter and the
 five memory-adapter variants, and the exact inverse of
 ``pth_export.py::params_to_state_dict``: OIHW conv weights become flax
@@ -20,7 +21,23 @@ import numpy as np
 
 from ..adapters.memory_adapters import MEMORY_ADAPTERS
 
-__all__ = ["state_dict_to_params"]
+__all__ = ["import_pth", "load_state_dict", "read_pth", "state_dict_to_params"]
+
+
+def read_pth(path: str) -> Dict[str, Any]:
+    """A ``.pth`` state dict on the CPU, as torch tensors, with
+    ``nn.DataParallel``'s ``module.`` prefix stripped (``finetune.py:207-218``)."""
+    import torch
+
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if any(k.startswith("module.") for k in state):
+        state = {k.replace("module.", "", 1): v for k, v in state.items()}
+    return state
+
+
+def load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A ``.pth`` file as numpy arrays, ``module.`` stripped."""
+    return {k: _np(v) for k, v in read_pth(path).items()}
 
 
 def _np(x) -> np.ndarray:
@@ -76,9 +93,11 @@ def _unet_like(sd) -> Dict[str, Any]:
     return p
 
 
-def _improved_unet(sd, depth=4) -> Dict[str, Any]:
+def _improved_unet(sd, depth=4, noise=None) -> Dict[str, Any]:
     p: Dict[str, Any] = {}
-    if "noise_estimator.0.weight" in sd:
+    if noise is None:
+        noise = "noise_estimator.0.weight" in sd
+    if noise:
         p["noise_est_conv0"] = _conv(sd, "noise_estimator.0")
         p["noise_est_conv1"] = _conv(sd, "noise_estimator.2")
     for i in range(depth):
@@ -115,17 +134,31 @@ def _memory_adapter(sd, variant: str) -> Dict[str, Any]:
                       "hyper1": _dense(sd, "hyper_mlp.2")}}
 
 
-def state_dict_to_params(sd, arch: str = "UNetImproved") -> Dict[str, Any]:
+def state_dict_to_params(sd, arch: str = "UNetImproved", depth: int = 4,
+                         noise=None) -> Dict[str, Any]:
     """Reference state dict (torch tensors or numpy arrays) → JAX param
     tree of numpy arrays. ``arch``: 'UNet', 'RESNET', 'UNetImproved',
-    'output_adapter' or a memory-adapter variant."""
+    'output_adapter' or a memory-adapter variant. For 'UNetImproved',
+    ``depth`` is its number of levels and ``noise`` whether it has the
+    noise estimator (None: whether the state dict holds it)."""
     if arch in ("UNet", "RESNET"):
         return _unet_like(sd)
     if arch == "UNetImproved":
-        return _improved_unet(sd)
+        return _improved_unet(sd, depth, noise)
     if arch == "output_adapter":
         return {"conv0": _conv(sd, "net.0"), "conv1": _conv(sd, "net.2")}
     if arch in MEMORY_ADAPTERS:
         return _memory_adapter(sd, arch)
     raise ValueError(f"unknown arch {arch!r}: UNet, RESNET, UNetImproved, "
                      f"output_adapter or one of {list(MEMORY_ADAPTERS)}")
+
+
+def import_pth(path_or_sd, arch: str, prefix: str = "", **kwargs) -> Dict[str, Any]:
+    """A reference checkpoint (a ``.pth`` path or a state dict) → JAX param
+    tree, as the JAX package's ``import_pth``. ``prefix`` pulls a submodule
+    out of a wrapper checkpoint (``"base"`` / ``"adapter"``); ``kwargs``
+    (``depth=``, ``noise=``) go to ``state_dict_to_params``."""
+    sd = path_or_sd if isinstance(path_or_sd, dict) else load_state_dict(path_or_sd)
+    if prefix:
+        sd = {k[len(prefix) + 1:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+    return state_dict_to_params(sd, arch, **kwargs)

@@ -1,5 +1,6 @@
 // Native MATLAB-equivalent SSIM for the port's host metrics path (the port's own
-// copy of native/ssim.cpp, built by ops/_build.py::build_host).
+// copy of the SSIM in the repository's `native` directory, built by
+// ops/_build.py::build_host).
 //
 // The eval CLIs score every frame with SSIM (utils_eval.py:19-47 semantics):
 // five 11×11 Gaussian correlations in float64 with REFLECT_101 borders and a

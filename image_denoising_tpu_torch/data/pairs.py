@@ -7,10 +7,10 @@ float32 [0,255]. ``DenoiseDataset`` keeps them resident (unless
 ``convert_l=True`` (the HPO trainer); /255 runs on the device inside the
 train step.
 ``DenoisePatchDataset`` yields the finetuners' random patch pairs in
-[0,1]: the JAX package's numpy stream (``use_native=False``), draw for
-draw, so one seeded ``rng`` gives both packages the same patches. JAX's
-native C++ sampler draws another stream; its binding waits for ROADMAP.md
-queue 1 item 9.
+[0,1], as the JAX package's does, batch for batch from one seeded ``rng``:
+by default through the native C++ sampler (``data/native_sampler.py``)
+when every frame is uint8-exact, else (16-bit input, or
+``use_native=False``) through the numpy stream.
 """
 from __future__ import annotations
 
@@ -125,11 +125,16 @@ class DenoisePatchDataset:
 
     Reference semantics (``finetune.py:94-150``): only the first 5 image
     pairs are used; one epoch = n_images · patches_per_image random crops,
-    scaled to [0,1]. Decoded images stay resident; crops are numpy slices.
+    scaled to [0,1]. Decoded images stay resident. With ``use_native`` (the
+    default) and every frame uint8-exact, ``native`` is the
+    ``NativePatchSampler`` that crops each batch, keyed by a batch seed
+    drawn once per epoch and the batch's index; otherwise ``native`` is
+    None and the crops are numpy slices drawn from ``rng`` one by one. A
+    failed build of the sampler raises: nothing falls back.
     """
 
     def __init__(self, data_dir: str, patch_size: int, patches_per_image: int,
-                 max_images: int = 5):
+                 max_images: int = 5, use_native: bool = True):
         clean_paths, noise_paths = list_pairs(data_dir, limit=max_images)
         if len(clean_paths) != len(noise_paths) or not clean_paths:
             raise ValueError("clean and noise must have the same number of images "
@@ -145,6 +150,22 @@ class DenoisePatchDataset:
             if h < patch_size or w < patch_size:
                 raise ValueError(f"Image size ({h},{w}) smaller than patch_size "
                                  f"{patch_size}.")
+        self.native = None
+        # the native sampler stores uint8 frames: only where every frame is
+        # exactly uint8-representable (16-bit input keeps the numpy stream)
+        u8_exact = all(
+            float(a.min()) >= 0.0 and float(a.max()) <= 255.0
+            and np.array_equal(a, np.round(a))
+            for pair in self.images for a in pair
+        )
+        if use_native and u8_exact:
+            from .native_sampler import NativePatchSampler
+
+            self.native = NativePatchSampler(
+                [(c.astype(np.uint8), n.astype(np.uint8)) for c, n in self.images])
+        elif use_native:
+            print("[DenoisePatchDataset] frames not uint8-exact "
+                  "(high-bit-depth input): using the numpy sampler")
         print(f"B-domain: {len(self.images)} images, {patches_per_image} "
               f"patches/image/epoch → {len(self)} samples/epoch.")
 
@@ -152,7 +173,8 @@ class DenoisePatchDataset:
         return len(self.images) * self.patches_per_image
 
     def sample(self, index: int, rng: np.random.Generator):
-        """One (clean, noisy) patch pair, [H,W,C] float32 in [0,1]."""
+        """One (clean, noisy) patch pair of the numpy stream, [H,W,C]
+        float32 in [0,1]."""
         clean_img, noise_img = self.images[index // self.patches_per_image]
         h, w = clean_img.shape[:2]
         ps = self.patch_size
@@ -175,9 +197,12 @@ class DenoisePatchDataset:
         if shuffle:
             rng.shuffle(order)
         end = (len(order) // batch_size) * batch_size if drop_last else len(order)
-        # the seed JAX's native sampler keys its batches by: drawn here too,
-        # so the crops after it come from the same point of the stream
-        rng.integers(0, 2**63 - 1)
-        for s in range(0, end, batch_size):
-            pairs = [self.sample(int(i), rng) for i in order[s : s + batch_size]]
-            yield np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+        batch_seed = int(rng.integers(0, 2**63 - 1))
+        for bi, s in enumerate(range(0, end, batch_size)):
+            idxs = order[s : s + batch_size]
+            if self.native is not None:
+                img_of_item = (idxs // self.patches_per_image).astype(np.int32)
+                yield self.native.sample(batch_seed, bi, img_of_item, self.patch_size)
+            else:
+                pairs = [self.sample(int(i), rng) for i in idxs]
+                yield np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])

@@ -3,7 +3,8 @@
 Each ``.cu`` source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first use, into
 ``build/kernels/`` at the root of the checkout, and loaded with ``ctypes``.
-The host C++ source (``csrc/ssim.cpp``, the native SSIM) is compiled the
+The host C++ sources (``csrc/ssim.cpp``, the native SSIM, and
+``csrc/patch_sampler.cpp``, the finetuners' patch sampler) are compiled the
 same way by ``g++`` into ``build/host/``.
 The library name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded. Nothing is compiled
@@ -25,7 +26,8 @@ import tempfile
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "HOST_BUILD_DIR", "build", "build_host",
-           "load_fused_block", "load_neighbor", "load_retrieval", "load_ssim"]
+           "load_fused_block", "load_neighbor", "load_patch_sampler", "load_retrieval",
+           "load_ssim"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -164,4 +166,26 @@ def load_ssim() -> ctypes.CDLL:
     dp = ctypes.POINTER(ctypes.c_double)
     lib.ssim_gray.argtypes = [dp, dp, ctypes.c_int, ctypes.c_int]
     lib.ssim_gray.restype = ctypes.c_double
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_patch_sampler() -> ctypes.CDLL:
+    """The native patch sampler (csrc/patch_sampler.cpp, host C++), built on
+    first call. A sampler handle holds its frames; ``ps_sample_batch``
+    spreads a batch's crops over its own threads."""
+    path, _ = build_host("patch_sampler.cpp")
+    lib = ctypes.CDLL(str(path))
+    i, p, u64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_uint64
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.ps_create.argtypes = [i]
+    lib.ps_create.restype = p
+    lib.ps_destroy.argtypes = [p]
+    lib.ps_destroy.restype = None
+    lib.ps_add_image.argtypes = [p, i, u8p, u8p, i, i, i]
+    lib.ps_add_image.restype = i
+    lib.ps_sample_batch.argtypes = [p, u64, u64, i, i, ctypes.POINTER(ctypes.c_int32),
+                                    ctypes.POINTER(ctypes.c_float),
+                                    ctypes.POINTER(ctypes.c_float), i]
+    lib.ps_sample_batch.restype = i
     return lib

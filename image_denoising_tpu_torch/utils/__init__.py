@@ -1,4 +1,4 @@
 from .device import resolve_device
-from .profiling import trace
+from .profiling import StepTimer, trace
 
-__all__ = ["resolve_device", "trace"]
+__all__ = ["StepTimer", "resolve_device", "trace"]

@@ -3,7 +3,8 @@
 wrote: the files each role writes, JAX's ``load_checkpoint`` reading them,
 JAX's ``wrapper.apply`` on what it reads equal to the port's forward, the
 port's and JAX's E6 CLIs serving the ``adapter_only`` file the memory
-finetuner wrote, and the multi-device flags against the runs without them."""
+finetuner wrote, the multi-device flags against the runs without them, and
+each CLI's first batch against JAX's CLI's at its defaults."""
 import glob
 import os
 
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.tree_util import tree_leaves as _leaves
 
@@ -211,3 +213,60 @@ def test_e2_cli_takes_a_ckpt(data, tmp_path):
                                       "--save_dir", str(tmp_path / "ckpt")])
     want = evaluation_704.main(args + ["--checkpoint", pth, "--save_dir", str(tmp_path / "pth")])
     assert got == want
+
+
+class _FirstBatch(Exception):
+    """Raised by the dataset spy once it holds the first batch."""
+
+
+def _spy_first_batch(monkeypatch, cls, seen):
+    """``cls.batches`` records the first batch of the CLI's stream (and
+    whether the native sampler drew it), then stops the CLI before a step."""
+    orig = cls.batches
+
+    def batches(self, *args, **kwargs):
+        native = getattr(self, "native", getattr(self, "_native", None))
+        seen.append((native is not None, next(orig(self, *args, **kwargs))))
+        raise _FirstBatch
+
+    monkeypatch.setattr(cls, "batches", batches)
+
+
+@pytest.mark.parametrize("cli", ["finetune", "finetune_iqsl", "finetune_memory"])
+def test_first_batch_equals_jax_cli(data, tmp_path, monkeypatch, cli):
+    """Each finetune CLI at its defaults receives JAX's CLI's first batch
+    at one seed: both take the native sampler on these uint8 frames."""
+    import importlib
+
+    from image_denoising_tpu.data import DenoisePatchDataset as JaxPatchDataset
+    from image_denoising_tpu_torch.data import DenoisePatchDataset
+
+    jax_main = importlib.import_module(f"image_denoising_tpu.cli.{cli}").main
+    port_main = {"finetune": finetune.main, "finetune_iqsl": finetune_iqsl.main,
+                 "finetune_memory": finetune_memory.main}[cli]
+    args = ARGS + ["--data_dir", data["root"], "--pretrained_ckpt", data["base_ckpt"],
+                   "--seed", "7", "--save_model_path", str(tmp_path)]
+    if cli == "finetune_memory":
+        args += ["--memory_stride", "16"]
+    # JAX's CLI compiles its wrapper's init before the loop; its values do
+    # not reach the batches, so it runs on the init's shapes uncompiled
+    jit = jax.jit
+
+    def no_compile_init(fn, *a, **k):
+        if getattr(fn, "__name__", "") != "init":
+            return jit(fn, *a, **k)
+        return lambda *args: jax.tree_util.tree_map(
+            lambda s: jnp.zeros(s.shape, s.dtype), jax.eval_shape(fn, *args))
+
+    monkeypatch.setattr(jax, "jit", no_compile_init)
+    seen = []
+    _spy_first_batch(monkeypatch, DenoisePatchDataset, seen)
+    _spy_first_batch(monkeypatch, JaxPatchDataset, seen)
+    for main in (port_main, jax_main):
+        with pytest.raises(_FirstBatch):
+            main(args)
+    (port_native, (pc, pn)), (jax_native, (jc, jn)) = seen
+    assert port_native and jax_native
+    assert pc.shape == (4, PS, PS, 1) and pc.dtype == np.float32
+    np.testing.assert_array_equal(pc, jc)
+    np.testing.assert_array_equal(pn, jn)

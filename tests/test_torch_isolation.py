@@ -46,9 +46,23 @@ def test_port_modules_import_no_jax():
                 "cli.evaluation_adapter_iqsl", "metrics.device", "cli.train_opt",
                 "hpo.engine", "hpo.benchmark", "models.unet", "models.resnet",
                 "models.init", "models.layers", "ops.space_to_depth",
-                "parallel.mesh", "parallel.dryrun", "memory.sharded"):
+                "parallel.mesh", "parallel.dryrun", "memory.sharded",
+                "data.native_sampler", "data.prep", "cli.dataset_tool",
+                "cli.dataset_tool_raw", "cli.launchers"):
         assert f"image_denoising_tpu_torch.{mod}" in report["modules"]
     assert report["banned"] == []
+
+
+def test_port_reads_nothing_of_the_native_directory():
+    """The port builds its own copies of the host C++ (csrc/ssim.cpp,
+    csrc/patch_sampler.cpp): no file of it names the repository's
+    ``native/`` directory or the library its make builds."""
+    pkg = REPO / "image_denoising_tpu_torch"
+    named = [str(p.relative_to(REPO)) for p in sorted(pkg.rglob("*"))
+             if p.is_file() and p.suffix in (".py", ".cpp", ".cu", ".cuh")
+             and any(w in p.read_text() for w in ("native/", "libpatch_sampler"))]
+    assert named == []
+    assert (pkg / "csrc" / "patch_sampler.cpp").is_file()
 
 
 def _entry_points():
