@@ -16,8 +16,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                fused_rdb_chain at the 9 chain shapes of E2 (B=8 tiles of
                352²) and of E6 (B=8 tiles of 128², down to the 8×8
                bottleneck), and of the finetune path (B=4 tiles of 128², a
-               whole 704² frame), in float32 and bfloat16, with the blocks
-               of each launch; top1_l2_retrieval on
+               whole 704² frame), and RGB mode's first level (Cin 4: in_nc
+               3 and the noise estimate) at B=8 352², B=4 128² and 1x704²,
+               in float32 and bfloat16, with the blocks of each launch; top1_l2_retrieval on
                seeded device banks of N=105,125 rows of D=16,384 in float32,
                bfloat16 and int8, with B=400, 8 and 4 queries (B=1-4 held to
                the same limits), a duplicated
@@ -183,6 +184,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                --parallel --bank_sharded, denoise --parallel and
                finetune_memory --bank_sharded on make_mesh() against the
                runs without the flags (the same files, losses and launches).
+  14. converge — scripts/cuda/convergence.py's three legs on 16 seeded 128²
+               frames (sigma 25), 60 epochs of 4 steps, a snapshot every 15,
+               each scored by E1: N2N of UNet-16 (one sub-sampler launch a
+               step; the kernel first held bit-equal at 4x1x128²) and the
+               structure loss of ImprovedUNet-48 in float32 and bfloat16;
+               each must end more than 1 dB above the noisy input and at
+               most 0.2 dB below its first snapshot; the f32 - bf16 gap.
+  15. huge   — scripts/cuda/huge_frame.py with [converge]'s trained
+               ImprovedUNet-48 in bfloat16: a 4672² frame (289 tiles of
+               352²) through the pyramid runner and its 2816² crop (1849
+               tiles of 128²) through the Hann runner with the memory
+               wrapper over an int8/uint8 bank of 4,356 rows that
+               memory/bank.py builds; each within 1 level on at most 0.1 %
+               of pixels of a float64 host blend of the runner's own tile
+               predictions; the hoisted retrieval at B=1849 equal to the
+               plain version, then timed; s/frame and MP/s.
+  16. rgb    — RGB mode (in_nc = out_nc = 3) at n_feature 48 through the
+               CLIs: cli.train (structure, then --loss n2n; 2 steps) on 4
+               seeded 352² RGB pairs, E1 on 5 seeded 704² RGB pairs in
+               float32 within 1 level on at most 0.1 % of pixels of the
+               per-conv module, its device metrics against its host path,
+               bfloat16 by check_whole_frame_bf16, then cli.finetune (the
+               output adapter, 5 steps of 128² patches) and E4 on its
+               epoch_adapter_001.ckpt within 0.01 dB of the module base and
+               adapter; chain launches counted per run.
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Per-shape details go to the --json file.
 """
@@ -441,7 +467,7 @@ def phase_chain(seed: int, shapes, label: str, reps: int = 5, batch: int = B):
         results[dname] = rows
         ms = sum(r["ms"] for r in rows)
         earlier = EARLIER_CHAIN_MS.get((label, dname))
-        log(f"[kernels] chain {label} {dname:8s} the 9 calls of one {batch}-tile chunk: "
+        log(f"[kernels] chain {label} {dname:8s} the {len(rows)} calls of one {batch}-tile chunk: "
             f"{ms:.3f} ms on the {route} route"
             + (f" (the CUDA-core kernel: {earlier} ms, PERF.md)" if earlier else "")
             + f"; bound {sum(r['bound_ms'] for r in rows):.3f} ms")
@@ -945,7 +971,11 @@ def phase_memory(seed: int):
             f"({out[f'{dname}_bank']['mps']:.4f} MP/s), output equal to the int8 "
             f"bank's; launches {regime_launches[dname]}")
         del nb, sq, other
-    out.update(bank_seconds=bank_s, bank_rows=n)
+    # a host copy of the production bank's retrieval operands, for [huge]'s
+    # launch at B = 1849 (kept off the card, where the later phases read
+    # their peak memory)
+    out.update(bank_seconds=bank_s, bank_rows=n,
+               prod_bank=(bank.noise_flat.cpu(), bank.sq_norms.cpu()))
     return out
 
 
@@ -957,22 +987,31 @@ def kernel_device_ms(fn, name: str, reps: int = 50, flush=None) -> float:
     call (its kernels are not ``name``)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(reps + 1):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+
     # one call more than timed: the profiler can miss the first launch of
-    # its window, so it must see at least ``reps`` of the ``reps + 1``. It
-    # can also drop more of a window's records (seen with flushes between
-    # the calls): such a window is taken again, at most PROFILE_WINDOWS in all
+    # its window, so it must see at least ``reps`` of the ``reps + 1``. A
+    # window opened with the tracer lost 11 of 51 records three times over
+    # (4 x 128² with flushes): each window is now recorded after a warm-up
+    # window of the same calls, with the tracer already running. A window
+    # that still drops records is taken again, at most PROFILE_WINDOWS in all
     seen = []
     for _ in range(PROFILE_WINDOWS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps + 1):
-                if flush is not None:
-                    flush()
-                fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            calls()  # the warm-up window, not recorded
+            prof.step()
+            calls()
         times = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
                  if e.device_type == DeviceType.CUDA and name in e.name]
         if len(times) in (reps, reps + 1):
@@ -3050,6 +3089,392 @@ def phase_networks(seed: int, kept):
     return out
 
 
+# [converge], [huge] and [rgb]: what the card had not run before. The
+# trainers over a real run (scripts/cuda/convergence.py: 16 seeded 128²
+# frames, 60 epochs, 4 snapshots, each scored by E1); frames past 256 tiles
+# through both engines (scripts/cuda/huge_frame.py: 4672² pyramid with the
+# structure leg's trained base, 2816² Hann with a bank of 4,356 rows, one
+# retrieval of 1849 queries); RGB mode (BASELINE.json:11) at n_feature 48:
+# train, E1, finetune and E4 with --n_channel 3
+CONVERGE_EPOCHS, CONVERGE_HW, CONVERGE_STEPS_PER_EPOCH = 60, 128, 4
+HUGE_PYR, HUGE_HANN = 4672, 2816
+RGB_C, RGB_TRAIN_PAIRS, RGB_EVAL_PAIRS, RGB_SIGMA, RGB_FT_PATCHES = 3, 4, 5, 15, 4
+
+
+def rgb_lead(tile: int):
+    """RGB mode's down0 chain shape: its lead conv takes in_nc + 1 = 4
+    channels (the noise estimate appended), which the wrapper pads to its
+    chunk; every other level is the grayscale network's."""
+    return ("down0_rgb", tile, RGB_C + 1, NF, True)
+
+
+def _script(name: str):
+    """``scripts/cuda/<name>.py`` as a module (the folder is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"cuda_{name}", os.path.join(REPO, "scripts", "cuda", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_converge(seed: int, keep: str):
+    """scripts/cuda/convergence.py's three legs on the card, each required to
+    pass; the sub-sampler at the N2N leg's 4 x 1 x 128² against its plain
+    version first. Returns each leg's result and launches."""
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair, subsample_pair_fused
+    from image_denoising_tpu_torch.ops.rng import OperationSeed
+
+    conv = _script("convergence")
+    out = {}
+    # the kernel at the leg's shape (batch 4 of 128² frames): bit-equal
+    img = torch.from_numpy(np.random.default_rng(seed + 21).random(
+        (4, 1, CONVERGE_HW, CONVERGE_HW), dtype=np.float32)).to("cuda")
+    s = OperationSeed(seed + 21).next()
+    got, want = subsample_pair_fused(s, img), subsample_pair(s, img)
+    torch.cuda.synchronize()
+    if not all(torch.equal(_bits(a), _bits(b)) for a, b in
+               zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2]))):
+        raise AssertionError(f"subsample_pair 4x1x{CONVERGE_HW}^2: the kernel differs "
+                             "from the plain version")
+    ms, warm_ms, bound_ms, bound_by, _ = subsample_device_times(
+        lambda: subsample_pair_fused(s, img), img, l2_flush())
+    out["subsample_128"] = dict(ms=ms, warm_ms=warm_ms, bound_ms=bound_ms,
+                                bound_by=bound_by,
+                                plain_ms=time_ms(lambda: subsample_pair(s, img), reps=5))
+    log(f"[converge] subsample_pair N=4 {CONVERGE_HW}^2 C=1 float32: bit-equal to the "
+        f"plain version; {ms * 1e3:.3f} us with L2 flushed, {warm_ms * 1e3:.3f} us in L2, "
+        f"plain {out['subsample_128']['plain_ms']:.3f} ms, bound {bound_ms * 1e3:.3f} us "
+        f"({bound_by})")
+    del img, got, want
+
+    root = os.path.join(keep, "converge_data")
+    conv.make_dataset(root, conv.N_FRAMES, CONVERGE_HW, conv.SIGMA)
+    noisy = conv.noisy_psnr(root)
+    steps = CONVERGE_EPOCHS * CONVERGE_STEPS_PER_EPOCH
+    snaps = len(range(conv.snapshot_every(CONVERGE_EPOCHS), CONVERGE_EPOCHS + 1,
+                      conv.snapshot_every(CONVERGE_EPOCHS)))
+    for leg, _, _ in conv.LEGS:
+        torch.cuda.synchronize()
+        fused_rdb_chain.launches = 0
+        subsample_pair_fused.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = conv.run_leg(leg, root, keep, n_epoch=CONVERGE_EPOCHS, device="cuda",
+                               noisy=noisy)
+        torch.cuda.synchronize()
+        launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
+                        subsample_pair=subsample_pair_fused.launches)
+        # N2N: one sub-sampler launch a step, the UNet has no chain; the
+        # structure legs: E1 on each snapshot's 16 frames, 9 chain calls each
+        want = (dict(fused_rdb_chain=0, subsample_pair=steps) if leg == "n2n" else
+                dict(fused_rdb_chain=9 * conv.N_FRAMES * snaps, subsample_pair=0))
+        out[leg] = dict(res, launches=launches)
+        log(f"[converge] {json.dumps({k: v for k, v in res.items() if k != 'final_ckpt'})}")
+        log(f"[converge] {leg}: {steps} steps, {res['train_seconds']:.2f} s of training "
+            f"({res['train_seconds'] / steps * 1e3:.2f} ms/step with the epochs' "
+            f"validation), {res['seconds']:.2f} s with E1 on {snaps} snapshots; "
+            f"launches {launches}")
+        if launches != want:
+            raise AssertionError(f"converge {leg}: launches {launches}, want {want}")
+        if not res["pass"]:
+            raise AssertionError(f"converge {leg}: did not learn (final PSNR must beat "
+                                 f"the noisy {noisy:.3f} dB by {conv.GAIN_DB} dB and stay "
+                                 f"within {conv.DROP_DB} dB of the first snapshot): "
+                                 f"{res['psnr_by_epoch']}")
+    f32, bf16 = (out[f"structure_{d}"]["psnr_by_epoch"] for d in ("float32", "bfloat16"))
+    out["f32_minus_bf16_db"] = {e: f32[e] - bf16[e] for e in f32}
+    log(f"[converge] structure step, float32 - bfloat16 PSNR by epoch (dB): "
+        f"{out['f32_minus_bf16_db']}")
+    return out
+
+
+def phase_huge(seed: int, ckpt: str, prod_bank):
+    """scripts/cuda/huge_frame.py's two legs with the structure leg's trained
+    ImprovedUNet-48 (``ckpt``) in bfloat16, held to their float64 host
+    oracles and their tiles to the script's own crops; then the retrieval
+    kernel at the Hann leg's B = 1849, over that leg's bank and over the
+    production bank (``prod_bank``: [memory]'s int8 rows and norms, on the
+    host), held to its plain version and timed against it and the
+    library's product."""
+    import torch
+
+    from image_denoising_tpu_torch.eval.tiled import edge_aligned_grid, reference_tile_grid
+    from image_denoising_tpu_torch.memory.retrieval import (top1_l2_retrieval,
+                                                            top1_l2_retrieval_reference)
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+
+    hf = _script("huge_frame")
+    runs = hf.REPS + 2  # a warm run, the timed ones and the captured one
+    tiles = dict(pyramid=len(reference_tile_grid(HUGE_PYR, HUGE_PYR, hf.PS, hf.PS - hf.OVERLAP)),
+                 hann=len(edge_aligned_grid(HUGE_HANN, HUGE_HANN, hf.HANN_PS, hf.HANN_OVERLAP)))
+    torch.cuda.synchronize()
+    fused_rdb_chain.launches = 0
+    top1_l2_retrieval.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = hf.run(HUGE_PYR, HUGE_HANN, checkpoint=ckpt, device="cuda",
+                     emit=lambda line: None)
+    torch.cuda.synchronize()
+    launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
+                    top1_l2_retrieval=top1_l2_retrieval.launches)
+    want = dict(fused_rdb_chain=9 * runs * sum(-(-t // hf.CHUNK) for t in tiles.values()),
+                top1_l2_retrieval=runs)
+    out = dict(launches=launches)
+    for leg in ("pyramid", "hann"):
+        r = out[leg] = res[leg]
+        log(f"[huge] {json.dumps(r)}")
+        log(f"[huge] {leg} {r['hw']}^2, {r['tiles']} tiles of {r['ps']}^2 (bfloat16 base): "
+            f"{r['s_per_frame']:.3f} s/frame, {r['mps']:.4f} MP/s (median of "
+            f"{hf.REPS}); against the float64 host oracle: max {r['max_abs_diff_uint8']} "
+            f"levels on {r['mismatch_frac']:.3e} of pixels")
+        if r["tiles"] != tiles[leg] or r["tiles"] <= 256 or not r["within_limits"]:
+            raise AssertionError(f"huge {leg}: {r['tiles']} tiles, {r['max_abs_diff_uint8']} "
+                                 f"levels on {r['mismatch_frac']} of pixels (limits "
+                                 f"{hf.MAX_LEVELS}, {hf.MAX_FRAC})")
+        if not r["tiles_equal_to_crops"]:
+            raise AssertionError(f"huge {leg}: the runner fed the network other tiles "
+                                 "than the frame's crops")
+    hann = res["hann"]
+    if not (hann["retrieval_equal_to_plain"] and hann["retrieval_batch"] == tiles["hann"]):
+        raise AssertionError(f"huge hann: the retrieval at B={hann['retrieval_batch']} "
+                             f"differs from the plain version in "
+                             f"{hann['retrieval_mismatches']} indices")
+    if not (hann["queries_equal_to_crops"] and hann["memory_equal_to_bank"]):
+        raise AssertionError(f"huge hann: queries equal to the crops "
+                             f"{hann['queries_equal_to_crops']}, appended patches equal "
+                             f"to the bank's rows {hann['memory_equal_to_bank']}")
+    log(f"[huge] both runners fed the network the frame's own crops; the Hann leg's "
+        f"queries are those crops, and it appended the bank rows of the plain retrieval")
+    if launches != want:
+        raise AssertionError(f"huge: launches {launches}, want {want}")
+
+    q, _, bank = res["retrieval"]
+    b, (n, d) = q.shape[0], bank.noise_flat.shape
+    args = (q, bank.noise_flat, bank.sq_norms)
+    ms = time_ms(lambda: top1_l2_retrieval(*args), reps=5)
+    plain_ms = time_ms(lambda: top1_l2_retrieval_reference(*args), reps=3)
+    library_ms = time_ms(_library_top1(*args), reps=3)
+    bound_ms, bound_by = bound(2.0 * b * n * d, b * d + n * d + n * 4 + b * 4,
+                               ROUTES["int8"][1])
+    out["top1_b1849"] = dict(batch=b, n=n, d=d, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[huge] top1 int8 B={b} N={n} D={d} (the Hann leg's hoisted retrieval): indices "
+        f"equal to the plain version's; kernel {ms:.3f} ms plain {plain_ms:.3f} ms library "
+        f"{library_ms:.3f} ms bound {bound_ms:.3f} ms ({bound_by}); launches {launches}")
+
+    # the E6 CLI's one-pass retrieval of a 2816² frame over the production
+    # bank: the same 1849 queries against [memory]'s 105,125 rows
+    noise, sqn = (t.to("cuda") for t in prod_bank)
+    n = noise.shape[0]
+    args = (q, noise, sqn)
+    idx, ref = top1_l2_retrieval(*args), top1_l2_retrieval_reference(*args)
+    if not torch.equal(idx, ref):
+        raise AssertionError(f"huge: top1 int8 B={b} N={n}: {int((idx != ref).sum())} "
+                             "indices differ from the plain version")
+    ms = time_ms(lambda: top1_l2_retrieval(*args), reps=5)
+    plain_ms = time_ms(lambda: top1_l2_retrieval_reference(*args), reps=3)
+    library_ms = time_ms(_library_top1(*args), reps=3)
+    bound_ms, bound_by = bound(2.0 * b * n * d, b * d + n * d + n * 4 + b * 4,
+                               ROUTES["int8"][1])
+    out["top1_b1849_prod"] = dict(batch=b, n=n, d=d, ms=ms, plain_ms=plain_ms,
+                                  library_ms=library_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by)
+    log(f"[huge] top1 int8 B={b} N={n} D={d} (the production bank, as the E6 CLI "
+        f"retrieves a 2816^2 frame in one pass): indices equal to the plain version's; "
+        f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {library_ms:.3f} ms bound "
+        f"{bound_ms:.3f} ms ({bound_by})")
+    return out
+
+
+def rgb_frames(seed: int, count: int, size: int):
+    """``count`` RGB uint8 pairs [size, size, 3]: a sine pattern at another
+    phase in each channel on a 32-px checker, noisy = clean + N(0, 15) in
+    each channel (tests/tpu/run_e2e_tpu.py's generator, per channel)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 50 + size)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    clean = [np.stack([np.clip(120 + 70 * np.sin(xx / (11 + 2 * k) + f + k)
+                               + 30 * ((yy // 32 + xx // 32) % 2), 0, 255)
+                       for k in range(RGB_C)], -1).astype(np.uint8) for f in range(count)]
+    noise = [np.clip(c + rng.normal(0, RGB_SIGMA, c.shape), 0, 255).astype(np.uint8)
+             for c in clean]
+    return clean, noise
+
+
+def phase_rgb(seed: int):
+    """RGB mode through the CLIs at n_feature 48 (tests/test_rgb_mode.py's
+    journey): train (structure, then N2N) on 4 seeded 352² RGB pairs, E1 on
+    5 seeded 704² RGB pairs in float32 (against the per-conv module, TF32
+    off), with device metrics (against the host path) and in bfloat16
+    (check_whole_frame_bf16), then the output-adapter finetune and E4 on
+    its checkpoint (per frame against the module base and the adapter)."""
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.adapters import DenoiserWithAdapter, OutputAdapter
+    from image_denoising_tpu_torch.ckpt import load_checkpoint
+    from image_denoising_tpu_torch.cli import evaluation, evaluation_adapter, finetune
+    from image_denoising_tpu_torch.cli import train as train_cli
+    from image_denoising_tpu_torch.eval.tiled import denoise_whole_frame
+    from image_denoising_tpu_torch.metrics import calculate_psnr
+    from image_denoising_tpu_torch.models import ImprovedUNet
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair_fused
+
+    tmp_ctx = tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build"))
+    tmp = tmp_ctx.name
+    train_dir, eval_dir = os.path.join(tmp, "train"), os.path.join(tmp, "eval")
+    _write_pairs(train_dir, *rgb_frames(seed, RGB_TRAIN_PAIRS, TRAIN_FRAME))
+    clean, noise = rgb_frames(seed, RGB_EVAL_PAIRS, FRAME)
+    _write_pairs(eval_dir, clean, noise)
+    net = ["--n_channel", str(RGB_C), "--n_feature", str(NF)]
+    n = RGB_EVAL_PAIRS
+    out, totals = {}, {"float32": 0, "bfloat16": 0, "subsample_pair": 0}
+
+    # train: 1 epoch of 2 steps at batch 2, the structure loss then N2N
+    ckpts = {}
+    for name, extra in (("structure", []), ("n2n", ["--loss", "n2n"])):
+        save = os.path.join(tmp, name)
+        fused_rdb_chain.launches = 0
+        subsample_pair_fused.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(["--data_dir", train_dir, "--save_model_path", save,
+                            "--arch", "UNetImproved", "--n_epoch", "1", "--batchsize", "2",
+                            "--seed", str(seed)] + net + extra)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        (ckpts[name],) = glob.glob(os.path.join(save, "*", "*", "epoch_model_001.ckpt"))
+        ImprovedUNet(RGB_C, RGB_C, NF).load_state_dict(
+            load_checkpoint(ckpts[name], arch="UNetImproved"), strict=True)
+        launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
+                        subsample_pair=subsample_pair_fused.launches)
+        want = dict(fused_rdb_chain=0, subsample_pair=2 if name == "n2n" else 0)
+        totals["subsample_pair"] += launches["subsample_pair"]
+        out[f"train_{name}"] = dict(seconds=sec, launches=launches)
+        log(f"[rgb] cli.train --n_channel 3 {' '.join(extra) or '(structure)'}, 2 steps "
+            f"at batch 2 of {TRAIN_FRAME}^2 RGB: {sec:.2f} s; epoch_model_001.ckpt loads "
+            f"strict into ImprovedUNet(3, 3, {NF}); launches {launches}")
+        if launches != want:
+            raise AssertionError(f"rgb train {name}: launches {launches}, want {want}")
+
+    def save(name):
+        return ["--save_dir", os.path.join(tmp, name)]
+
+    def counted(name, r, dtype="float32", want=9 * n):
+        got = r["launches"]["fused_rdb_chain"]
+        totals[dtype] += got
+        out[name] = dict(seconds=r["seconds"], launches=r["launches"])
+        if got != want:
+            raise AssertionError(f"rgb {name}: {got} chain launches, want {want}")
+
+    # E1 against the per-conv module's whole-frame forward (TF32 off)
+    base = ckpts["structure"]
+    model = ImprovedUNet(RGB_C, RGB_C, NF).eval()
+    model.load_state_dict(load_checkpoint(base, arch="UNetImproved"), strict=True)
+    module_preds = {}
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        mod = copy.deepcopy(model).to("cuda", dt)
+        module_preds[dname] = np.stack([np.clip(denoise_whole_frame(
+            lambda t, m=mod, d=dt: m(t.to(d)), f.astype(np.float32) / 255.0,
+            device="cuda") * 255.0 + 0.5, 0, 255).astype(np.uint8) for f in noise])
+        del mod
+    own_bf16 = level_diff(module_preds["bfloat16"], module_preds["float32"])
+    e1 = ["--data_dir", eval_dir, "--checkpoint", base, "--save_images", "denoised"] + net
+    for dname in ("float32", "bfloat16"):
+        name = f"e1_{dname}"
+        r = run_cli(evaluation.main, e1 + save(name) + ["--dtype", dname])
+        counted(name, r, dname)
+        preds = np.stack(list(_read_pngs(os.path.join(tmp, name), "_denoised.png").values()))
+        assert preds.shape == (n, FRAME, FRAME, RGB_C), preds.shape
+        vs_f32 = level_diff(preds, module_preds["float32"])
+        vs_same = level_diff(preds, module_preds[dname])
+        out[name].update(vs_f32, vs_same_dtype_module=vs_same,
+                         psnr=r["frames"]["psnr"])
+        log(f"[rgb] {name}: {n} RGB frames of {FRAME}^2, {r['seconds']:.3f} s; denoised "
+            f"PNGs vs the per-conv module's whole frame: float32 {vs_f32}; {dname} "
+            f"{vs_same}; launches {r['launches']}")
+        if dname == "float32":
+            check_levels(dname, vs_f32, vs_same, "RGB E1")
+            host = r["frames"]
+        else:
+            log(f"[rgb] per-conv module bfloat16 against float32: {own_bf16}")
+            check_whole_frame_bf16(vs_f32, vs_same, own_bf16)
+    r = run_cli(evaluation.main, e1 + save("e1_dm") + ["--device_metrics"])
+    counted("e1_float32_device_metrics", r)
+    d = _dm_vs_host(r["frames"], host, "RGB E1")
+    d["l1"] = max(abs(a - b) for a, b in zip(r["frames"]["l1"], host["l1"]))
+    out["e1_float32_device_metrics"]["vs_host"] = d
+    log(f"[rgb] e1 --device_metrics against the host path: {d} (limits {DM_PSNR_TOL} dB, "
+        f"{DM_SSIM_TOL}, L1 1e-6)")
+    if not d["l1"] <= 1e-6:
+        raise AssertionError(f"RGB E1: device metrics' L1 {d['l1']} from the host path's")
+
+    # the output-adapter finetune (1 epoch: 5 pairs x 4 patches of 128^2,
+    # batches of 4: 5 steps) over the structure checkpoint, then E4 on its file
+    fused_rdb_chain.launches = 0
+    save_ft = os.path.join(tmp, "finetune")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = finetune.main(["--data_dir", eval_dir, "--pretrained_ckpt", base,
+                               "--arch", "UNetImproved", "--save_model_path", save_ft,
+                               "--log_name", "rgb_ft", "--n_epoch", "1", "--batchsize", "4",
+                               "--patch_size", str(E6_TILE),
+                               "--patches_per_image", str(RGB_FT_PATCHES),
+                               "--seed", str(seed)] + net)
+    torch.cuda.synchronize()
+    ft_launches = fused_rdb_chain.launches
+    totals["float32"] += ft_launches
+    adapter_ckpt = os.path.join(save_ft, "rgb_ft", "epoch_adapter_001.ckpt")
+    out["finetune"] = dict(seconds=time.perf_counter() - t0, steps=int(state.step),
+                           launches=dict(fused_rdb_chain=ft_launches))
+    log(f"[rgb] cli.finetune --n_channel 3, 1 epoch ({int(state.step)} steps at batch 4 "
+        f"of {E6_TILE}^2 RGB patches, validation on {n} frames of {FRAME}^2): "
+        f"{out['finetune']['seconds']:.2f} s; chain launches {ft_launches}")
+    if not (int(state.step) == n * RGB_FT_PATCHES // FT_B and ft_launches
+            and os.path.exists(adapter_ckpt)):
+        raise AssertionError(f"rgb finetune: {int(state.step)} steps, {ft_launches} chain "
+                             f"launches, {adapter_ckpt} written: "
+                             f"{os.path.exists(adapter_ckpt)}")
+    r = run_cli(evaluation_adapter.main, ["--data_dir", eval_dir, "--ckpt", adapter_ckpt]
+                + net + save("e4"))
+    counted("e4", r)
+    head = OutputAdapter(RGB_C, E6_HIDDEN)
+    head.load_state_dict(load_checkpoint(adapter_ckpt, arch="output_adapter",
+                                         prefix="adapter"), strict=True)
+    mod = copy.deepcopy(model)
+    mod.load_state_dict(load_checkpoint(adapter_ckpt, arch="UNetImproved", prefix="base"),
+                        strict=True)
+    ref = DenoiserWithAdapter(mod.to("cuda"), head).to("cuda").eval()
+    want = []
+    for f, c in zip(noise, clean):
+        with torch.inference_mode():
+            x = torch.from_numpy(f.astype(np.float32) / 255.0).to("cuda").permute(2, 0, 1)
+            p = ref(x[None])[0].permute(1, 2, 0).cpu().numpy()
+        want.append(calculate_psnr(np.clip(p * 255.0 + 0.5, 0, 255).astype(np.uint8), c,
+                                   zero_mse_psnr=99.0))
+    got = r["frames"]["psnr"] if r["frames"] else r["host_psnr"]
+    dmax = max(abs(a - b) for a, b in zip(got, want))
+    out["e4"].update(max_psnr_diff=dmax, psnr=got)
+    log(f"[rgb] e4 on epoch_adapter_001.ckpt: per-frame PSNR {[round(v, 3) for v in got]}, "
+        f"within {dmax:.3g} dB of the output adapter over the per-conv module base (limit "
+        f"{ADAPTER_PSNR_TOL}); launches {r['launches']}")
+    if len(got) != n or not dmax <= ADAPTER_PSNR_TOL:
+        raise AssertionError(f"rgb e4: PSNR {got} against {want}")
+    tmp_ctx.cleanup()
+    out["launches"] = totals
+    return out
+
+
 # the [multidevice] phase. The script needs one card, so each mesh repeats it
 # (make_mesh(devices=["cuda:0"] * k)): every split, per-device forward, shard
 # and key merge runs, and the copies between devices are no-ops. Shard
@@ -3830,11 +4255,17 @@ def main(argv=None) -> int:
                            batch=FT_B)
     chain_frame = phase_chain(args.seed + 3, chain_shapes(FRAME), "FT1x704", reps=3,
                               batch=1)
+    # RGB mode's down0 lead (Cin 4) at E2's 8 tiles of 352², the RGB
+    # finetune step's 4 patches of 128² and E1's whole 704² frame
+    chain_rgb = {f"rgb{b}x{t}": phase_chain(args.seed + 4 + i, [rgb_lead(t)],
+                                            f"RGB{b}x{t}", reps=3, batch=b)
+                 for i, (b, t) in enumerate(((B, TILE), (FT_B, E6_TILE), (1, FRAME)))}
     top1 = phase_retrieval(args.seed)
     subsample = phase_subsample(args.seed)
     floor = phase_launch_floor()
     main_path = phase_main(args.seed)
     memory = phase_memory(args.seed)
+    prod_bank = memory.pop("prod_bank")
     train = phase_train(args.seed)
     structure = phase_structure(args.seed)
     train_cli = phase_train_cli(args.seed)
@@ -3848,6 +4279,14 @@ def main(argv=None) -> int:
         serving = phase_serving(args.seed, fine["kept"])
         networks = phase_networks(args.seed, fine["kept"])
     multi = phase_multidevice(args.seed)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as keep:
+        converge = phase_converge(args.seed, keep)
+        huge = phase_huge(args.seed, converge["structure_float32"]["final_ckpt"],
+                          prod_bank)
+    del prod_bank
+    rgb = phase_rgb(args.seed)
+    conv_chain = sum(converge[leg]["launches"]["fused_rdb_chain"]
+                     for leg in ("structure_float32", "structure_bfloat16"))
     ft_launches = {k: fine["float32"]["launches"][k] + fine["int8"]["launches"][k]
                    for k in ("fused_rdb_chain", "top1_l2_retrieval")}
     md = multidevice_launches(multi)
@@ -3863,7 +4302,9 @@ def main(argv=None) -> int:
             + memory[dname]["launches"]["fused_rdb_chain"]
             + (ft_launches["fused_rdb_chain"] if dname == "float32" else 0)
             + (data_launches["fused_rdb_chain"] if dname == "float32" else 0)
-            + serving["launches"][dname] + md["fused_rdb_chain"][dname],
+            + serving["launches"][dname] + md["fused_rdb_chain"][dname]
+            + rgb["launches"][dname] + (conv_chain if dname == "float32" else 0)
+            + (huge["launches"]["fused_rdb_chain"] if dname == "bfloat16" else 0),
             launches_by_path={"E2": main_path[dname]["launches"],
                               "E6": memory[dname]["launches"]["fused_rdb_chain"],
                               "finetune": (ft_launches["fused_rdb_chain"]
@@ -3871,7 +4312,11 @@ def main(argv=None) -> int:
                               "data": (data_launches["fused_rdb_chain"]
                                        if dname == "float32" else 0),
                               "serving": serving["launches"][dname],
-                              "multidevice": md["fused_rdb_chain"][dname]},
+                              "multidevice": md["fused_rdb_chain"][dname],
+                              "converge": conv_chain if dname == "float32" else 0,
+                              "huge": (huge["launches"]["fused_rdb_chain"]
+                                       if dname == "bfloat16" else 0),
+                              "rgb": rgb["launches"][dname]},
             max_abs_err=max(r["max_abs_err"] for r in rows + e6_rows),
             ms=sum(r["ms"] for r in rows),
             plain_ms=sum(r["plain_ms"] for r in rows),
@@ -3885,7 +4330,10 @@ def main(argv=None) -> int:
             ft1x704={k: sum(r[k] for r in chain_frame[dname]) for k in ("ms", "plain_ms",
                                                                         "bound_ms")},
             max_abs_err_ft=max(r["max_abs_err"] for r in chain_ft[dname]
-                               + chain_frame[dname])))
+                               + chain_frame[dname]),
+            **{k: {f: v[dname][0][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "max_abs_err", "tol")}
+               for k, v in chain_rgb.items()}))
     for dname, res in top1.items():
         big, small, ft = res["rows"]
         launches = (memory["float32"]["launches"]["top1_l2_retrieval"]
@@ -3899,7 +4347,8 @@ def main(argv=None) -> int:
                    "serving": serving["launches"]["int8"] if dname == "int8" else 0,
                    "E6 UNet base": networks["cli"]["e6"]["launches"]["top1_l2_retrieval"]
                    if dname == "int8" else 0,
-                   "multidevice": md["top1_l2_retrieval"].get(dname, 0)}
+                   "multidevice": md["top1_l2_retrieval"].get(dname, 0),
+                   "huge": huge["launches"]["top1_l2_retrieval"] if dname == "int8" else 0}
         summary.append(dict(
             name="top1_l2_retrieval", dtype=dname, route="cuda", design=ROUTES[dname][0],
             source=TOP1_SOURCE, replaces=TOP1_REPLACES, launches=sum(by_path.values()),
@@ -3910,19 +4359,25 @@ def main(argv=None) -> int:
             bound_by=big["bound_by"], library_ms=big["library_ms"],
             b8={k: small[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             b4={k: ft[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            **({key: {k: huge[f"top1_{key}"][k] for k in (
+                "n", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for key in ("b1849", "b1849_prod")} if dname == "int8" else {}),
             sharded={k: {f: r[f] for f in ("ms", "unsharded_ms", "launches",
                                             "differing_indices")}
                      for k, r in multi["retrieval"].get(dname, {}).items()}))
     sub = subsample[f"n{TRAIN_B}_c1_{TRAIN_FRAME}x{TRAIN_FRAME}_float32"]
     sub704 = subsample[f"n{TRAIN_B}_c1_{FRAME}x{FRAME}_float32"]
     n2n_unet = networks["train"]["n2n_unet"]["launches"]
+    conv_sub = converge["n2n"]["launches"]["subsample_pair"]
     summary.append(dict(
         name="subsample_pair", dtype="float32", route="cuda",
         design="4 cells a thread, 16-byte vectors, exact grid (CUDA cores)",
         source=SUB_SOURCE,
-        replaces=SUB_REPLACES, launches=train["launches"] + md["subsample_pair"],
+        replaces=SUB_REPLACES, launches=train["launches"] + md["subsample_pair"] + conv_sub
+        + rgb["launches"]["subsample_pair"],
         launches_by_path={"N2N train": train["launches"], "train CLI": train_cli["launches"],
-                          "N2N UNet 704^2": n2n_unet, "multidevice": md["subsample_pair"]},
+                          "N2N UNet 704^2": n2n_unet, "multidevice": md["subsample_pair"],
+                          "converge": conv_sub, "rgb": rgb["launches"]["subsample_pair"]},
         max_abs_err=max(r["max_abs_err"] for r in subsample.values()),
         ms=sub["ms"], plain_ms=sub["plain_ms"], bound_ms=sub["bound_ms"],
         bound_by=sub["bound_by"], library_ms=None, wrapper_ms=sub["wrapper_ms"],
@@ -3931,18 +4386,22 @@ def main(argv=None) -> int:
         c3={k: {f: r[f] for f in ("ms", "warm_ms", "plain_ms", "bound_ms")}
             for k, r in subsample.items() if r["c"] == 3 and "ms" in r},
         n2n_704=dict({f: sub704[f] for f in ("ms", "warm_ms", "plain_ms", "bound_ms",
-                                             "bound_by")}, launches=n2n_unet)))
+                                             "bound_by")}, launches=n2n_unet),
+        n2n_128=dict({f: converge["subsample_128"][f] for f in (
+            "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by")}, launches=conv_sub)))
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_seconds=build_s,
                        torch=torch.__version__, cuda=torch.version.cuda,
                        kernels=dict(chain_e2=chain_e2, chain_e6=chain_e6,
                                     chain_ft4x128=chain_ft, chain_ft1x704=chain_frame,
+                                    chain_rgb=chain_rgb,
                                     top1=top1, subsample=subsample, launch_floor=floor),
                        main=main_path, memory=memory, train=train, train_cli=train_cli,
                        structure=structure, hpo=hpo, finetune=fine, data=data,
                        serving=serving,
-                       networks=networks, multidevice=multi, summary=summary),
+                       networks=networks, multidevice=multi, converge=converge,
+                       huge=huge, rgb=rgb, summary=summary),
                   f, indent=1)
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
         f"of one {B}-tile E2 chunk (e6: of one E6 chunk); design is the route "
@@ -3971,7 +4430,17 @@ def main(argv=None) -> int:
         "int8 bank); launches_by_path[multidevice]: [multidevice]'s paths on meshes "
         "of the one card (E2 and E6 split, the sharded retrieval's first call per "
         "shard count and batch, the data-parallel steps, the CLIs with their flags); "
-        "sharded: ms per sharded retrieval call by shard count and batch")
+        "sharded: ms per sharded retrieval call by shard count and batch; "
+        "rgb8x352/rgb4x128/rgb1x704: the chain at RGB mode's down0 (Cin 4 = in_nc + 1, "
+        "nf 48, lead) at 8 tiles of 352^2, the RGB finetune step's 4 x 128^2 and E1's "
+        "1 x 704^2; launches_by_path[rgb]: [rgb]'s CLIs (E1 f32, device metrics and bf16, "
+        "the finetune, E4; subsample_pair: the RGB N2N train CLI); [converge]: E1 on the "
+        "structure legs' snapshots (chain, float32) and the N2N leg's 240 steps "
+        "(subsample_pair, n2n_128: N=4 128^2 C=1 f32); [huge]: the 4672^2 pyramid and "
+        "2816^2 Hann frames (chain, bfloat16) and the Hann leg's hoisted retrieval "
+        "(int8); b1849: retrieval at that leg's B=1849 over its int8 bank (n rows "
+        "padded); b1849_prod: the same queries over the production int8 bank, as the "
+        "E6 CLI retrieves a 2816^2 frame in one pass")
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

@@ -89,3 +89,14 @@ def same_files(dir_a, dir_b):
     for f in names:
         with open(os.path.join(dir_a, f), "rb") as fa, open(os.path.join(dir_b, f), "rb") as fb:
             assert fa.read() == fb.read(), f
+
+
+def load_script(path, name: str = None):
+    """A script file (the ``scripts/`` folders are no packages) as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(name or Path(path).stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

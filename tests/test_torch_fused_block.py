@@ -66,21 +66,30 @@ def _state_dict(params, lead: bool, res0: bool):
 
 
 @pytest.fixture(scope="module")
-def head_case():
-    rng = np.random.default_rng(11)
-    nf, cin = 16, 2
-    x = rng.standard_normal((2, 16, 24, cin)).astype(np.float32)
-    m = _LevelHead(nf=nf)
-    params = _np_tree(jax.jit(m.init)(jax.random.PRNGKey(0), x)["params"])
-    jp = dict(params)
-    jp["res_fake"] = {"conv0": {"conv": {"kernel": params["res_c0"]["conv"]["kernel"]}}}
-    sd = _state_dict(params, lead=True, res0=True)
-    return x, jp, sd
+def head_cases():
+    """lead Cin → (x, JAX params, the port's state dict): Cin 2 is the
+    grayscale network's first level (in_nc 1 and the noise estimate), 4 RGB
+    mode's (in_nc 3)."""
+    made = {}
+
+    def case_of(cin):
+        if cin not in made:
+            rng = np.random.default_rng(11)
+            x = rng.standard_normal((2, 16, 24, cin)).astype(np.float32)
+            m = _LevelHead(nf=16)
+            params = _np_tree(jax.jit(m.init)(jax.random.PRNGKey(0), x)["params"])
+            jp = dict(params)
+            jp["res_fake"] = {"conv0": {"conv": {"kernel": params["res_c0"]["conv"]["kernel"]}}}
+            made[cin] = x, jp, _state_dict(params, lead=True, res0=True)
+        return made[cin]
+
+    return case_of
 
 
+@pytest.mark.parametrize("cin", [2, 4])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_chain_with_lead_and_res0_matches_pallas(head_case, dtype):
-    x, jp, sd = head_case
+def test_chain_with_lead_and_res0_matches_pallas(head_cases, dtype, cin):
+    x, jp, sd = head_cases(cin)
     jdt = getattr(jnp, dtype)
     jwts = JaxChainWeights(jp, lead="lead", rdb="rdb", res="res_fake", dtype=jdt)
     ref_rdb, ref_c0 = jax_fused_rdb_chain(jnp.asarray(x, jdt), jwts,

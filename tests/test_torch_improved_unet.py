@@ -20,21 +20,38 @@ NF = 8
 
 
 @pytest.fixture(scope="module")
-def case():
-    """JAX params (numpy) and the JAX output on a seeded [2, 32, 32, 1] batch."""
-    x = np.random.default_rng(5).random((2, 32, 32, 1)).astype(np.float32)
-    jm, params = seeded_improved_unet_params(NF, seed=0)
-    ref = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(x)))
-    model = load_jax_params(ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF), params)
-    return x, params, ref, model.eval()
+def cases():
+    """in_nc → JAX params (numpy) and the JAX output on a seeded
+    [2, 32, 32, in_nc] batch, and the port's module on those params: 1 is
+    the grayscale network, 3 RGB mode (its first level's lead conv takes 4
+    channels, the noise estimate appended)."""
+    made = {}
+
+    def case_of(in_nc):
+        if in_nc not in made:
+            x = np.random.default_rng(5).random((2, 32, 32, in_nc)).astype(np.float32)
+            jm, params = seeded_improved_unet_params(NF, seed=0, in_nc=in_nc)
+            ref = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(x)))
+            model = load_jax_params(ImprovedUNet(in_nc=in_nc, out_nc=in_nc, n_feature=NF),
+                                    params)
+            made[in_nc] = x, params, ref, model.eval()
+        return made[in_nc]
+
+    return case_of
+
+
+@pytest.fixture(scope="module")
+def case(cases):
+    return cases(1)
 
 
 def _nchw(x):
     return torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
 
 
-def test_state_dict_matches_jax_export_and_loads_strict(case):
-    _, params, _, model = case
+@pytest.mark.parametrize("in_nc", [1, 3])
+def test_state_dict_matches_jax_export_and_loads_strict(cases, in_nc):
+    _, params, _, model = cases(in_nc)
     ours = params_to_state_dict(params)
     theirs = jax_params_to_state_dict(params, "UNetImproved")
     assert sorted(ours) == sorted(theirs)
@@ -54,15 +71,16 @@ def test_module_widths():
     assert m.final.in_channels == 25
 
 
+@pytest.mark.parametrize("in_nc", [1, 3])
 @pytest.mark.parametrize("forward", ["module", "fused"])
-def test_forward_matches_jax_apply(case, forward):
-    x, _, ref, model = case
+def test_forward_matches_jax_apply(cases, forward, in_nc):
+    x, _, ref, model = cases(in_nc)
     if forward == "module":
         with torch.no_grad():
             out = model(_nchw(x))
     else:
         out = make_fused_forward(model, device="cpu")(_nchw(x))
-    assert out.shape == (2, 1, 32, 32)
+    assert out.shape == (2, in_nc, 32, 32)
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, atol=1e-5)
 
 

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
+# what neither the port nor the card's scripts may import
+BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "image_denoising_tpu")
 
 
 def test_port_modules_import_no_jax():
@@ -22,12 +24,10 @@ def test_port_modules_import_no_jax():
         for n in names:
             importlib.import_module(n)
         def banned(n):
-            return any(n == b or n.startswith(b + ".") for b in
-                       ("jax", "jaxlib", "flax", "optax", "msgpack",
-                        "image_denoising_tpu"))
+            return any(n == b or n.startswith(b + ".") for b in %r)
         print(json.dumps({"modules": names,
                           "banned": sorted(n for n in sys.modules if banned(n))}))
-    """)
+    """ % (BANNED,))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -166,3 +166,47 @@ def test_subsample_pair_fused_runs_the_kernel_or_raises():
     assert torch.equal(neighbor.subsample_pair_fused(0, img)[2][0],
                        neighbor.subsample_pair(0, img)[2][0])
     assert neighbor.subsample_pair_fused.launches == before
+
+
+def test_cuda_scripts_import_no_jax():
+    """The card's scripts (``scripts/cuda/*.py``) stand with the port: no
+    import statement in them names JAX or the JAX package, and loading them
+    with every module they import (inside their functions too) pulls in
+    neither."""
+    import ast
+
+    scripts = sorted((REPO / "scripts" / "cuda").glob("*.py"))
+    assert {"convergence.py", "huge_frame.py"} <= {p.name for p in scripts}
+    imported = set()
+    for path in scripts:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            for name in names:
+                assert not any(name == b or name.startswith(b + ".") for b in BANNED), (
+                    path.name, name)
+            imported.update(names)
+    port = sorted(n for n in imported if n.startswith("image_denoising_tpu_torch."))
+    assert "image_denoising_tpu_torch.eval.tiled" in port
+    code = textwrap.dedent("""
+        import importlib, importlib.util, json, pathlib, sys
+        for path in sorted(pathlib.Path("scripts/cuda").glob("*.py")):
+            spec = importlib.util.spec_from_file_location(path.stem, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        for name in %r:
+            try:
+                importlib.import_module(name)
+            except ModuleNotFoundError:  # a name imported from a module
+                importlib.import_module(name.rsplit(".", 1)[0])
+        banned = %r
+        print(json.dumps(sorted(n for n in sys.modules
+                                if any(n == b or n.startswith(b + ".") for b in banned))))
+    """ % (port, BANNED))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

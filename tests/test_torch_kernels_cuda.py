@@ -796,3 +796,59 @@ def test_wrappers_launch_on_their_tensors_device_and_stream(monkeypatch):
     assert entered and all(d == meta for d in entered)
     assert asked and all(d == meta for d in asked)
     assert streams and set(streams) == {7000 + len("meta")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 352, 352), (4, 128, 128), (1, 704, 704)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_rdb_chain_kernel_at_the_rgb_lead(cuda, dtype, shape):
+    """RGB mode's first level at n_feature 48: the lead conv takes in_nc + 1
+    = 4 channels (the wrapper pads them to its chunk), at 8 tiles of 352²,
+    the RGB finetune step's 4 patches of 128² and E1's whole 704² frame:
+    within the chain tolerances of chip_smoke.py."""
+    torch.manual_seed(13)
+    nf, cin = 48, 4
+    wts = FusedChainWeights.from_modules(RDB(nf), lead=torch.nn.Conv2d(cin, nf, 3, padding=1),
+                                         res=ResBlock(nf), dtype=dtype, device=cuda)
+    x = torch.randn(*shape, cin, device=cuda).to(dtype)
+    before = fused_rdb_chain.launches
+    got = fused_rdb_chain(x, wts)
+    torch.cuda.synchronize()
+    assert fused_rdb_chain.launches == before + 1
+    want = fused_rdb_chain_reference(x, wts)
+    for g, w in zip(got, want):
+        assert g.shape == (*shape, nf)
+        scale = w.float().abs().max().item()
+        atol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 4 * 2.0 ** -7 * scale
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_top1_l2_retrieval_kernel_at_the_huge_frame_batch(cuda):
+    """The hoisted retrieval of a 2816² frame's 1849 tiles of 128² in one
+    pass over an int8 bank of 4,608 rows (padded): indices equal to the plain
+    version's (exact integer distances)."""
+    q, bank, sqn = _retrieval_case("int8", cuda, b=1849, n=4608, d=128 * 128)
+    before = top1_l2_retrieval.launches
+    got = top1_l2_retrieval(q, bank, sqn)
+    torch.cuda.synchronize()
+    assert top1_l2_retrieval.launches == before + 1
+    torch.testing.assert_close(got, top1_l2_retrieval_reference(q, bank, sqn), atol=0, rtol=0)
+    assert int(got[0]) == 300
+
+
+@pytest.mark.cuda
+def test_subsample_pair_kernel_at_the_convergence_shape(cuda):
+    """The N2N convergence run's batch: 4 x 1 x 128 x 128 float32, bit-equal
+    to the plain version."""
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair, subsample_pair_fused
+
+    img = torch.rand((4, 1, 128, 128), generator=torch.Generator().manual_seed(128)).to(cuda)
+    want = subsample_pair(2 ** 33 + 5, img)
+    before = subsample_pair_fused.launches
+    got = subsample_pair_fused(2 ** 33 + 5, img)
+    torch.cuda.synchronize()
+    assert subsample_pair_fused.launches == before + 1
+    assert got[0].shape == (4, 1, 64, 64) and got[2][0].shape == (4, 64, 64)
+    for g, w in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        assert torch.equal(g, w)

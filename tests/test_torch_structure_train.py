@@ -62,7 +62,7 @@ def test_pixel_losses_equal_jax(name):
     np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
-def _batches(n=3, seed=36):
+def _batches(n=3, seed=36, channels=1):
     """``n`` (clean, noisy) batches of two 64² frames of uniform random
     levels, noisy = clean + N(0, 25), clipped, [0,255] floats. On smooth
     frames neighbouring features come within float32 rounding of each
@@ -71,7 +71,7 @@ def _batches(n=3, seed=36):
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        clean = rng.integers(0, 256, (2, FRAME, FRAME, 1)).astype(np.float32)
+        clean = rng.integers(0, 256, (2, FRAME, FRAME, channels)).astype(np.float32)
         noisy = np.clip(clean + rng.normal(0, 25, clean.shape), 0, 255).round()
         out.append((clean, noisy.astype(np.float32)))
     return out
@@ -84,8 +84,8 @@ def setup():
     return params, _batches()
 
 
-def _port(params, **flags):
-    model = load_jax_params(ImprovedUNet(1, 1, NF, **flags), params)
+def _port(params, in_nc=1, **flags):
+    model = load_jax_params(ImprovedUNet(in_nc, in_nc, NF, **flags), params)
     return model, create_train_state(model, lr=LR)
 
 
@@ -93,19 +93,19 @@ def _state_dict_np(tree):
     return params_to_state_dict(jax.tree_util.tree_map(np.asarray, tree))
 
 
-def _run(setup, bf16: bool):
+def _run(setup, bf16: bool, in_nc: int = 1):
     """Three structure steps of the port (float32, or bf16 compute) and of
     the JAX package (float64, or bf16 compute): the per-step (loss, l1) of
     each, and the port's model."""
     params, batches = setup
-    model_t, state_t = _port(params, dtype=torch.bfloat16 if bf16 else None)
+    model_t, state_t = _port(params, in_nc, dtype=torch.bfloat16 if bf16 else None)
     step_t = make_structure_train_step(model_t, state_t)
     got = [step_t(clean, noisy) for clean, noisy in batches]
     got = np.array([[float(m["loss"]), float(m["l1"])] for m in got])
     with jax.enable_x64(not bf16):
         if not bf16:
             params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), params)
-        model_j = JaxImprovedUNet(1, 1, NF, dtype=jnp.bfloat16 if bf16 else None)
+        model_j = JaxImprovedUNet(in_nc, in_nc, NF, dtype=jnp.bfloat16 if bf16 else None)
         state_j = jax_train.create_train_state(params, lr=LR)
         step_j = jax_train.make_structure_train_step(model_j.apply)
         want = []
@@ -121,11 +121,20 @@ def f32_run(setup):
     return _run(setup, bf16=False)
 
 
-def test_structure_step_matches_jax(f32_run):
+@pytest.fixture(scope="module")
+def rgb_f32_run():
+    """``f32_run`` in RGB mode (in_nc 3): its own seeded weights and three
+    batches of 3-channel frames."""
+    _, params = seeded_improved_unet_params(NF, seed=33, in_nc=3)
+    return _run((params, _batches(channels=3)), bf16=False, in_nc=3)
+
+
+@pytest.mark.parametrize("in_nc", [1, 3])
+def test_structure_step_matches_jax(request, in_nc):
     """Three float32 steps from the same weights on the same batches
     against JAX's step in float64: loss and l1 within rtol 1e-5 at every
-    step (readings at most 3.2e-6)."""
-    got, want, _ = f32_run
+    step (readings at most 3.2e-6), for the grayscale network and RGB mode."""
+    got, want, _ = request.getfixturevalue("f32_run" if in_nc == 1 else "rgb_f32_run")
     np.testing.assert_allclose(got, want, rtol=1e-5)
     assert np.all(got[:, 1] < got[:, 0])
 
