@@ -18,19 +18,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                bottleneck), and of the finetune path (B=4 tiles of 128², a
                whole 704² frame), and RGB mode's first level (Cin 4: in_nc
                3 and the noise estimate) at B=8 352², B=4 128² and 1x704²,
-               in float32 and bfloat16, with the blocks of each launch; top1_l2_retrieval on
+               in float32 and bfloat16, with the blocks of each launch (bf16:
+               also at most 0.1 of the RDB outputs unequal to the plain
+               version's); top1_l2_retrieval on
                seeded device banks of N=105,125 rows of D=16,384 in float32,
                bfloat16 and int8, with B=400, 8 and 4 queries (B=1-4 held to
                the same limits), a duplicated
                row (the first must win), near ties that one TF32 product
-               gets wrong and a bank padded to 512 rows (no padded row may
-               win); the launch floor (an empty kernel issued back to back);
+               gets wrong, near ties whose nearer row sits just above TF32
+               values (hi·hi alone gets them wrong), a copy of the last row
+               and a bank padded to 512 rows (no padded row may win); the
+               launch floor (an empty kernel issued back to back);
                subsample_pair at N=4 352² frames, C=1
                float32 (the training shape) and C=3 float32 and bfloat16,
                at N=4 704² C=1 float32 (N2N of the UNet), and at the edge
                shapes 4x1x352x350 (W/2 not a multiple of 4),
                4x3x352x356 bfloat16 (rows not 16-byte aligned) and N=1:
-               selectors and sub-images bit-equal, only the 8 listed
+               selectors and sub-images bit-equal (the outputs' memory
+               filled with 0xFF first), only the 8 listed
                pairs, each within 0.005 of 1/8, same seed same maps, another
                seed other maps, one map for all channels; its device time
                with L2 flushed before each call (held to its byte bound at
@@ -209,6 +214,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                output adapter, 5 steps of 128² patches) and E4 on its
                epoch_adapter_001.ckpt within 0.01 dB of the module base and
                adapter; chain launches counted per run.
+  17. mutants — scripts/cuda/mutants.py: 11 seeded faults of the three
+               kernels (5 chain, 3 retrieval, 3 sub-sampler), each a patched
+               copy of csrc/ built under build/mutants/, run in one child
+               process per kernel against the checks on its path (the
+               kernel checks of phases 3's chain, retrieval and sub-sampler
+               at their shapes, and E2's levels, E6's indices and the N2N
+               losses end to end), with the real kernels checked before and
+               after; fails when a mutant passes them all.
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Per-shape details go to the --json file.
 """
@@ -220,12 +233,14 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -345,10 +360,54 @@ FT_EMPTY_LAUNCHES = 2000  # empty kernels issued back to back for the floor
 # float32 tolerance apart
 DUP_LO, DUP_HI, N_FAR = 1234, 98765, 6
 N_TIE, TIE_ROW, TIE_S = 6, 50000, 0.6
+# and query LAST_Q, a copy of the bank's last row (its best row is the edge
+# row of the last bank tile), and N_LO_TIE queries from LO_TIE_Q on, each
+# entry just above a TF32 value, whose two nearest rows (lo_tie_rows, from
+# row LO_TIE_ROW on) are LO_TIE_GAP float32 tolerances apart: a pick of
+# the farther row exceeds the limit by half. A kernel that keeps only the
+# hi·hi product gets such ties wrong up to 5 tolerances apart (on an NVIDIA
+# H100 80GB HBM3 at 700 W, PERF.md; scripts/cuda/mutants.py scans the gaps)
+LAST_Q, N_LO_TIE, LO_TIE_Q, LO_TIE_ROW, LO_TIE_GAP = 13, 6, 14, 70000, 1.5
+# bf16 chain: the kernel and its plain version round the same float32 sums
+# at the same places, and their sums differ in order only, so few stored
+# RDB outputs differ at all (at most 0.034 of them at the main paths'
+# shapes on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md); an RDB output
+# rounded once more or once less moves 0.22 or more of them there
+CHAIN_BF16_FLIP_SHARE = 0.1
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Verdict(NamedTuple):
+    """A check's decision on one reading: ``ok``, and ``margin``, the
+    reading over its limit (above 1 fails). An exact check has limit 0 and
+    reads a count: margin 0 when it holds, inf when it does not."""
+    ok: bool
+    margin: float
+    reading: float
+    limit: float
+    what: str
+
+
+def verdict(reading, limit, what: str) -> Verdict:
+    """The Verdict of ``reading`` against ``limit``; a NaN reading fails."""
+    reading, limit = float(reading), float(limit)
+    if math.isnan(reading):
+        return Verdict(False, math.inf, reading, limit, what)
+    if limit > 0:
+        margin = reading / limit
+    else:
+        margin = 0.0 if reading <= limit else math.inf
+    return Verdict(reading <= limit, margin, reading, limit, what)
+
+
+def worst(*verdicts: Verdict) -> Verdict:
+    """One verdict for a check of several readings: ok when all are, with
+    the reading of the largest margin."""
+    top = max(verdicts, key=lambda v: (v.margin, not v.ok))
+    return top._replace(ok=all(v.ok for v in verdicts))
 
 
 def time_ms(fn, warmup: int = 1, reps: int = 5) -> float:
@@ -412,38 +471,82 @@ def random_chain(rng, cin, nf, lead, dtype):
         t((3, 3, nf, nf), 9 * nf))
 
 
+def chain_tol(dname: str, scale: float) -> float:
+    """The chain's limit on its largest difference from the plain version,
+    for outputs of largest magnitude ``scale``. f32: summation order only
+    (≤ 5184-term sums, 6 convs deep); bf16: one rounding per stored value,
+    as the plain version; a flip is one ulp (≤ 2^-7 of the value): 4 ulps of
+    the largest output."""
+    return 1e-4 * max(1.0, scale) if dname == "float32" else 4 * 2.0 ** -7 * scale
+
+
+def chain_verdict(got, want, dname: str) -> Verdict:
+    """The chain's outputs ``got`` against its plain version's ``want``: the
+    largest difference within ``chain_tol``; a value that is not finite
+    fails."""
+    import torch
+
+    err, scale = 0.0, 0.0
+    for g, w in zip(got, want):
+        if not bool(torch.isfinite(g.float()).all()):
+            err = math.inf
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        scale = max(scale, float(w.float().abs().max()))
+    return verdict(err, chain_tol(dname, scale), "max_abs_err")
+
+
+def chain_flip_verdict(got, want) -> Verdict:
+    """bf16: the share of the chain's RDB outputs (its first output) that
+    are not equal to the plain version's, within ``CHAIN_BF16_FLIP_SHARE``.
+    ResBlock conv0's output is one conv further on, where each flipped RDB
+    output moves the sums of its neighbours (up to 0.21 of them differ on
+    an NVIDIA H100 80GB HBM3 at 700 W)."""
+    return verdict(float((got[0] != want[0]).float().mean()), CHAIN_BF16_FLIP_SHARE,
+                   "share of RDB outputs unequal")
+
+
+def chain_cases(seed: int, shapes, batch: int = B):
+    """phase_chain's inputs in its order, from one seeded generator:
+    (dtype name, shape row, x, weights) at each of ``shapes``, float32 then
+    bfloat16."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for shape in shapes:
+            _, h, cin, nf, lead = shape
+            x = torch.from_numpy(
+                rng.standard_normal((batch, h, h, cin)).astype("float32")).to("cuda", dt)
+            yield dname, shape, x, random_chain(rng, cin, nf, lead, dt)
+
+
 def phase_chain(seed: int, shapes, label: str, reps: int = 5, batch: int = B):
     """fused_rdb_chain against its plain version at ``shapes``, batch ``batch``."""
-    import numpy as np
+    import itertools
+
     import torch
 
     from image_denoising_tpu_torch.ops.fused_block import (
         chain_conv_plans, fused_rdb_chain, fused_rdb_chain_reference)
 
-    rng = np.random.default_rng(seed)
     results = {}
-    for dname in ("float32", "bfloat16"):
+    for dname, cases in itertools.groupby(chain_cases(seed, shapes, batch),
+                                          key=lambda case: case[0]):
         dt = getattr(torch, dname)
         route, peak = ROUTES[dname]
         rows = []
-        for name, h, cin, nf, lead in shapes:
-            x = torch.from_numpy(
-                rng.standard_normal((batch, h, h, cin)).astype("float32")).to("cuda", dt)
-            wts = random_chain(rng, cin, nf, lead, dt)
+        for _, (name, h, cin, nf, lead), x, wts in cases:
             got = fused_rdb_chain(x, wts)
             want = fused_rdb_chain_reference(x, wts)
             torch.cuda.synchronize()
-            err, scale = 0.0, 0.0
             for g, w in zip(got, want):
                 assert g.shape == w.shape == (batch, h, h, nf) and g.dtype == dt
-                assert torch.isfinite(g.float()).all()
-                err = max(err, (g.float() - w.float()).abs().max().item())
-                scale = max(scale, w.float().abs().max().item())
-            # f32: summation order only (≤ 5184-term sums, 6 convs deep);
-            # bf16: one rounding per stored value, as the reference; a flip
-            # is one ulp (≤ 2^-7 of the value): 4 ulps of the largest output
-            tol = (1e-4 * max(1.0, scale) if dname == "float32"
-                   else 4 * 2.0 ** -7 * scale)
+            check = chain_verdict(got, want, dname)
+            flips = chain_flip_verdict(got, want) if dname == "bfloat16" else None
+            err, tol = check.reading, check.limit
+            scale = max(float(w.float().abs().max()) for w in want)
             del got, want
             ms = time_ms(lambda: fused_rdb_chain(x, wts), reps=reps)
             plain_ms = time_ms(lambda: fused_rdb_chain_reference(x, wts), reps=reps)
@@ -452,17 +555,23 @@ def phase_chain(seed: int, shapes, label: str, reps: int = 5, batch: int = B):
             blocks = {conv: p["blocks"] for conv, p in chain_conv_plans(batch, h, h, cin, wts)}
             row = dict(name=name, h=h, cin=cin, nf=nf, lead=lead, blocks=blocks,
                        max_abs_err=err, tol=tol, max_abs_ref=scale,
+                       unequal_share=flips.reading if flips else None,
                        ms=ms, plain_ms=plain_ms, gflop=flops / 1e9,
                        mbytes=nbytes / 1e6, bound_ms=bound_ms, bound_by=bound_by,
                        tflops=flops / ms / 1e9)
             rows.append(row)
             log(f"[kernels] chain {label} {dname:8s} {name:6s} B={batch} {h}x{h} "
-                f"{cin}->{nf}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
-                f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.3f} ms "
+                f"{cin}->{nf}: max_abs_err {err:.3g} (tol {tol:.3g})"
+                + (f", {flips.reading:.3g} of RDB outputs unequal (limit {flips.limit})"
+                   if flips else "")
+                + f" kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.3f} ms "
                 f"({bound_by}) {row['tflops']:.2f} TFLOP/s; {route}; blocks per "
                 f"launch {list(blocks.values())}")
-            if not err <= tol:
+            if not check.ok:
                 raise AssertionError(f"{label} {dname} {name}: max_abs_err {err} > {tol}")
+            if flips is not None and not flips.ok:
+                raise AssertionError(f"{label} {dname} {name}: {flips.reading} of the "
+                                     f"RDB outputs unequal > {flips.limit}")
             del x, wts
         results[dname] = rows
         ms = sum(r["ms"] for r in rows)
@@ -526,12 +635,48 @@ def near_tie_rows(q, gap: float, s: float = TIE_S):
     return ((1 - s) * qd).float(), ((1 + s2) * qd).float()
 
 
-def phase_retrieval(seed: int):
-    """top1_l2_retrieval against its plain version at the E6 bank shape."""
+def above_tf32(x):
+    """float32 ``x`` (entries ≥ 0) moved to 0.49 of a TF32 unit above its
+    nearest TF32 value (0 stays 0): rounded to TF32, every entry loses
+    about 2⁻¹² of itself, all in one direction."""
     import torch
 
-    from image_denoising_tpu_torch.memory.retrieval import (
-        pad_bank_for_retrieval, top1_l2_retrieval, top1_l2_retrieval_reference)
+    from image_denoising_tpu_torch.ops.fused_block import split_tf32
+
+    hi = split_tf32(x)[0]
+    unit = torch.ldexp(torch.ones_like(hi), torch.frexp(hi)[1] - 11)
+    return torch.where(hi > 0, hi + 0.49 * unit, hi)
+
+
+def lo_tie_rows(q, gap: float, s: float = TIE_S):
+    """Two bank rows for each query of ``q`` (float32 ``[k, D]``, entries
+    ≥ 0 and ``above_tf32``), as ``near_tie_rows`` makes them: A = a·q and
+    B ≈ (1 + s)·q, B nearer than A by ``gap`` in ‖b‖² − 2q·b, B's entries
+    ``above_tf32`` too. A product that rounds both to TF32 and drops the
+    remainders' products understates q·B by about 2⁻¹¹ of it and q·A by a
+    quarter of that: at these norms B's distance rises against A's by more
+    than 5 float32 tolerances (``f32_pick_tol``; on an NVIDIA H100 80GB
+    HBM3 at 700 W, PERF.md), more than ``gap``, so it picks A."""
+    import torch
+
+    qd = q.double()
+    b_rows = above_tf32(((1 + s) * qd).float())
+    bd = b_rows.double()
+    qq = (qd * qd).sum(1, keepdim=True)
+    d_b = (bd * bd).sum(1, keepdim=True) - 2.0 * (qd * bd).sum(1, keepdim=True)
+    # A = a·q at distance d_b + gap: a² − 2a = (d_b + gap)/‖q‖², the root below 1
+    a = 1.0 - torch.sqrt(1.0 + (d_b + gap) / qq)
+    return (a * qd).float(), b_rows
+
+
+def retrieval_case(seed: int):
+    """phase_retrieval's bank and queries on the card, {dtype name: (bank,
+    sq_norms, queries)}: N = 105,125 seeded rows of D = 16,384 and B = 400
+    queries (noisy copies of rows), with a duplicated row (query 0 copies
+    it), queries near no row, the near ties of ``near_tie_rows`` and
+    ``lo_tie_rows`` and a copy of the last row (LAST_Q); int8 and bf16 are
+    the float32 case converted."""
+    import torch
 
     n, d = E6_BANK_ROWS, PATCH_D
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -543,12 +688,19 @@ def phase_retrieval(seed: int):
     q32[1 : 1 + N_FAR] = torch.rand((N_FAR, d), generator=g, device="cuda")
     tie = slice(1 + N_FAR, 1 + N_FAR + N_TIE)
     q32[tie] = torch.rand((N_TIE, d), generator=g, device="cuda")
+    lo_tie = slice(LO_TIE_Q, LO_TIE_Q + N_LO_TIE)
+    q32[lo_tie] = above_tf32(torch.rand((N_LO_TIE, d), generator=g, device="cuda"))
+    q32[LAST_Q] = bank32[n - 1]
     # the rows of norm (1 + s′)‖q‖ may set the tolerance's largest row norm
-    bn = max(float(bank32.norm(dim=1).max()), (1 + TIE_S) * float(q32[tie].norm(dim=1).max()))
-    gap = 2 * f32_pick_tol(d, float(q32.norm(dim=1).max()), bn)
-    a_rows, b_rows = near_tie_rows(q32[tie], gap)
+    ties = torch.cat([q32[tie], q32[lo_tie]])
+    bn = max(float(bank32.norm(dim=1).max()), (1 + TIE_S) * float(ties.norm(dim=1).max()))
+    tol = f32_pick_tol(d, float(q32.norm(dim=1).max()), bn)
+    a_rows, b_rows = near_tie_rows(q32[tie], 2 * tol)
     bank32[TIE_ROW : TIE_ROW + 2 * N_TIE : 2] = a_rows
     bank32[TIE_ROW + 1 : TIE_ROW + 2 * N_TIE : 2] = b_rows
+    a_rows, b_rows = lo_tie_rows(q32[lo_tie], LO_TIE_GAP * tol)
+    bank32[LO_TIE_ROW : LO_TIE_ROW + 2 * N_LO_TIE : 2] = a_rows
+    bank32[LO_TIE_ROW + 1 : LO_TIE_ROW + 2 * N_LO_TIE : 2] = b_rows
 
     regimes = {}
     bank8 = torch.clamp(torch.round(bank32 * 255.0) - 128.0, -128, 127).to(torch.int8)
@@ -558,7 +710,76 @@ def phase_retrieval(seed: int):
     bank16 = bank32.to(torch.bfloat16)
     regimes["bfloat16"] = (bank16, (bank16.float() ** 2).sum(1), q32)
     regimes["float32"] = (bank32, (bank32 ** 2).sum(1), q32)
+    return regimes
 
+
+def top1_want(dname: str, bank, sqn, q):
+    """What the retrieval check holds the kernel's picks to: int8, the
+    exact plain version's indices; float32 and bf16, the float64 best rows
+    of the values the kernel sees (``_f64_top1``) and the float32 tolerance
+    (``f32_pick_tol``)."""
+    from image_denoising_tpu_torch.memory.retrieval import top1_l2_retrieval_reference
+
+    if dname == "int8":
+        return top1_l2_retrieval_reference(q, bank, sqn)
+    qk = q.to(bank.dtype)  # bf16 banks take bf16 queries
+    return (*_f64_top1(qk, bank),
+            f32_pick_tol(bank.shape[1], float(qk.float().norm(dim=1).max()),
+                         float(bank.float().norm(dim=1).max())))
+
+
+def top1_readings(dname: str, idx, want) -> dict:
+    """The readings of the retrieval check for the picks ``idx`` of the
+    first ``len(idx)`` queries: int8, the indices unequal to the plain
+    version's; float, the largest float64 distance excess of a pick over the
+    best row and the picks off the best row where its gap to the second
+    exceeds the tolerance."""
+    b = idx.shape[0]
+    if dname == "int8":
+        return dict(unequal=int((idx != want[:b]).sum()))
+    best, second, arg, dist, tol = want
+    picks = arg.clone()
+    picks[:b] = idx.long()
+    decisive = (second[:b] - best[:b]) > tol
+    return dict(excess=float((dist(picks)[:b] - best[:b]).max()), tol=tol,
+                off_best=int(((idx.long() != arg[:b]) & decisive).sum()))
+
+
+def top1_verdict(dname: str, idx, want, small=(), padded=None, dup: int = DUP_LO) -> Verdict:
+    """phase_retrieval's check of the picks ``idx`` at B = 400 against
+    ``top1_want``: the first copy ``dup`` of a duplicated row wins query 0,
+    and every pick is right (``top1_readings``); so are the picks ``small``
+    of the first b queries alone (pairs (b, picks)), and the padded bank's
+    picks ``padded`` equal ``idx``."""
+    parts = [verdict(int(int(idx[0]) != dup), 0,
+                     f"query 0 picks {int(idx[0])} for the first copy {dup} of a "
+                     "duplicated row")]
+    for b, got in ((len(idx), idx), *small):
+        r = top1_readings(dname, got, want)
+        if dname == "int8":
+            parts.append(verdict(r["unequal"], 0, f"B={b}: indices unequal to the "
+                                 "exact plain version's"))
+        else:
+            parts += [verdict(r["excess"], r["tol"], f"B={b}: largest f64 excess"),
+                      verdict(r["off_best"], 0, f"B={b}: picks off the f64 best where "
+                              "its gap exceeds tol")]
+    if padded is not None:
+        parts.append(verdict(int((padded != idx).sum()), 0,
+                             "picks moved on the bank padded to 512 rows"))
+    return worst(*parts)
+
+
+def phase_retrieval(seed: int):
+    """top1_l2_retrieval against its plain version at the E6 bank shape."""
+    import torch
+
+    from image_denoising_tpu_torch.memory.retrieval import (
+        pad_bank_for_retrieval, top1_l2_retrieval, top1_l2_retrieval_reference)
+
+    n, d = E6_BANK_ROWS, PATCH_D
+    regimes = retrieval_case(seed)
+    tie = slice(1 + N_FAR, 1 + N_FAR + N_TIE)
+    lo_tie = slice(LO_TIE_Q, LO_TIE_Q + N_LO_TIE)
     results = {}
     for dname in ("float32", "bfloat16", "int8"):
         bank, sqn, q = regimes[dname]
@@ -566,55 +787,30 @@ def phase_retrieval(seed: int):
         ref = top1_l2_retrieval_reference(q, bank, sqn)
         torch.cuda.synchronize()
         assert idx.dtype == torch.int32 and tuple(idx.shape) == (E6_TILES,)
-        if int(idx[0]) != DUP_LO:
-            raise AssertionError(f"{dname}: the duplicated row {DUP_LO} lost to "
-                                 f"{int(idx[0])}")
+        want = ref if dname == "int8" else top1_want(dname, bank, sqn, q)
         mism_plain = int((idx != ref).sum())
-        if dname == "int8":
-            tol, excess, mism_gap = 0.0, 0.0, mism_plain
-            ties = int((idx[tie] == ref[tie]).sum())
-            if mism_plain:
-                raise AssertionError(f"int8: {mism_plain} indices differ from the "
-                                     "exact plain version")
-        else:
-            # the values the kernel saw (bf16 banks take bf16 queries)
-            qk = q.to(bank.dtype)
-            best, second, arg, dist = _f64_top1(qk, bank)
-            excess_all = dist(idx.long()) - best
-            excess = float(excess_all.max())
-            tol = f32_pick_tol(d, float(qk.float().norm(dim=1).max()),
-                               float(bank.float().norm(dim=1).max()))
-            decisive = (second - best) > tol
-            mism_gap = int(((idx.long() != arg) & decisive).sum())
-            ties = int((idx[tie].long() == arg[tie]).sum())
-            if not excess <= tol or mism_gap:
-                raise AssertionError(
-                    f"{dname}: largest f64 excess {excess:.4g} (tol {tol:.4g}); "
-                    f"{mism_gap} indices differ where the f64 gap exceeds tol")
+        readings = top1_readings(dname, idx, want)
+        best_rows = ref if dname == "int8" else want[2]
+        ties, lo_ties = (int((idx[s].long() == best_rows[s].long()).sum())
+                         for s in (tie, lo_tie))
         # the finetune step's query counts: B = 4 and a tail batch's 1-3,
         # each held to the same limits (wgmma's N is the query count)
-        small_b = {}
-        for b in FT_QUERY_COUNTS:
-            idx_b = top1_l2_retrieval(q[:b].contiguous(), bank, sqn)
-            if dname == "int8":
-                ok, ex = torch.equal(idx_b, ref[:b]), 0.0
-            else:
-                picks = idx.long().clone()
-                picks[:b] = idx_b.long()
-                ex = float((dist(picks)[:b] - best[:b]).max())
-                ok = ex <= tol and not int(((idx_b.long() != arg[:b]) & decisive[:b]).sum())
-            small_b[b] = dict(max_f64_excess=ex, same_as_b400=bool(torch.equal(idx_b, idx[:b])))
-            if not ok:
-                raise AssertionError(f"{dname}: B={b} picks outside the limits "
-                                     f"(f64 excess {ex:.4g}, tol {tol:.4g})")
-        log(f"[kernels] top1 {dname:8s} B=1,2,3,4: within the limits; the same "
-            f"picks as at B=400: {[v['same_as_b400'] for v in small_b.values()]}")
+        small = [(b, top1_l2_retrieval(q[:b].contiguous(), bank, sqn))
+                 for b in FT_QUERY_COUNTS]
         # padded to 512 rows: no padded row may win, the picks do not move
         bp, sp = pad_bank_for_retrieval(bank, sqn, 512)
         idx_p = top1_l2_retrieval(q, bp, sp)
-        if not torch.equal(idx_p, idx) or int(idx_p.max()) >= n:
-            raise AssertionError(f"{dname}: the padded bank changed the picks")
-        del bp, sp, idx_p
+        del bp, sp
+        check = top1_verdict(dname, idx, want, small, idx_p)
+        if not check.ok:
+            raise AssertionError(f"{dname}: {check.what}: {check.reading:.4g} (limit "
+                                 f"{check.limit:.4g})")
+        small_b = {b: dict(max_f64_excess=top1_readings(dname, got, want).get("excess", 0.0),
+                           same_as_b400=bool(torch.equal(got, idx[:b])))
+                   for b, got in small}
+        log(f"[kernels] top1 {dname:8s} B=1,2,3,4: within the limits; the same "
+            f"picks as at B=400: {[v['same_as_b400'] for v in small_b.values()]}")
+        del idx_p
 
         route, peak = ROUTES[dname]
         rows = []
@@ -634,14 +830,19 @@ def phase_retrieval(seed: int):
                 f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms bound "
                 f"{bound_ms:.3f} ms ({bound_by}) {rows[-1]['tops']:.2f} TOP/s; {route}"
                 + (f" (the CUDA-core kernel: {earlier} ms, PERF.md)" if earlier else ""))
+        excess, tol = readings.get("excess", 0.0), readings.get("tol", 0.0)
         results[dname] = dict(max_f64_excess=excess, tol=tol,
                               mismatched_vs_plain=mism_plain,
-                              mismatched_where_gap_exceeds_tol=mism_gap,
-                              near_ties_right=ties, rows=rows, small_batches=small_b)
+                              mismatched_where_gap_exceeds_tol=readings.get(
+                                  "off_best", readings.get("unequal")),
+                              near_ties_right=ties, tf32_edge_ties_right=lo_ties,
+                              last_row_picked=int(idx[LAST_Q]) == n - 1,
+                              rows=rows, small_batches=small_b)
         log(f"[kernels] top1 {dname:8s}: duplicate row {DUP_LO} wins; padded bank "
             f"agrees; vs plain {mism_plain} of {E6_TILES} indices differ; largest "
             f"f64 excess {excess:.4g} (tol {tol:.4g}); {ties} of {N_TIE} near ties "
-            "pick the best row")
+            f"and {lo_ties} of {N_LO_TIE} TF32-edge ties pick the best row; the "
+            f"last row's copy picks row {int(idx[LAST_Q])}")
         del bank, sqn, q, regimes[dname]
         torch.cuda.empty_cache()
     return results
@@ -672,45 +873,72 @@ def level_diff(a, b):
                 frac_pixels_diff=float((d > 0).mean()))
 
 
+def levels_verdict(dname, vs_f32, vs_same, bf16_limits=(BF16_MAX_LEVELS,
+                                                       BF16_MEAN_LEVELS)) -> Verdict:
+    """f32: the kernel and cuDNN differ only in summation order, which can
+    move a blended pixel across one rounding edge: at most 1 level, on at
+    most 1e-3 of the pixels. bf16 rounds every stored activation to 8
+    significant bits, and cuDNN's bf16 forward rounds in another order: both
+    differences (``level_diff`` against the per-conv forward in f32 and in
+    the same dtype) are held to ``bf16_limits`` (largest, mean level
+    difference)."""
+    if dname == "float32":
+        return worst(verdict(vs_f32["max_level_diff"], 1, "largest level difference"),
+                     verdict(vs_f32["frac_pixels_diff"], 1e-3, "share of pixels that differ"))
+    return worst(*(v for which, d in (("f32", vs_f32), (dname, vs_same)) for v in (
+        verdict(d["max_level_diff"], bf16_limits[0], f"largest level difference to {which}"),
+        verdict(d["mean_level_diff"], bf16_limits[1], f"mean level difference to {which}"))))
+
+
 def check_levels(dname, vs_f32, vs_same, what, bf16_limits=(BF16_MAX_LEVELS,
                                                            BF16_MEAN_LEVELS)):
-    """f32: the kernel and cuDNN differ only in summation order, which can
-    move a blended pixel across one rounding edge. bf16 rounds every stored
-    activation to 8 significant bits, and cuDNN's bf16 forward rounds in
-    another order: both differences are held to ``bf16_limits`` (largest,
-    mean level difference)."""
-    if dname == "float32":
-        ok = vs_f32["max_level_diff"] <= 1 and vs_f32["frac_pixels_diff"] <= 1e-3
-    else:
-        ok = all(d["max_level_diff"] <= bf16_limits[0]
-                 and d["mean_level_diff"] <= bf16_limits[1]
-                 for d in (vs_f32, vs_same))
-    if not ok:
+    """Raise unless ``levels_verdict`` holds."""
+    if not levels_verdict(dname, vs_f32, vs_same, bf16_limits).ok:
         raise AssertionError(f"{what} {dname}: fused path too far from the "
                              "per-conv forward")
 
 
-def phase_main(seed: int):
+def e2_setup(seed: int):
+    """E2's seeded ImprovedUNet-48 (eval mode, on the card) and its
+    BURSTS bursts of B seeded 704² uint8 frames."""
     import numpy as np
     import torch
 
-    from image_denoising_tpu_torch.eval.tiled import (
-        make_tiled_pyramid_runner_frames, reference_tile_grid)
-    from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
-    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+    from image_denoising_tpu_torch.models import ImprovedUNet
 
     torch.manual_seed(seed)
     model = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).eval()
     rng = np.random.default_rng(seed)
     bursts = [rng.integers(0, 256, (B, FRAME, FRAME)).astype(np.uint8)
               for _ in range(BURSTS)]
+    return model.to("cuda"), bursts
 
-    def runner(call):
-        return make_tiled_pyramid_runner_frames(
-            call, B, FRAME, FRAME, TILE, OVERLAP, batch=-B,
-            out_dtype="uint8_floor")
 
-    module = model.to("cuda")
+def e2_runner(call):
+    """E2's pyramid runner over the forward ``call``."""
+    from image_denoising_tpu_torch.eval.tiled import make_tiled_pyramid_runner_frames
+
+    return make_tiled_pyramid_runner_frames(call, B, FRAME, FRAME, TILE, OVERLAP,
+                                            batch=-B, out_dtype="uint8_floor")
+
+
+def module_call(model, dt):
+    """The per-conv module forward (cuDNN) of a copy of ``model`` in ``dt``:
+    E2's yardstick."""
+    import torch
+
+    mod = copy.deepcopy(model).to(dt)
+    return torch.inference_mode()(lambda t: mod(t.to(dt)))
+
+
+def phase_main(seed: int):
+    import torch
+
+    from image_denoising_tpu_torch.eval.tiled import reference_tile_grid
+    from image_denoising_tpu_torch.models import make_fused_forward
+    from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
+
+    model, bursts = e2_setup(seed)
     chunk = torch.rand(B, 1, TILE, TILE, device="cuda")
     tiles = B * len(reference_tile_grid(FRAME, FRAME, TILE, TILE - OVERLAP))
     chunks_per_burst = -(-tiles // B)  # 72 tiles in 8-tile chunks: 9
@@ -720,16 +948,15 @@ def phase_main(seed: int):
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
         # yardstick: the same runner over the per-conv module forward (cuDNN)
-        mod = copy.deepcopy(module).to(dt)
-        mod_call = torch.inference_mode()(lambda t, m=mod, d=dt: m(t.to(d)))
+        mod_call = module_call(model, dt)
         module_ms = time_ms(lambda: mod_call(chunk), reps=3)
-        mod_run = runner(mod_call)
+        mod_run = e2_runner(mod_call)
         run_bursts(mod_run, bursts[:1])  # warm-up: cuDNN plans
         module_preds[dname], module_sec = run_bursts(mod_run, bursts)
-        del mod
+        del mod_call, mod_run
 
         fwd = make_fused_forward(model, dtype=dt)
-        run = runner(fwd)
+        run = e2_runner(fwd)
         run_bursts(run, bursts[:1])  # warm-up: the kernel library
         fwd_ms = time_ms(lambda: fwd(chunk), reps=3)
         fused_rdb_chain.launches = 0
@@ -785,6 +1012,38 @@ def e6_frames(seed: int):
     return clean, noise, bursts
 
 
+def e6_queries(frames):
+    """The hoisted retrieval's int8 queries for one E6 burst of uint8
+    frames: each tile of the edge-aligned grid, centered."""
+    import torch
+
+    from image_denoising_tpu_torch.eval import tiled
+
+    grid = tiled.edge_aligned_grid(FRAME, FRAME, E6_TILE, OVERLAP)
+    f = torch.from_numpy(frames).to("cuda")
+    t = torch.stack([f[:, r : r + E6_TILE, c : c + E6_TILE] for r, c in grid], 1)
+    return (t.reshape(-1, PATCH_D).int() - 128).to(torch.int8)
+
+
+def e6_index_verdict(idxs, refs) -> Verdict:
+    """E6's retrieval over the production bank: each burst's indices
+    ``idxs`` equal to the plain version's ``refs``, and burst 1's (the
+    bank's own noisy frames) each tile's own patch: frame f, corner (r, c)
+    is row f·145² + (r/4)·145 + c/4 (the grid's corners are multiples of
+    64). The count of indices that break either, limit 0."""
+    import torch
+
+    from image_denoising_tpu_torch.eval import tiled
+
+    grid = tiled.edge_aligned_grid(FRAME, FRAME, E6_TILE, OVERLAP)
+    own = torch.tensor([f * E6_GRID ** 2 + (r // E6_STRIDE) * E6_GRID + c // E6_STRIDE
+                        for f in range(E6_BURST) for r, c in grid], device=idxs[0].device)
+    return worst(verdict(sum(int((i != r).sum()) for i, r in zip(idxs, refs)), 0,
+                         "indices unequal to the plain version's"),
+                 verdict(int((idxs[0].long() != own).sum()), 0,
+                         "burst 1 tiles that did not retrieve their own patch"))
+
+
 def phase_memory(seed: int):
     import numpy as np
     import torch
@@ -828,26 +1087,12 @@ def phase_memory(seed: int):
     t_per_frame = len(grid)
     chunks = -(-E6_TILES // B)
 
-    def queries(frames):  # the hoisted pass's int8 queries for one burst
-        f = torch.from_numpy(frames).to("cuda")
-        t = torch.stack([f[:, r : r + E6_TILE, c : c + E6_TILE] for r, c in grid], 1)
-        return (t.reshape(-1, PATCH_D).int() - 128).to(torch.int8)
-
-    # burst 1's tiles are bank patches: frame f, corner (r, c) is row
-    # f·145² + (r/4)·145 + c/4 (the grid's corners are multiples of 64)
-    own = torch.tensor([f * E6_GRID ** 2 + (r // E6_STRIDE) * E6_GRID + c // E6_STRIDE
-                        for f in range(E6_BURST) for r, c in grid], device="cuda")
-    for k, frames in enumerate(bursts):
-        q = queries(frames)
-        idx = top1_l2_retrieval(q, bank.noise_flat, bank.sq_norms)
-        ref = top1_l2_retrieval_reference(q, bank.noise_flat, bank.sq_norms)
-        if not torch.equal(idx, ref):
-            raise AssertionError(f"E6 burst {k + 1}: retrieval indices differ "
-                                 "from the plain version")
-        if k == 0 and not torch.equal(idx.long(), own):
-            raise AssertionError("E6 burst 1: a tile did not retrieve its own "
-                                 f"bank patch ({int((idx.long() != own).sum())} of "
-                                 f"{E6_TILES})")
+    queries = [e6_queries(frames) for frames in bursts]
+    idxs = [top1_l2_retrieval(q, bank.noise_flat, bank.sq_norms) for q in queries]
+    refs = [top1_l2_retrieval_reference(q, bank.noise_flat, bank.sq_norms) for q in queries]
+    check = e6_index_verdict(idxs, refs)
+    if not check.ok:
+        raise AssertionError(f"E6: {check.what} ({check.reading:.0f} of {E6_TILES})")
     log(f"[memory] retrieval indices of the 3 bursts equal the plain version's; "
         f"burst 1's {E6_TILES} tiles each retrieve their own bank patch")
 
@@ -1115,6 +1360,78 @@ def subsample_times(root: str) -> int:
     return 0
 
 
+def subsample_cases(seed: int):
+    """phase_subsample's inputs in its order: ((n, c, h, w, dtype name),
+    image on the card, seed, another seed) at SUB_SHAPES then
+    SUB_EDGE_SHAPES."""
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.ops.rng import OperationSeed
+
+    rng = np.random.default_rng(seed + 3)
+    seeds = OperationSeed(seed + 3)
+    for shape in SUB_SHAPES + SUB_EDGE_SHAPES:
+        n, c, h, w, dname = shape
+        img = torch.from_numpy(rng.random((n, c, h, w), dtype=np.float32)).to(
+            "cuda", getattr(torch, dname))
+        yield shape, img, seeds.next(), seeds.next()
+
+
+def poisoned(fn):
+    """The sub-sampler's result ``fn()`` on poisoned memory: a first call's
+    four outputs filled with 0xFF bytes (NaN, selector -1) and freed, then a
+    second call, whose outputs must lie in that memory (AssertionError
+    otherwise), so a cell the kernel leaves unwritten reads 0xFF, not a
+    value an earlier call left there."""
+    first, spans = _outputs(fn()), []
+    for t in first:
+        storage = t.untyped_storage()
+        storage.fill_(255)
+        spans.append((storage.data_ptr(), storage.data_ptr() + storage.nbytes()))
+    del first, t, storage  # freed: the second call's outputs take these blocks
+    got = fn()
+    for t in _outputs(got):
+        lo, hi = t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+        if not any(a <= lo and hi <= b for a, b in spans):
+            raise AssertionError("poisoned: an output of the checked call lies outside "
+                                 "the poisoned memory")
+    return got
+
+
+def _outputs(r):
+    """A sub-sampler result's four tensors."""
+    return r[0], r[1], *r[2]
+
+
+def _sub_parts(r):
+    """A sub-sampler result's four tensors, floats as their bits."""
+    return _bits(r[0]), _bits(r[1]), r[2][0], r[2][1]
+
+
+def subsample_bits_verdict(got, want) -> Verdict:
+    """The sub-sampler's result ``got`` bit-equal to the plain version's
+    ``want``: the count of unequal elements of the two sub-images and the
+    two selector maps, limit 0."""
+    return verdict(sum(int((a != b).sum()) for a, b in zip(_sub_parts(got), _sub_parts(want))),
+                   0, "elements unequal to the plain version's")
+
+
+def subsample_pairs_verdict(sel1, sel2) -> Verdict:
+    """Selector maps that draw only the 8 listed pairs, each within
+    PAIR_FREQ_TOL of 1/8."""
+    import torch
+
+    valid = [4 * a + b for a, b in VALID_PAIRS]
+    cells = sel1.numel()
+    counts = torch.bincount((sel1 * 4 + sel2).flatten().long().clamp(0, 16),
+                            minlength=17)[:16].cpu()
+    freq = counts[valid].double() / cells
+    return worst(verdict(cells - int(counts[valid].sum()), 0, "cells outside the 8 pairs"),
+                 verdict(float((freq - 1 / 8).abs().max()), PAIR_FREQ_TOL,
+                         "largest pair frequency off 1/8"))
+
+
 def phase_subsample(seed: int):
     """subsample_pair_fused against its plain version at SUB_SHAPES (the
     training shape N=4, 352², C=1 f32, and C=3 f32 and bf16) and at
@@ -1122,27 +1439,17 @@ def phase_subsample(seed: int):
     with L2 flushed before each call (``ms``, held to the byte bound at HBM's
     rate) and with the image in L2 (``warm_ms``: calls back to back, as the
     N2N step finds the image the noise op has just written)."""
-    import numpy as np
     import torch
 
     from image_denoising_tpu_torch.ops.neighbor import (
         generate_subimages, subsample_pair, subsample_pair_fused)
-    from image_denoising_tpu_torch.ops.rng import OperationSeed
 
-    rng = np.random.default_rng(seed + 3)
-    seeds = OperationSeed(seed + 3)
-    valid = [4 * a + b for a, b in VALID_PAIRS]
     flush = l2_flush()
     results = {}
 
-    def parts(r):
-        return _bits(r[0]), _bits(r[1]), r[2][0], r[2][1]
-
-    for n, c, h, w, dname in SUB_SHAPES + SUB_EDGE_SHAPES:
+    for (n, c, h, w, dname), img, s, other in subsample_cases(seed):
         dt = getattr(torch, dname)
-        img = torch.from_numpy(rng.random((n, c, h, w), dtype=np.float32)).to("cuda", dt)
-        s, other = seeds.next(), seeds.next()
-        got = subsample_pair_fused(s, img)
+        got = poisoned(lambda: subsample_pair_fused(s, img))
         want = subsample_pair(s, img)
         again = subsample_pair_fused(s, img)
         _, _, (o1, o2) = subsample_pair_fused(other, img)
@@ -1152,23 +1459,19 @@ def phase_subsample(seed: int):
         assert sub1.shape == sub2.shape == (n, c, h // 2, w // 2) and sub1.dtype == dt
         assert sel1.shape == sel2.shape == (n, h // 2, w // 2) and sel1.dtype == torch.int32
 
-        if not all(torch.equal(a, b) for a, b in zip(parts(got), parts(want))):
+        if not subsample_bits_verdict(got, want).ok:
             raise AssertionError(f"{what}: the kernel differs from the plain version")
         err = max(float((g.float() - w_.float()).abs().max())
                   for g, w_ in zip(got[:2], want[:2]))
-        if not all(torch.equal(a, b) for a, b in zip(parts(got), parts(again))):
+        if not all(torch.equal(a, b) for a, b in zip(_sub_parts(got), _sub_parts(again))):
             raise AssertionError(f"{what}: the same seed gave other maps")
         if torch.equal(o1, sel1) and torch.equal(o2, sel2):
             raise AssertionError(f"{what}: another seed gave the same maps")
         cells = sel1.numel()
-        counts = torch.bincount((sel1 * 4 + sel2).flatten().long(), minlength=16).cpu()
-        if int(counts[valid].sum()) != cells:
-            raise AssertionError(f"{what}: pairs outside the 8 listed: {counts.tolist()}")
-        freq = counts[valid].double() / cells
-        freq_err = float((freq - 1 / 8).abs().max())
-        if not freq_err <= PAIR_FREQ_TOL:
-            raise AssertionError(f"{what}: pair frequencies {freq.tolist()} off 1/8 by "
-                                 f"{freq_err:.4g} > {PAIR_FREQ_TOL}")
+        pairs = subsample_pairs_verdict(sel1, sel2)
+        if not pairs.ok:
+            raise AssertionError(f"{what}: {pairs.what} {pairs.reading:.4g} > {pairs.limit}")
+        freq_err = pairs.reading if pairs.limit else 0.0
         # one pair of maps for all channels: each channel's sub-images are
         # its own plane gathered at those maps
         for ch in range(c):
@@ -1236,60 +1539,91 @@ def n2n_frames(seed: int, count: int, size: int = TRAIN_FRAME):
         for f in range(count)])
 
 
+def n2n_setup(seed: int):
+    """The N2N step's seeded ImprovedUNet-48 on the card, its initial
+    weights, TRAIN_B seeded 352² frames (NHWC float32 in [0, 255]) and the
+    gauss25 noise."""
+    import numpy as np
+    import torch
+
+    from image_denoising_tpu_torch.models import ImprovedUNet
+    from image_denoising_tpu_torch.ops import AugmentNoise
+
+    torch.manual_seed(seed)
+    model = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).to("cuda")
+    init = copy.deepcopy(model.state_dict())
+    clean = n2n_frames(seed, TRAIN_B)[..., None].astype(np.float32)
+    return model, init, clean, AugmentNoise("gauss25")
+
+
+def n2n_run(setup, seed: int, subsample):
+    """TRAIN_WARMUP + TRAIN_STEPS N2N steps from ``setup``'s initial weights
+    with the sub-sampler ``subsample``: (state, step, seeds, losses, seconds
+    per timed step)."""
+    import torch
+
+    from image_denoising_tpu_torch.ops import OperationSeed
+    from image_denoising_tpu_torch.train import create_train_state, make_n2n_train_step
+
+    model, init, clean, aug = setup
+    model.load_state_dict(init)
+    state = create_train_state(model, lr=3e-4)
+    step = make_n2n_train_step(model, state, noise_fn=aug.add_train_noise,
+                               increase_ratio=2.0, n_epoch=TRAIN_EPOCHS,
+                               subsample=subsample)
+    seeds = OperationSeed(seed)
+    losses = [step(clean, clean, seeds.next(), 1)["loss"] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(clean, clean, seeds.next(), 1)["loss"] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    return (state, step, seeds, [float(x) for x in losses],
+            (time.perf_counter() - t0) / TRAIN_STEPS)
+
+
+def loss_verdict(losses, plain_losses) -> Verdict:
+    """A run's losses within TRAIN_LOSS_RTOL of the same steps' with the
+    plain version; a loss that is not finite fails."""
+    if not all(math.isfinite(x) for x in list(losses) + list(plain_losses)):
+        return verdict(math.nan, TRAIN_LOSS_RTOL, "losses not finite")
+    return verdict(max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)),
+                   TRAIN_LOSS_RTOL, "largest relative loss difference")
+
+
 def phase_train(seed: int):
     """The N2N step of ImprovedUNet-48 at batch 4 of 352², f32."""
     import numpy as np
     import torch
 
     from image_denoising_tpu_torch.losses import n2n_regularized_loss
-    from image_denoising_tpu_torch.models import ImprovedUNet
-    from image_denoising_tpu_torch.ops import AugmentNoise, OperationSeed
     from image_denoising_tpu_torch.ops.fused_block import fused_rdb_chain
     from image_denoising_tpu_torch.ops.neighbor import (
         generate_subimages, subsample_pair, subsample_pair_fused)
-    from image_denoising_tpu_torch.train import (
-        create_train_state, make_n2n_train_step, to_nchw01)
+    from image_denoising_tpu_torch.train import to_nchw01
 
-    torch.manual_seed(seed)
-    model = ImprovedUNet(in_nc=1, out_nc=1, n_feature=NF).to("cuda")
-    init = copy.deepcopy(model.state_dict())
-    clean = n2n_frames(seed, TRAIN_B)[..., None].astype(np.float32)  # NHWC, [0,255]
-    aug = AugmentNoise("gauss25")
-
-    def run(subsample):
-        model.load_state_dict(init)
-        state = create_train_state(model, lr=3e-4)
-        step = make_n2n_train_step(model, state, noise_fn=aug.add_train_noise,
-                                   increase_ratio=2.0, n_epoch=TRAIN_EPOCHS,
-                                   subsample=subsample)
-        seeds = OperationSeed(seed)
-        losses = [step(clean, clean, seeds.next(), 1)["loss"] for _ in range(TRAIN_WARMUP)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses += [step(clean, clean, seeds.next(), 1)["loss"] for _ in range(TRAIN_STEPS)]
-        torch.cuda.synchronize()
-        return state, step, seeds, [float(x) for x in losses], (time.perf_counter() - t0) / TRAIN_STEPS
-
+    setup = n2n_setup(seed)
+    model, _, clean, aug = setup
     torch.cuda.reset_peak_memory_stats()
     subsample_pair_fused.launches = 0
     fused_rdb_chain.launches = 0
-    state, step, seeds, losses, step_s = run(subsample_pair_fused)
+    state, step, seeds, losses, step_s = n2n_run(setup, seed, subsample_pair_fused)
     launches = subsample_pair_fused.launches
     chain_launches = fused_rdb_chain.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if launches != TRAIN_WARMUP + TRAIN_STEPS:
         raise AssertionError(f"N2N: {launches} sub-sampler launches, want "
                              f"{TRAIN_WARMUP + TRAIN_STEPS} (one per step)")
-    _, _, _, plain_losses, plain_step_s = run(subsample_pair)
+    _, _, _, plain_losses, plain_step_s = n2n_run(setup, seed, subsample_pair)
     if subsample_pair_fused.launches != launches:
         raise AssertionError("N2N: the plain run launched the kernel")
     if not all(np.isfinite(losses + plain_losses)):
         raise AssertionError(f"N2N: non-finite loss: {losses} {plain_losses}")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    check = loss_verdict(losses, plain_losses)
+    rel = check.reading
     log(f"[train] N2N losses of {TRAIN_WARMUP}+{TRAIN_STEPS} steps, kernel: "
         f"{[round(x, 6) for x in losses]}; largest relative difference to the "
         f"plain sub-sampler's run {rel:.3g} (limit {TRAIN_LOSS_RTOL})")
-    if not rel <= TRAIN_LOSS_RTOL:
+    if not check.ok:
         raise AssertionError(f"N2N: losses differ from the plain run by {rel} > "
                              f"{TRAIN_LOSS_RTOL}")
 
@@ -3484,6 +3818,19 @@ def phase_rgb(seed: int):
 # 10 s a bank build on the host, and the CLIs' check is their output with
 # and without the flags)
 MD_SHARDS, MD_MESH, MD_UNEVEN, MD_BURSTS = (2, 4), 2, 3, 2
+
+
+def phase_mutants(seed: int):
+    """scripts/cuda/mutants.py: a seeded fault in each of the three kernels
+    (11 mutants, patched copies of csrc/ under build/mutants/), each run in
+    a child process per kernel against the checks on its path; raises when
+    a mutant passes them all or a real kernel fails one before or after."""
+    import torch
+
+    torch.cuda.empty_cache()  # the children share the card
+    return _script("mutants").run(seed)
+
+
 MD_CARDS = 4  # --multidevice-cards: distinct cards, and E2/E6/steps split over them
 MD_CLI_FRAMES, MD_CLI_STRIDE = 5, 16
 
@@ -4285,6 +4632,7 @@ def main(argv=None) -> int:
                           prod_bank)
     del prod_bank
     rgb = phase_rgb(args.seed)
+    mutants = phase_mutants(args.seed)
     conv_chain = sum(converge[leg]["launches"]["fused_rdb_chain"]
                      for leg in ("structure_float32", "structure_bfloat16"))
     ft_launches = {k: fine["float32"]["launches"][k] + fine["int8"]["launches"][k]
@@ -4401,7 +4749,7 @@ def main(argv=None) -> int:
                        structure=structure, hpo=hpo, finetune=fine, data=data,
                        serving=serving,
                        networks=networks, multidevice=multi, converge=converge,
-                       huge=huge, rgb=rgb, summary=summary),
+                       huge=huge, rgb=rgb, mutants=mutants, summary=summary),
                   f, indent=1)
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
         f"of one {B}-tile E2 chunk (e6: of one E6 chunk); design is the route "

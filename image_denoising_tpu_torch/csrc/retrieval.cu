@@ -14,23 +14,29 @@
 //     so the indices are bit-equal to any exact reference;
 //   * float32 bank, float32 queries: 3xTF32. Each operand is split in
 //     shared memory into hi (rounded to TF32) + lo (the exact rest), and
-//     hi.hi + hi.lo + lo.hi run on wgmma m64nNk8 tf32 into one f32
-//     accumulator: about 2^-21 of sum |q b| from the dropped lo.lo and lo's
-//     truncation, far inside the f32 reference's rounding budget. The split
-//     costs one extra stage-sized buffer pair in shared memory (2 x 43 KB
-//     at N = 208) and no extra device-memory bytes.
+//     hi.hi + hi.lo + lo.hi run on wgmma m64nNk8 tf32. The tensor cores
+//     truncate the f32 accumulator at every instruction, so one accumulator
+//     over D = 16,384 (6,144 instructions) loses some 2^-12 of q.b, all in
+//     one direction. So each K-stage's 12 instructions start from zero and
+//     their sum is added to a second accumulator in f32 registers, rounded
+//     to nearest: about 2^-21 of sum |q b| from the dropped lo.lo, lo's
+//     truncation and a stage's truncations, far inside the f32 reference's
+//     rounding budget. The second accumulator caps a query tile at 128
+//     columns. The split costs one extra stage-sized buffer pair in shared
+//     memory (2 x 32 KB at N = 128) and no extra device-memory bytes.
 //
 // Design. The bank is wgmma's M and the queries its N: a block owns 128
 // bank rows (two consumer warpgroups of 64) and one query tile of BN = 8 to
-// 256 columns (B = 400 runs as two tiles of 208; B = 8 as one of 8, with
-// nothing empty). A producer warp streams D in K-stages of 128 bytes per
-// row (32 f32, 64 bf16, 128 int8) with TMA: a 2-D tensor map over the bank
-// and one over the queries, 128-byte swizzle as the wgmma descriptors
-// expect, into a ring of 2-8 stages on full/empty mbarriers; it gives up
-// registers (setmaxnreg) to the consumers. TMA's zero fill covers a ragged
+// 256 columns (bf16 and int8 run B = 400 as two tiles of 208, float32 as
+// four of 128; B = 8 as one of 8, with nothing empty). A producer warp
+// streams D in K-stages of 128 bytes per row (32 f32, 64 bf16, 128 int8)
+// with TMA: a 2-D tensor map over the bank and one over the queries,
+// 128-byte swizzle as the wgmma descriptors expect, into a ring of 2-8
+// stages on full/empty mbarriers; it gives up registers (setmaxnreg) to
+// the consumers. TMA's zero fill covers a ragged
 // N, B and D; the epilogue masks rows past N and queries past B. Blocks
 // that share a bank tile are adjacent in the grid, so the bank streams from
-// device memory about once and the second query tile reads it from L2.
+// device memory about once and the other query tiles read it from L2.
 // Epilogue: sqn - 2 q.b (the expression of _kernel:77), each (distance,
 // index) pair as a 64-bit key whose unsigned order is the lexicographic
 // order of (distance, index); a min over the accumulator fragment's rows,
@@ -160,8 +166,13 @@ top1_kernel(const __grid_constant__ CUtensorMap bank_map,
     const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     Acc acc[BN / 2];
+    Acc total[DT == kF32 ? BN / 2 : 1];  // f32: the sum of the K-stages' acc
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = Acc(0);
+    if constexpr (DT == kF32) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) total[i] = 0.0f;
+    }
 
     for (int s = 0; s < k_stages; ++s) {
       const int slot = s % stages;
@@ -201,6 +212,17 @@ top1_kernel(const __grid_constant__ CUtensorMap bank_map,
       wgmma_wait_all();
       fence_regs(acc);
       mbar_arrive(empty0 + 8 * slot);
+      if constexpr (DT == kF32) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          total[i] += acc[i];
+          acc[i] = 0.0f;
+        }
+      }
+    }
+    if constexpr (DT == kF32) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = total[i];
     }
 
     // epilogue: acc[4i + 2j + c] is bank row 16*(warp%4) + lane/4 + 8j of
@@ -282,26 +304,34 @@ cudaError_t launch(const void* q, const void* bank, const void* sqn, int b, int 
   return cudaGetLastError();
 }
 
-// The query tile: as few tiles of at most 256 as cover B, each the smallest
-// compiled width that holds its share.
-int query_tile(int b) {
+// The query tile: as few tiles of at most `widest` columns as cover B, each
+// the smallest compiled width that holds its share.
+int query_tile(int b, int widest) {
   constexpr int kWidths[] = {8, 64, 128, 208, 256};
-  const int tiles = (b + 255) / 256, need = (b + tiles - 1) / tiles;
+  const int tiles = (b + widest - 1) / widest, need = (b + tiles - 1) / tiles;
   for (int w : kWidths) {
     if (need <= w) return w;
   }
-  return 256;
+  return widest;
 }
 
 template <int DT>
 cudaError_t dispatch(const void* q, const void* bank, const void* sqn, int b, int n,
                      int d, unsigned long long* keys, int* out, cudaStream_t s) {
-  switch (query_tile(b)) {
-    case 8: return launch<DT, 8>(q, bank, sqn, b, n, d, keys, out, s);
-    case 64: return launch<DT, 64>(q, bank, sqn, b, n, d, keys, out, s);
-    case 128: return launch<DT, 128>(q, bank, sqn, b, n, d, keys, out, s);
-    case 208: return launch<DT, 208>(q, bank, sqn, b, n, d, keys, out, s);
-    default: return launch<DT, 256>(q, bank, sqn, b, n, d, keys, out, s);
+  if constexpr (DT == kF32) {  // two accumulators: at most 128 columns
+    switch (query_tile(b, 128)) {
+      case 8: return launch<DT, 8>(q, bank, sqn, b, n, d, keys, out, s);
+      case 64: return launch<DT, 64>(q, bank, sqn, b, n, d, keys, out, s);
+      default: return launch<DT, 128>(q, bank, sqn, b, n, d, keys, out, s);
+    }
+  } else {
+    switch (query_tile(b, 256)) {
+      case 8: return launch<DT, 8>(q, bank, sqn, b, n, d, keys, out, s);
+      case 64: return launch<DT, 64>(q, bank, sqn, b, n, d, keys, out, s);
+      case 128: return launch<DT, 128>(q, bank, sqn, b, n, d, keys, out, s);
+      case 208: return launch<DT, 208>(q, bank, sqn, b, n, d, keys, out, s);
+      default: return launch<DT, 256>(q, bank, sqn, b, n, d, keys, out, s);
+    }
   }
 }
 

@@ -25,9 +25,9 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "HOST_BUILD_DIR", "build", "build_host",
+__all__ = ["BUILD_DIR", "CSRC_DIR", "HOST_BUILD_DIR", "SIGNATURES", "build", "build_host", "cuda_headers",
            "load_fused_block", "load_neighbor", "load_patch_sampler", "load_retrieval",
-           "load_ssim"]
+           "load_ssim", "open_library"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -101,10 +101,14 @@ def build(source: str, defines: tuple = ()) -> tuple[Path, str]:
     variant of the source under its own name. Returns (path of the .so,
     nvcc's output: empty when nothing was built)."""
     src = _source(source)
-    # the shared headers (csrc/*.cuh) are part of every source's hash
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     return _compile(src, _nvcc(), NVCC_FLAGS + [f"-D{d}" for d in defines],
-                    headers, BUILD_DIR)
+                    cuda_headers(CSRC_DIR), BUILD_DIR)
+
+
+def cuda_headers(directory: Path) -> bytes:
+    """The shared headers (``*.cuh``) of ``directory``: part of the hash of
+    every CUDA library built from it."""
+    return b"".join(h.read_bytes() for h in sorted(Path(directory).glob("*.cuh")))
 
 
 def build_host(source: str) -> tuple[Path, str]:
@@ -116,44 +120,48 @@ def build_host(source: str) -> tuple[Path, str]:
     return _compile(_source(source), gxx, GXX_FLAGS, b"", HOST_BUILD_DIR)
 
 
+_I, _P = ctypes.c_int, ctypes.c_void_p
+# each CUDA library's C functions: (argument types, return type)
+SIGNATURES = {
+    "fused_block.cu": {
+        "idt_chain_conv": ([_I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                            _I, _P, _I, _I, _I, _P], _I)},
+    "retrieval.cu": {"idt_top1_l2": ([_I, _P, _P, _P, _I, _I, _I, _P, _P, _P], _I)},
+    "neighbor.cu": {
+        "idt_subsample_pair": ([_I, _P, _I, _I, _I, _I, ctypes.c_uint64, _P, _P, _P, _P, _P],
+                               _I),
+        "idt_empty_launches": ([_I, _P], _I)},
+}
+
+
+def open_library(source: str, path) -> ctypes.CDLL:
+    """The library built from ``csrc/<source>`` at ``path``, its C functions
+    bound (``SIGNATURES``)."""
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def load_fused_block(defines: tuple = ()) -> ctypes.CDLL:
     """The chain-conv library (csrc/fused_block.cu), built on first call;
     ``defines`` select a variant (``build``), as scripts/probe_chain.py does."""
-    path, _ = build("fused_block.cu", defines)
-    lib = ctypes.CDLL(str(path))
-    fn = lib.idt_chain_conv
-    i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, i, i, p, i, i, p, p, p, p, i, p, i, i, i, i, i, p, i, i, i, p]
-    fn.restype = i
-    return lib
+    return open_library("fused_block.cu", build("fused_block.cu", defines)[0])
 
 
 @functools.lru_cache(maxsize=None)
 def load_retrieval() -> ctypes.CDLL:
     """The top-1 retrieval library (csrc/retrieval.cu), built on first call."""
-    path, _ = build("retrieval.cu")
-    lib = ctypes.CDLL(str(path))
-    fn = lib.idt_top1_l2
-    i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, p, p, p, i, i, i, p, p, p]
-    fn.restype = i
-    return lib
+    return open_library("retrieval.cu", build("retrieval.cu")[0])
 
 
 @functools.lru_cache(maxsize=None)
 def load_neighbor() -> ctypes.CDLL:
     """The N2N sub-sampler library (csrc/neighbor.cu), built on first call;
     it also holds the empty kernel that times the launch floor."""
-    path, _ = build("neighbor.cu")
-    lib = ctypes.CDLL(str(path))
-    fn = lib.idt_subsample_pair
-    i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, p, i, i, i, i, ctypes.c_uint64, p, p, p, p, p]
-    fn.restype = i
-    lib.idt_empty_launches.argtypes = [i, p]
-    lib.idt_empty_launches.restype = i
-    return lib
+    return open_library("neighbor.cu", build("neighbor.cu")[0])
 
 
 @functools.lru_cache(maxsize=None)

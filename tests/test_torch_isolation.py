@@ -176,7 +176,7 @@ def test_cuda_scripts_import_no_jax():
     import ast
 
     scripts = sorted((REPO / "scripts" / "cuda").glob("*.py"))
-    assert {"convergence.py", "huge_frame.py"} <= {p.name for p in scripts}
+    assert {"convergence.py", "huge_frame.py", "mutants.py"} <= {p.name for p in scripts}
     imported = set()
     for path in scripts:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -206,6 +206,31 @@ def test_cuda_scripts_import_no_jax():
         print(json.dumps(sorted(n for n in sys.modules
                                 if any(n == b or n.startswith(b + ".") for b in banned))))
     """ % (port, BANNED))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_mutant_run_imports_no_jax():
+    """scripts/cuda/mutants.py runs chip_smoke.py's checks in its children:
+    the script, chip_smoke.py and every module of the port the children's
+    checks import pull in nothing of BANNED."""
+    code = textwrap.dedent("""
+        import importlib, json, sys
+        sys.path.insert(0, ".")
+        import chip_smoke
+        chip_smoke._script("mutants")
+        for name in ("image_denoising_tpu_torch.ops._build", "image_denoising_tpu_torch.models",
+                     "image_denoising_tpu_torch.ops.fused_block",
+                     "image_denoising_tpu_torch.memory.retrieval",
+                     "image_denoising_tpu_torch.memory", "image_denoising_tpu_torch.ops.neighbor",
+                     "image_denoising_tpu_torch.eval.tiled", "image_denoising_tpu_torch.train"):
+            importlib.import_module(name)
+        banned = %r
+        print(json.dumps(sorted(n for n in sys.modules
+                                if any(n == b or n.startswith(b + ".") for b in banned))))
+    """ % (BANNED,))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

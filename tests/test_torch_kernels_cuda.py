@@ -852,3 +852,70 @@ def test_subsample_pair_kernel_at_the_convergence_shape(cuda):
     assert got[0].shape == (4, 1, 64, 64) and got[2][0].shape == (4, 64, 64)
     for g, w in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
         assert torch.equal(g, w)
+
+
+def _mutant(name):
+    """scripts/cuda/mutants.py and chip_smoke.py as modules, and the mutant
+    ``name`` built from its patched copy of csrc/ under build/mutants/."""
+    import sys
+    from pathlib import Path
+
+    from image_denoising_tpu_torch.ops import _build
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    mut = cs._script("mutants")
+    m = next(m for m in mut.MUTANTS if m.name == name)
+    return mut, cs, _build.open_library(m.source, mut.compile_mutant(mut.prepare(m))[0])
+
+
+@pytest.mark.cuda
+def test_chain_check_rejects_the_leaky_slope_mutant(cuda):
+    """chip_smoke.py's chain check passes the kernel, rejects the mutant
+    whose LeakyReLU slope is 0.25 for 0.2, and passes the kernel again once
+    the loader is back."""
+    mut, cs, lib = _mutant("leaky_slope")
+    torch.manual_seed(3)
+    wts = FusedChainWeights.from_modules(RDB(24), lead=torch.nn.Conv2d(2, 24, 3, padding=1),
+                                         res=ResBlock(24), dtype=torch.float32, device=cuda)
+    x = torch.randn(2, 40, 56, 2, device=cuda)
+    want = fused_rdb_chain_reference(x, wts)
+    assert cs.chain_verdict(fused_rdb_chain(x, wts), want, "float32").ok
+    with mut.swapped_loader("chain", lib):
+        assert not cs.chain_verdict(fused_rdb_chain(x, wts), want, "float32").ok
+    assert cs.chain_verdict(fused_rdb_chain(x, wts), want, "float32").ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["float32", "int8"])
+def test_retrieval_check_rejects_the_ties_last_mutant(cuda, regime):
+    """The mutant whose keys send a tie to the last minimum picks row 700,
+    the second copy of row 300, for query 0: the retrieval check rejects
+    it, and passes the kernel before and after."""
+    mut, cs, lib = _mutant("ties_last")
+    q, bank, sqn = _retrieval_case(regime, cuda)
+    want = cs.top1_want(regime, bank, sqn, q)
+    assert cs.top1_verdict(regime, top1_l2_retrieval(q, bank, sqn), want, dup=300).ok
+    with mut.swapped_loader("retrieval", lib):
+        got = top1_l2_retrieval(q, bank, sqn)
+    assert int(got[0]) == 700
+    assert not cs.top1_verdict(regime, got, want, dup=300).ok
+    assert cs.top1_verdict(regime, top1_l2_retrieval(q, bank, sqn), want, dup=300).ok
+
+
+@pytest.mark.cuda
+def test_subsample_check_rejects_the_pair_table_mutant(cuda):
+    """The mutant with two draws of its pair table swapped (the same 8 pairs,
+    each still drawn 1/8 of the time): bit-equality to the plain version
+    rejects it."""
+    from image_denoising_tpu_torch.ops.neighbor import subsample_pair, subsample_pair_fused
+
+    mut, cs, lib = _mutant("pair_table")
+    img = torch.rand((4, 1, 64, 64), generator=torch.Generator().manual_seed(64)).to(cuda)
+    want = subsample_pair(2 ** 33 + 5, img)
+    assert cs.subsample_bits_verdict(subsample_pair_fused(2 ** 33 + 5, img), want).ok
+    with mut.swapped_loader("subsample", lib):
+        got = cs.poisoned(lambda: subsample_pair_fused(2 ** 33 + 5, img))
+    assert not cs.subsample_bits_verdict(got, want).ok
+    assert cs.subsample_bits_verdict(subsample_pair_fused(2 ** 33 + 5, img), want).ok
