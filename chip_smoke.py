@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py [--seed 0] [--json build/chip_smoke.json]
     python3 chip_smoke.py --subsample-times CHECKOUT   # one kernel's times
+    python3 chip_smoke.py --chain-times CHECKOUT       # the chain's, and readings
     python3 chip_smoke.py --multidevice-cards          # [multidevice] on 4 cards
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device  — the card's name and power limit.
   2. build   — nvcc builds csrc/fused_block.cu, csrc/retrieval.cu and
                csrc/neighbor.cu for sm_90a and g++ the host patch sampler
-               csrc/patch_sampler.cpp, all at once (seconds printed).
+               csrc/patch_sampler.cpp, all at once (seconds printed; each
+               kernel's registers and spills from ptxas).
   3. kernels — each kernel against its plain PyTorch version (TF32 off),
                with its route (wgmma bf16, wgmma s8, 3xTF32 for float32,
                CUDA cores) and the earlier CUDA-core kernel's time (PERF.md):
@@ -20,13 +22,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                3 and the noise estimate) at B=8 352², B=4 128² and 1x704²,
                in float32 and bfloat16, with the blocks of each launch (bf16:
                also at most 0.1 of the RDB outputs unequal to the plain
-               version's); top1_l2_retrieval on
+               version's), and a float32 case whose sums cannot cancel
+               (inputs, weights and biases ≥ 0) at E2's up0 and bottleneck
+               and E6's up0; top1_l2_retrieval on
                seeded device banks of N=105,125 rows of D=16,384 in float32,
                bfloat16 and int8, with B=400, 8 and 4 queries (B=1-4 held to
                the same limits), a duplicated
                row (the first must win), near ties that one TF32 product
                gets wrong, near ties whose nearer row sits just above TF32
-               values (hi·hi alone gets them wrong), a copy of the last row
+               values (hi·hi alone gets them wrong), near ties exact in
+               bf16 (the bf16 regime's), a copy of the last row
                and a bank padded to 512 rows (no padded row may win); the
                launch floor (an empty kernel issued back to back);
                subsample_pair at N=4 352² frames, C=1
@@ -214,8 +219,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                output adapter, 5 steps of 128² patches) and E4 on its
                epoch_adapter_001.ckpt within 0.01 dB of the module base and
                adapter; chain launches counted per run.
-  17. mutants — scripts/cuda/mutants.py: 11 seeded faults of the three
-               kernels (5 chain, 3 retrieval, 3 sub-sampler), each a patched
+  17. mutants — scripts/cuda/mutants.py: 13 seeded faults of the three
+               kernels (6 chain, 4 retrieval, 3 sub-sampler), each a patched
                copy of csrc/ built under build/mutants/, run in one child
                process per kernel against the checks on its path (the
                kernel checks of phases 3's chain, retrieval and sub-sampler
@@ -235,6 +240,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -368,6 +374,11 @@ N_TIE, TIE_ROW, TIE_S = 6, 50000, 0.6
 # hi·hi product gets such ties wrong up to 5 tolerances apart (on an NVIDIA
 # H100 80GB HBM3 at 700 W, PERF.md; scripts/cuda/mutants.py scans the gaps)
 LAST_Q, N_LO_TIE, LO_TIE_Q, LO_TIE_ROW, LO_TIE_GAP = 13, 6, 14, 70000, 1.5
+# and N_BF16_TIE queries from BF16_TIE_Q on, exact in bf16, whose two
+# nearest rows (bf16_tie_rows, from row BF16_TIE_ROW on, exact in bf16 too)
+# are BF16_TIE_GAP float32 tolerances apart in float64: the ties that
+# survive the bf16 regime's rounding of the float32 bank
+N_BF16_TIE, BF16_TIE_Q, BF16_TIE_ROW, BF16_TIE_GAP = 6, 20, 90000, 1.5
 # bf16 chain: the kernel and its plain version round the same float32 sums
 # at the same places, and their sums differ in order only, so few stored
 # RDB outputs differ at all (at most 0.034 of them at the main paths'
@@ -449,16 +460,18 @@ def chain_work(h: int, cin: int, nf: int, lead: bool, itemsize: int, batch: int 
     return 2 * px * macs_w, nbytes
 
 
-def random_chain(rng, cin, nf, lead, dtype):
-    """Chain weights with torch's default conv init scale, from numpy."""
+def random_chain(rng, cin, nf, lead, dtype, one_way: bool = False, device="cuda"):
+    """Chain weights with torch's default conv init scale, from numpy:
+    uniform in (−bound, bound), bound = fan_in^-½; ``one_way``, in
+    [0, bound)."""
     import torch
 
     from image_denoising_tpu_torch.ops.fused_block import FusedChainWeights
 
     def t(shape, fan_in):
         bound_ = fan_in ** -0.5
-        a = rng.uniform(-bound_, bound_, shape).astype("float32")
-        return torch.from_numpy(a).to("cuda", dtype)
+        a = rng.uniform(0.0 if one_way else -bound_, bound_, shape).astype("float32")
+        return torch.from_numpy(a).to(device, dtype)
 
     growth_w = [t((3, 3, nf + i * GROWTH, GROWTH), 9 * (nf + i * GROWTH))
                 for i in range(N_GROWTH)]
@@ -473,17 +486,22 @@ def random_chain(rng, cin, nf, lead, dtype):
 
 def chain_tol(dname: str, scale: float) -> float:
     """The chain's limit on its largest difference from the plain version,
-    for outputs of largest magnitude ``scale``. f32: summation order only
-    (≤ 5184-term sums, 6 convs deep); bf16: one rounding per stored value,
-    as the plain version; a flip is one ulp (≤ 2^-7 of the value): 4 ulps of
-    the largest output."""
+    for outputs of largest magnitude ``scale``. f32: 1e-4 of it covers
+    float32 sums in another order (≤ 5184-term sums, 6 convs deep) and the
+    tensor cores' truncation within one K-stage of 27 instructions (under
+    0.01 of it a conv, scripts/cuda/accumulator_model.py). It is no bound
+    on an accumulator carried over a whole conv, up to 1,944 instructions
+    truncated one way: 0.99 of it on the one-way case, 0.40 on zero-mean
+    inputs (the ``stage_sum`` mutant; NVIDIA H100 80GB HBM3, PERF.md).
+    bf16: one rounding per stored value, as the plain version; a flip is
+    one ulp (≤ 2^-7 of the value): 4 ulps of the largest output."""
     return 1e-4 * max(1.0, scale) if dname == "float32" else 4 * 2.0 ** -7 * scale
 
 
-def chain_verdict(got, want, dname: str) -> Verdict:
+def chain_verdict(got, want, dname: str, share: float = 1.0) -> Verdict:
     """The chain's outputs ``got`` against its plain version's ``want``: the
-    largest difference within ``chain_tol``; a value that is not finite
-    fails."""
+    largest difference within ``share`` of ``chain_tol`` (ONE_WAY_SHARE for
+    the one-way case); a value that is not finite fails."""
     import torch
 
     err, scale = 0.0, 0.0
@@ -492,7 +510,7 @@ def chain_verdict(got, want, dname: str) -> Verdict:
             err = math.inf
         err = max(err, float((g.float() - w.float()).abs().max()))
         scale = max(scale, float(w.float().abs().max()))
-    return verdict(err, chain_tol(dname, scale), "max_abs_err")
+    return verdict(err, share * chain_tol(dname, scale), "max_abs_err")
 
 
 def chain_flip_verdict(got, want) -> Verdict:
@@ -522,8 +540,49 @@ def chain_cases(seed: int, shapes, batch: int = B):
             yield dname, shape, x, random_chain(rng, cin, nf, lead, dt)
 
 
-def phase_chain(seed: int, shapes, label: str, reps: int = 5, batch: int = B):
-    """fused_rdb_chain against its plain version at ``shapes``, batch ``batch``."""
+# the one-way chain case (one_way_cases) at the float32 shapes with the
+# most wgmma instructions on one accumulator (conv_plan): E2's up0 (44², Cin
+# 576: 1,944 a conv in blocks that do not split K) and bottleneck (22²), and
+# E6's up0 (16², its K split across blocks)
+ONE_WAY_LEVELS = {"E2": ("up0", "bottle"), "E6": ("up0",)}
+# the one-way case's limit as a share of chain_tol. Its sums cannot cancel:
+# float32 sums rounded to nearest err by about √K·2⁻²⁴ of a conv's value in
+# any order (4e-6 at K = 5,184), the kernel's truncation within a K-stage
+# by about 1e-6 (scripts/cuda/accumulator_model.py), a few convs deep. On
+# an NVIDIA H100 80GB HBM3 at 700 W the kernel reads at most 0.063 of
+# chain_tol here, one accumulator a conv (the stage_sum mutant) 0.99 (PERF.md)
+ONE_WAY_SHARE = 0.1
+
+
+def one_way_shapes(label: str, tile: int):
+    """The chain shapes of ``chain_shapes(tile)`` that ``label``'s one-way
+    case runs (ONE_WAY_LEVELS)."""
+    return [s for s in chain_shapes(tile) if s[0] in ONE_WAY_LEVELS.get(label, ())]
+
+
+def one_way_cases(seed: int, shapes, batch: int = B, device="cuda"):
+    """The chain's float32 case whose sums cannot cancel: activations
+    uniform in [0, 1), every weight and bias in [0, bound) (random_chain),
+    so every conv's products have one sign and its outputs are ≥ 0 (and
+    ≥ 1 at the main paths' widths: ``chain_tol`` is relative). A truncating
+    accumulator errs one way on them. (shape row, x, weights) at each of
+    ``shapes``, from one seeded generator."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng((seed, 1))
+    for shape in shapes:
+        _, h, cin, nf, lead = shape
+        x = torch.from_numpy(rng.uniform(0.0, 1.0, (batch, h, h, cin)).astype("float32"))
+        yield shape, x.to(device), random_chain(rng, cin, nf, lead, torch.float32,
+                                                one_way=True, device=device)
+
+
+def phase_chain(seed: int, shapes, label: str, reps: int = 5, batch: int = B,
+                one_way=()):
+    """fused_rdb_chain against its plain version at ``shapes``, batch
+    ``batch``; then the float32 one-way case (``one_way_cases``) at the
+    shapes ``one_way``, held to ONE_WAY_SHARE of that limit (no timing)."""
     import itertools
 
     import torch
@@ -580,6 +639,22 @@ def phase_chain(seed: int, shapes, label: str, reps: int = 5, batch: int = B):
             f"{ms:.3f} ms on the {route} route"
             + (f" (the CUDA-core kernel: {earlier} ms, PERF.md)" if earlier else "")
             + f"; bound {sum(r['bound_ms'] for r in rows):.3f} ms")
+    results["one_way"] = rows = []
+    for (name, h, cin, nf, lead), x, wts in one_way_cases(seed, one_way, batch):
+        want = fused_rdb_chain_reference(x, wts)
+        check = chain_verdict(fused_rdb_chain(x, wts), want, "float32", ONE_WAY_SHARE)
+        scale = max(float(w.abs().max()) for w in want)
+        rows.append(dict(name=name, h=h, cin=cin, nf=nf, lead=lead,
+                         max_abs_err=check.reading, tol=check.limit, margin=check.margin,
+                         max_abs_ref=scale))
+        log(f"[kernels] chain {label} float32 {name:6s} B={batch} {h}x{h} {cin}->{nf} one "
+            f"way (inputs, weights, biases ≥ 0): max_abs_err {check.reading:.3g} (tol "
+            f"{check.limit:.3g}, max |ref| {scale:.4g}): {check.margin:.3g} of the limit, "
+            f"{check.margin * ONE_WAY_SHARE:.3g} of chain_tol")
+        if not check.ok:
+            raise AssertionError(f"{label} float32 {name} one way: max_abs_err "
+                                 f"{check.reading} > {check.limit}")
+        del x, wts, want
     return results
 
 
@@ -669,13 +744,49 @@ def lo_tie_rows(q, gap: float, s: float = TIE_S):
     return (a * qd).float(), b_rows
 
 
+def bf16_tie_rows(q, gap: float, s: float = TIE_S):
+    """Two bank rows for each query of ``q`` (float32 ``[k, D]``, entries
+    ≥ 0 and exact in bf16), every entry exact in bf16: A = (1 − s)·q and
+    B = c·q (c > 1), B nearer than A by ``gap`` in ‖b‖² − 2q·b, both
+    rounded to bf16. B's rounding moves that gap by some 1e-3 of ‖q‖²·2⁻⁸;
+    entries of B are then moved one bf16 step each, smallest change first,
+    until the float64 gap is ``gap`` within 1 % (else it raises)."""
+    import torch
+
+    qd = q.double()
+    qq = (qd * qd).sum(1, keepdim=True)
+
+    def dist(rows):
+        return (rows * rows).sum(-1) - 2.0 * (qd * rows).sum(-1)
+
+    a_rows = ((1 - s) * qd).to(torch.bfloat16).double()
+    target = dist(a_rows) - gap
+    b_rows = ((1 + torch.sqrt(1 + target[:, None] / qq)) * qd).to(torch.bfloat16).double()
+    for i in range(len(q)):
+        b, qi = b_rows[i], qd[i]
+        miss = float((b * b).sum() - 2.0 * (qi * b).sum() - target[i])
+        bits = b.to(torch.bfloat16).view(torch.int16)
+        moved = (bits + (1 if miss < 0 else -1)).view(torch.bfloat16).double()
+        change = (moved - b) * (moved + b - 2.0 * qi)  # of b's distance
+        use = (b > 0) & (change * miss < 0)
+        order = torch.argsort(torch.where(use, change.abs(), torch.inf))
+        cum = torch.cat([change.new_zeros(1), torch.cumsum(change[order] * use[order], 0)])
+        take = order[: int(torch.argmin((miss + cum).abs()))]
+        b[take] = moved[take]
+    got = dist(a_rows) - dist(b_rows)
+    if not bool(((got - gap).abs() <= 0.01 * gap).all()):
+        raise AssertionError(f"bf16 ties {got.tolist()} apart, not {gap}")
+    return a_rows.float(), b_rows.float()
+
+
 def retrieval_case(seed: int):
     """phase_retrieval's bank and queries on the card, {dtype name: (bank,
     sq_norms, queries)}: N = 105,125 seeded rows of D = 16,384 and B = 400
     queries (noisy copies of rows), with a duplicated row (query 0 copies
-    it), queries near no row, the near ties of ``near_tie_rows`` and
-    ``lo_tie_rows`` and a copy of the last row (LAST_Q); int8 and bf16 are
-    the float32 case converted."""
+    it), queries near no row, the near ties of ``near_tie_rows``,
+    ``lo_tie_rows`` and ``bf16_tie_rows`` and a copy of the last row
+    (LAST_Q); int8 and bf16 are the float32 case converted (which keeps
+    only the bf16 ties as ties in bf16)."""
     import torch
 
     n, d = E6_BANK_ROWS, PATCH_D
@@ -691,8 +802,11 @@ def retrieval_case(seed: int):
     lo_tie = slice(LO_TIE_Q, LO_TIE_Q + N_LO_TIE)
     q32[lo_tie] = above_tf32(torch.rand((N_LO_TIE, d), generator=g, device="cuda"))
     q32[LAST_Q] = bank32[n - 1]
+    bf16_tie = slice(BF16_TIE_Q, BF16_TIE_Q + N_BF16_TIE)
+    q32[bf16_tie] = torch.rand((N_BF16_TIE, d), generator=g, device="cuda").to(
+        torch.bfloat16).float()
     # the rows of norm (1 + s′)‖q‖ may set the tolerance's largest row norm
-    ties = torch.cat([q32[tie], q32[lo_tie]])
+    ties = torch.cat([q32[tie], q32[lo_tie], q32[bf16_tie]])
     bn = max(float(bank32.norm(dim=1).max()), (1 + TIE_S) * float(ties.norm(dim=1).max()))
     tol = f32_pick_tol(d, float(q32.norm(dim=1).max()), bn)
     a_rows, b_rows = near_tie_rows(q32[tie], 2 * tol)
@@ -701,6 +815,9 @@ def retrieval_case(seed: int):
     a_rows, b_rows = lo_tie_rows(q32[lo_tie], LO_TIE_GAP * tol)
     bank32[LO_TIE_ROW : LO_TIE_ROW + 2 * N_LO_TIE : 2] = a_rows
     bank32[LO_TIE_ROW + 1 : LO_TIE_ROW + 2 * N_LO_TIE : 2] = b_rows
+    a_rows, b_rows = bf16_tie_rows(q32[bf16_tie], BF16_TIE_GAP * tol)
+    bank32[BF16_TIE_ROW : BF16_TIE_ROW + 2 * N_BF16_TIE : 2] = a_rows
+    bank32[BF16_TIE_ROW + 1 : BF16_TIE_ROW + 2 * N_BF16_TIE : 2] = b_rows
 
     regimes = {}
     bank8 = torch.clamp(torch.round(bank32 * 255.0) - 128.0, -128, 127).to(torch.int8)
@@ -780,6 +897,7 @@ def phase_retrieval(seed: int):
     regimes = retrieval_case(seed)
     tie = slice(1 + N_FAR, 1 + N_FAR + N_TIE)
     lo_tie = slice(LO_TIE_Q, LO_TIE_Q + N_LO_TIE)
+    bf16_tie = slice(BF16_TIE_Q, BF16_TIE_Q + N_BF16_TIE)
     results = {}
     for dname in ("float32", "bfloat16", "int8"):
         bank, sqn, q = regimes[dname]
@@ -791,8 +909,8 @@ def phase_retrieval(seed: int):
         mism_plain = int((idx != ref).sum())
         readings = top1_readings(dname, idx, want)
         best_rows = ref if dname == "int8" else want[2]
-        ties, lo_ties = (int((idx[s].long() == best_rows[s].long()).sum())
-                         for s in (tie, lo_tie))
+        ties, lo_ties, bf16_ties = (int((idx[s].long() == best_rows[s].long()).sum())
+                                    for s in (tie, lo_tie, bf16_tie))
         # the finetune step's query counts: B = 4 and a tail batch's 1-3,
         # each held to the same limits (wgmma's N is the query count)
         small = [(b, top1_l2_retrieval(q[:b].contiguous(), bank, sqn))
@@ -836,13 +954,15 @@ def phase_retrieval(seed: int):
                               mismatched_where_gap_exceeds_tol=readings.get(
                                   "off_best", readings.get("unequal")),
                               near_ties_right=ties, tf32_edge_ties_right=lo_ties,
+                              bf16_ties_right=bf16_ties,
                               last_row_picked=int(idx[LAST_Q]) == n - 1,
                               rows=rows, small_batches=small_b)
         log(f"[kernels] top1 {dname:8s}: duplicate row {DUP_LO} wins; padded bank "
             f"agrees; vs plain {mism_plain} of {E6_TILES} indices differ; largest "
-            f"f64 excess {excess:.4g} (tol {tol:.4g}); {ties} of {N_TIE} near ties "
-            f"and {lo_ties} of {N_LO_TIE} TF32-edge ties pick the best row; the "
-            f"last row's copy picks row {int(idx[LAST_Q])}")
+            f"f64 excess {excess:.4g} (tol {tol:.4g}); {ties} of {N_TIE} near ties, "
+            f"{lo_ties} of {N_LO_TIE} TF32-edge ties and {bf16_ties} of {N_BF16_TIE} "
+            f"bf16-exact ties pick the best row; the last row's copy picks row "
+            f"{int(idx[LAST_Q])}")
         del bank, sqn, q, regimes[dname]
         torch.cuda.empty_cache()
     return results
@@ -1357,6 +1477,130 @@ def subsample_times(root: str) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
     log(json.dumps(dict(root=root, card=smi, subsample_pair=shapes)))
+    return 0
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name as ``name<args>``, for the names and template
+    arguments this repo's kernels have (float, int, a named type, an integer
+    constant); a name without them as its last part."""
+    m = re.match(r"_ZN?", mangled)
+    name, rest = mangled, mangled[m.end():] if m else ""
+    while (m := re.match(r"\d+", rest)) is not None:
+        name, rest = rest[m.end():m.end() + int(m.group())], rest[m.end() + int(m.group()):]
+        if not rest.startswith("I"):
+            continue
+        args, rest = [], rest[1:]
+        while (t := re.match(r"L[a-z](-?\d+)E|(\d+)|([fi])", rest)) is not None:
+            if t.group(2):
+                args.append(rest[t.end():t.end() + int(t.group(2))])
+                rest = rest[t.end() + int(t.group(2)):]
+            else:
+                args.append(t.group(1) or {"f": "float", "i": "int"}[t.group(3)])
+                rest = rest[t.end():]
+        return f"{name}<{', '.join(args)}>"
+    return name
+
+
+def ptxas_usage(nvcc_log: str) -> dict:
+    """Each kernel's resources from nvcc's ``-Xptxas -v`` output, {kernel_name:
+    dict(registers, stack, spill_stores, spill_loads, injected_arrives)}:
+    bytes for the stack and spills; ``injected_arrives`` counts the
+    warpgroup.arrive fences ptxas added around wgmma's registers."""
+    out, fn = {}, None
+    for line in nvcc_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            out.setdefault(fn, dict(injected_arrives=0))
+            continue
+        m = re.search(r"warpgroup.arrive is injected .* in function '(\w+)'", line)
+        if m:
+            out.setdefault(kernel_name(m.group(1)), dict(injected_arrives=0))[
+                "injected_arrives"] += 1
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                      r"spill loads", line)
+        if m and fn:
+            out[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_digests(lib) -> dict:
+    """{kernel_name: sha256 of its SASS} for the kernels of the library
+    ``lib`` (cuobjdump -sass, addresses, encodings and label numbers taken
+    out): equal digests are the same machine code."""
+    import hashlib
+
+    from image_denoising_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = part.split("\n", 1)
+        body = re.sub(r"/\*[0-9a-fx ]*\*/", "", body.split("\n\t\t......")[0])
+        labels = {}
+        body = re.sub(r"\.L_x_\d+", lambda l: labels.setdefault(l.group(), f"L{len(labels)}"),
+                      body)
+        body = " ".join(body.split())
+        out[kernel_name(name.strip())] = hashlib.sha256(body.encode()).hexdigest()[:16]
+    return out
+
+
+def chain_times(root: str) -> int:
+    """The ``--chain-times`` mode: the chain kernel of the port in the
+    checkout ``root``, built there (into its git-ignored build/kernels/), on
+    this script's chain cases (``chain_cases``, ``one_way_cases``) at E2's
+    and E6's shapes: each case's margin against that checkout's plain
+    version (``chain_verdict``), the kernel's ms per chunk (the 9 calls),
+    and each compiled kernel's ptxas resources (when this call built it) and
+    SASS digest; one JSON line. Run it for two checkouts in turn (A, B, B,
+    A) to compare them on one card."""
+    import itertools
+
+    import torch
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import image_denoising_tpu_torch as pkg
+    from image_denoising_tpu_torch.ops import _build
+    from image_denoising_tpu_torch.ops.fused_block import (fused_rdb_chain,
+                                                           fused_rdb_chain_reference)
+
+    if os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__))) != root:
+        raise AssertionError(f"imported {pkg.__file__}, not the package in {root}")
+    lib, nvcc_log = _build.build("fused_block.cu")
+    kernels = ptxas_usage(nvcc_log)
+    for name, digest in sass_digests(lib).items():
+        kernels.setdefault(name, {})["sass"] = digest
+    out = dict(root=root, kernels=kernels)
+    for label, tile, seed in (("E2", TILE, 0), ("E6", E6_TILE, 1)):
+        for dname, cases in itertools.groupby(chain_cases(seed, chain_shapes(tile)),
+                                              key=lambda case: case[0]):
+            shares, ms = {}, 0.0
+            for _, shape, x, wts in cases:
+                got, want = fused_rdb_chain(x, wts), fused_rdb_chain_reference(x, wts)
+                shares[shape[0]] = chain_verdict(got, want, dname).margin
+                del got, want
+                ms += time_ms(lambda: fused_rdb_chain(x, wts))
+            out[f"{label} {dname}"] = dict(ms=ms, share_of_chain_tol=shares)
+        out[f"{label} one way share_of_chain_tol"] = {
+            shape[0]: chain_verdict(fused_rdb_chain(x, wts), fused_rdb_chain_reference(x, wts),
+                                    "float32").margin
+            for shape, x, wts in one_way_cases(seed, one_way_shapes(label, tile))}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(json.dumps(dict(out, card=smi)))
     return 0
 
 
@@ -3822,7 +4066,7 @@ MD_SHARDS, MD_MESH, MD_UNEVEN, MD_BURSTS = (2, 4), 2, 3, 2
 
 def phase_mutants(seed: int):
     """scripts/cuda/mutants.py: a seeded fault in each of the three kernels
-    (11 mutants, patched copies of csrc/ under build/mutants/), each run in
+    (13 mutants, patched copies of csrc/ under build/mutants/), each run in
     a child process per kernel against the checks on its path; raises when
     a mutant passes them all or a real kernel fails one before or after."""
     import torch
@@ -4541,6 +4785,11 @@ def main(argv=None) -> int:
                     help="only time the sub-sampler kernel of the port in CHECKOUT "
                          "(with L2 flushed and in L2, at N=4 352^2) and print one JSON "
                          "line, to compare two checkouts on one card")
+    ap.add_argument("--chain-times", metavar="CHECKOUT",
+                    help="only build the chain kernel of the port in CHECKOUT, read it "
+                         "against its plain version on this script's chain cases and "
+                         "time it, and print one JSON line, to compare two checkouts "
+                         "on one card")
     ap.add_argument("--multidevice-cards", action="store_true",
                     help="only run the [multidevice] phase on the machine's first "
                          f"{MD_CARDS} distinct cards (a machine with {MD_CARDS} or more)")
@@ -4554,6 +4803,10 @@ def main(argv=None) -> int:
         return 1
     if args.subsample_times:
         return subsample_times(args.subsample_times)
+    if args.chain_times:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return chain_times(args.chain_times)
     sys.path.insert(0, REPO)
     try:
         from image_denoising_tpu_torch.ops import _build
@@ -4582,10 +4835,14 @@ def main(argv=None) -> int:
                    + [pool.submit(_build.build_host, src) for src in host_sources])
         built = [f.result() for f in futures]
     build_s = time.perf_counter() - t0
-    for (so, nvcc_log) in built:
+    resources = {}
+    for src, (so, nvcc_log) in zip(sources + host_sources, built):
         log(f"[build] {so.name}")
+        resources[src] = ptxas_usage(nvcc_log)
+        for name, r in resources[src].items():
+            log(f"[build] {name}: " + ", ".join(f"{k} {v}" for k, v in r.items()))
         for line in nvcc_log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "serialized" in line or "error" in line:
                 log(f"[build] {line.strip()}")
     log(f"[build] {len(sources)} CUDA and {len(host_sources)} host sources in "
         f"{build_s:.2f} s")
@@ -4594,8 +4851,10 @@ def main(argv=None) -> int:
     _build.load_neighbor()
     _build.load_patch_sampler()
 
-    chain_e2 = phase_chain(args.seed, chain_shapes(TILE), "E2")
-    chain_e6 = phase_chain(args.seed + 1, chain_shapes(E6_TILE), "E6")
+    chain_e2 = phase_chain(args.seed, chain_shapes(TILE), "E2",
+                           one_way=one_way_shapes("E2", TILE))
+    chain_e6 = phase_chain(args.seed + 1, chain_shapes(E6_TILE), "E6",
+                           one_way=one_way_shapes("E6", E6_TILE))
     # the finetune path's shapes: the step's base at 4 x 128^2 (split K),
     # the output-adapter CLIs' whole-frame validation at 1 x 704^2
     chain_ft = phase_chain(args.seed + 2, chain_shapes(E6_TILE), "FT4x128", reps=3,
@@ -4641,8 +4900,8 @@ def main(argv=None) -> int:
     data_launches = data["cli"]["launches"]  # the float32 finetuner and bank of the twin
 
     summary = []
-    for dname, rows in chain_e2.items():
-        e6_rows = chain_e6[dname]
+    for dname in ("float32", "bfloat16"):
+        rows, e6_rows = chain_e2[dname], chain_e6[dname]
         summary.append(dict(
             name="fused_rdb_chain", dtype=dname, route="cuda", design=ROUTES[dname][0],
             source=CHAIN_SOURCE, replaces=CHAIN_REPLACES,
@@ -4679,6 +4938,10 @@ def main(argv=None) -> int:
                                                                         "bound_ms")},
             max_abs_err_ft=max(r["max_abs_err"] for r in chain_ft[dname]
                                + chain_frame[dname]),
+            **({"one_way": {f"{lbl} {r['name']}": {f: r[f] for f in ("max_abs_err", "tol",
+                                                                     "margin")}
+                            for lbl, res in (("E2", chain_e2), ("E6", chain_e6))
+                            for r in res["one_way"]}} if dname == "float32" else {}),
             **{k: {f: v[dname][0][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "max_abs_err", "tol")}
                for k, v in chain_rgb.items()}))
@@ -4740,6 +5003,7 @@ def main(argv=None) -> int:
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_seconds=build_s,
+                       ptxas=resources,
                        torch=torch.__version__, cuda=torch.version.cuda,
                        kernels=dict(chain_e2=chain_e2, chain_e6=chain_e6,
                                     chain_ft4x128=chain_ft, chain_ft1x704=chain_frame,
@@ -4754,8 +5018,9 @@ def main(argv=None) -> int:
     log(f"[kernels] fused_rdb_chain: ms/plain_ms/bound_ms sum the 9 chain calls "
         f"of one {B}-tile E2 chunk (e6: of one E6 chunk); design is the route "
         "inside the kernel; "
-        "float32 bounds count three TF32 products; library_ms is null: no "
-        "single PyTorch call computes the chain. top1_l2_retrieval: B=400 (b8: "
+        "float32 bounds count three TF32 products; one_way: the float32 one-way "
+        "case's readings (inputs, weights and biases >= 0) by shape; library_ms is "
+        "null: no single PyTorch call computes the chain. top1_l2_retrieval: B=400 (b8: "
         "B=8); library_ms is torch.mm (torch._int_mm for int8) plus argmin, two "
         "calls, as no single PyTorch call computes top-1 L2; max_abs_err is the "
         "largest float64 distance excess of the kernel's pick over the best row; "

@@ -12,7 +12,14 @@
 // prefix of ONE NHWC feature buffer and writing at its own channel offset,
 // so the dense concat never materialises. Every conv accumulates in f32;
 // each stored value is rounded once to the working type, as _chain_kernel
-// does.
+// does. The tensor cores truncate the f32 accumulator toward zero at every
+// wgmma instruction: half an ulp of it on average, all one way. Carried
+// over a whole conv (up to 1,944 instructions: 576 channels, 9 taps, 3
+// TF32 products) that is about half the f32 limit on inputs of one sign.
+// So f32 starts each K-stage's 27 instructions (9 taps x 3) from zero and
+// adds their sum to a second accumulator in f32 registers, rounded to
+// nearest. bf16 keeps one accumulator: at most 324 instructions, about
+// 2e-5 of a value against a limit of 4 bf16 ulps.
 //
 // Design. One conv is a GEMM: M = the 64 pixels of an 8x8 output tile, N =
 // an output-channel tile of NP (16 to 192, a multiple of 8), K = taps x
@@ -31,11 +38,13 @@
 //   * Weights are repacked once per FusedChainWeights (the wrapper) into the
 //     K-major layout [n_tile][chunk][tap][NP][16 bytes]; a K-stage (two
 //     chunks, all taps) is one contiguous bulk copy.
-//   * A ring of 2-4 stages on full/empty mbarriers, one stage's wgmma
-//     group left running while the next is issued; per stage and tap one
+//   * A ring of 2-4 stages on full/empty mbarriers; per stage and tap one
 //     wgmma m64nNPk16 (bf16) or three m64nNPk8 tf32 (f32: 3xTF32, the
 //     weights split into hi + lo by the wrapper, the activations in shared
-//     memory by the consumers), so f32 keeps its tolerance.
+//     memory by the consumers), so f32 keeps its tolerance. bf16 leaves one
+//     stage's wgmma group running while the next is issued. f32 must wait
+//     for a stage's group before adding it to its second accumulator, so it
+//     splits the next stage's activations while the group runs instead.
 //   * Epilogues, fused: bias + LeakyReLU; bias + residual with the LFF
 //     rounded once before the add; plain. One rounding per stored value.
 //   * Filling the card: where a launch has fewer than 132 blocks (the E6
@@ -206,30 +215,11 @@ chain_conv_kernel(const __grid_constant__ CUtensorMap in_map, const ConvArgs a) 
 #pragma unroll
       for (int i = 0; i < NP / 2; ++i) acc[m][i] = 0.f;
 
-    for (int s = s0; s < s1; ++s) {
-      const int j = s - s0, slot = j % a.stages;
-      mbar_wait(full0 + 8 * slot, (j / a.stages) & 1);
-      const uint32_t a_hi = base + slot * stage_bytes, b_hi = a_hi + kABytes;
-      // the lo buffers alternate: stage j - 2's products, the last to read
-      // this one, finished at the wait of stage j - 1
-      const uint32_t lo = lo_off + (j & 1) * kABytes;
-      const uint32_t a_lo = base + lo, b_lo = b_hi + b_bytes;
-      if constexpr (kF32) {
-        // the activations' TF32 split; the weights come split
-        float4* p = reinterpret_cast<float4*>(smem + slot * stage_bytes);
-        float4* l = reinterpret_cast<float4*>(smem + lo);
-        for (int i = threadIdx.x; i < kABytes / 16; i += kConsumers) {
-          float4 v = p[i], hv, lv;
-          split_tf32(v.x, hv.x, lv.x);
-          split_tf32(v.y, hv.y, lv.y);
-          split_tf32(v.z, hv.z, lv.z);
-          split_tf32(v.w, hv.w, lv.w);
-          p[i] = hv;
-          l[i] = lv;
-        }
-        fence_proxy_async();
-        named_barrier(1, kConsumers);
-      }
+    // issue the products of this block's K-stage j (ring slot j % stages;
+    // f32: the activations' lo in buffer j & 1) on acc, as one group
+    auto mma_stage = [&](int j) {
+      const uint32_t a_hi = base + (j % a.stages) * stage_bytes, b_hi = a_hi + kABytes;
+      const uint32_t a_lo = base + lo_off + (j & 1) * kABytes, b_lo = b_hi + b_bytes;
 #pragma unroll
       for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
       wgmma_fence();
@@ -257,16 +247,74 @@ chain_conv_kernel(const __grid_constant__ CUtensorMap in_map, const ConvArgs a) 
         }
       }
       wgmma_commit();
-      // keep this stage's products running; the previous stage's are done
-      // and its slot goes back to the producer
-      wgmma_wait<1>();
+    };
+
+    const int n_stages = s1 - s0;
+    if constexpr (kF32) {
+      // wait for stage j, then split its activations into TF32 hi (in
+      // place) and lo (buffer j & 1); the weights come split
+      auto split_stage = [&](int j) {
+        const int slot = j % a.stages;
+        mbar_wait(full0 + 8 * slot, (j / a.stages) & 1);
+        float4* p = reinterpret_cast<float4*>(smem + slot * stage_bytes);
+        float4* l = reinterpret_cast<float4*>(smem + lo_off + (j & 1) * kABytes);
+        for (int i = threadIdx.x; i < kABytes / 16; i += kConsumers) {
+          float4 v = p[i], hv, lv;
+          split_tf32(v.x, hv.x, lv.x);
+          split_tf32(v.y, hv.y, lv.y);
+          split_tf32(v.z, hv.z, lv.z);
+          split_tf32(v.w, hv.w, lv.w);
+          p[i] = hv;
+          l[i] = lv;
+        }
+        fence_proxy_async();
+        named_barrier(1, kConsumers);
+      };
+      // each stage's 27 (1x1: 3) instructions per M-tile start from zero,
+      // and their sum is added to total, rounded to nearest (header)
+      float total[MT][NP / 2];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < NP / 2; ++i) total[m][i] = 0.f;
+      if (n_stages > 0) split_stage(0);
+      for (int j = 0; j < n_stages; ++j) {
+        mma_stage(j);
+        // split the next stage while this one's products run: its lo
+        // buffer's last reader, stage j - 1, finished at the wait below
+        if (j + 1 < n_stages) split_stage(j + 1);
+        wgmma_wait_all();
+#pragma unroll
+        for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+        mbar_arrive(empty0 + 8 * (j % a.stages));
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int i = 0; i < NP / 2; ++i) {
+            total[m][i] += acc[m][i];
+            acc[m][i] = 0.f;
+          }
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < NP / 2; ++i) acc[m][i] = total[m][i];
+    } else {
+      for (int s = s0; s < s1; ++s) {
+        const int j = s - s0, slot = j % a.stages;
+        mbar_wait(full0 + 8 * slot, (j / a.stages) & 1);
+        mma_stage(j);
+        // keep this stage's products running; the previous stage's are done
+        // and its slot goes back to the producer
+        wgmma_wait<1>();
+#pragma unroll
+        for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+        if (j > 0) mbar_arrive(empty0 + 8 * ((j - 1) % a.stages));
+      }
+      wgmma_wait_all();
 #pragma unroll
       for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
-      if (j > 0) mbar_arrive(empty0 + 8 * ((j - 1) % a.stages));
     }
-    wgmma_wait_all();
-#pragma unroll
-    for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
 
     // acc[m][4i + 2j + c]: pixel (y0 + 2*warp + j, x0 + 8m + lane/4),
     // channel n_tile*NP + 8i + 2*(lane%4) + c

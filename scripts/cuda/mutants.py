@@ -23,7 +23,10 @@ mutant, then on the real kernel again. The checks are ``chip_smoke.py``'s
 own decision functions on its own inputs:
 
 * chain — ``kernel_f32``, ``kernel_bf16``: ``phase_chain``'s limits
-  (``chain_verdict``) at E2's and E6's 9 chain shapes each (E6's split K);
+  (``chain_verdict``) at E2's and E6's 9 chain shapes each (E6's split K),
+  and ``kernel_f32`` also on the one-way case (``one_way_cases``: inputs,
+  weights and biases ≥ 0; ``ONE_WAY_SHARE`` of the limit) at E2's up0 and
+  bottleneck and E6's up0;
   ``unequal_bf16``: the share of bf16 values unequal to the plain
   version's (``chain_flip_verdict``); ``E2_f32``, ``E2_bf16``: one E2 burst
   of 8 704² frames through the pyramid runner against the same runner over
@@ -33,9 +36,9 @@ own decision functions on its own inputs:
   (``top1_verdict``: N = 105,125, D = 16,384, B = 400, 1-4 and the padded
   bank); ``E6_int8``: the three E6 bursts' indices over the production int8
   bank against the plain retrieval (``e6_index_verdict``). Beside them, a
-  reading and no check: a scan of float32 near ties over gaps of 1 to 5
-  float32 tolerances (``tie_scan``), which says how close to its limit the
-  f32 retrieval orders such ties.
+  reading and no check: a scan of near ties over gaps of 1 to 8 float32
+  tolerances (``tie_scan``), float32 and bf16, which says how close to its
+  limit the retrieval orders such ties.
 * subsample — ``kernel_bits``, ``kernel_pairs``: ``phase_subsample``'s
   bit-equality and pair frequencies at its shapes, the outputs' memory
   poisoned first (``poisoned``); ``N2N_loss``: the N2N step's 12 losses
@@ -76,10 +79,11 @@ END_TO_END = ("E2_f32", "E2_bf16", "E6_int8", "N2N_loss")
 # the retrieval child's tie scan: SCAN_TIES ties a gap, from row SCAN_ROW of
 # SCAN_ROWS seeded rows of D = 16,384, at SCAN_GAPS float32 tolerances
 # (chip_smoke.f32_pick_tol): near_tie_rows, lo_tie_rows with random queries,
-# and lo_tie_rows with queries at TF32 edges (above_tf32)
-SCAN_GAPS = (1.0, 1.25, 1.5, 2.0, 2.5, 3.5, 5.0)
+# and lo_tie_rows with queries at TF32 edges (above_tf32), on a float32 bank;
+# bf16_tie_rows (queries and rows exact in bf16) on the bank in bf16
+SCAN_GAPS = (1.0, 1.25, 1.5, 2.0, 2.5, 3.5, 5.0, 8.0)
 SCAN_ROWS, SCAN_TIES, SCAN_ROW = 20000, 6, 100
-SCAN_KINDS = ("near_tie_rows", "lo_tie_rows", "lo_tie_rows, edge queries")
+SCAN_KINDS = ("near_tie_rows", "lo_tie_rows", "lo_tie_rows, edge queries", "bf16")
 
 
 class Mutant(NamedTuple):
@@ -113,6 +117,8 @@ _FLOAT_KEY = """  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 _INT_KEY = """  const unsigned u = static_cast<unsigned>(static_cast<int>(d)) ^ 0x80000000u;
   return (static_cast<unsigned long long>(u) << 32) | static_cast<unsigned>(n);
 """
+_STAGE_SUM = (("            total[m][i] += acc[m][i];\n            acc[m][i] = 0.f;\n", ""),
+              ("acc[m][i] = total[m][i];", ";"))
 _TABLES = """constexpr uint32_t kPos1 = pack_positions(0, 0, 1, 2, 1, 2, 3, 3);  // _POS1
 constexpr uint32_t kPos2 = pack_positions(1, 2, 3, 3, 0, 0, 1, 2);  // _POS2
 """
@@ -140,6 +146,9 @@ MUTANTS = (
     Mutant("halo_row", "chain",
            (("y0 - a.halo, img);", "y0 - a.halo + 1, img);"),),
            ("kernel_f32", "kernel_bf16", "E2_f32", "E2_bf16")),
+    # float32 carries one accumulator over the whole conv (up to 1,944
+    # truncating instructions), no per-stage sum
+    Mutant("stage_sum", "chain", _STAGE_SUM, ("kernel_f32",)),
     # retrieval (csrc/retrieval.cu)
     # float32 keeps only the product of the TF32-rounded hi parts
     Mutant("hi_hi_only", "retrieval", ((_HI_LO, ""),), ("kernel_f32",)),
@@ -157,6 +166,12 @@ MUTANTS = (
     # (at N = 105,125 it is a first row, r0; at the padded 105,472 a second)
     Mutant("tail_row", "retrieval", ((_EDGE, _EDGE.replace("< N)", "< N - 1)")),),
            ("kernel_f32", "kernel_bf16", "kernel_int8")),
+    # float32 carries one accumulator over D = 16,384 (6,144 truncating
+    # instructions), no per-stage sum: the TF32-edge ties at 1.5 go wrong
+    Mutant("one_accumulator", "retrieval",
+           (("          total[i] += acc[i];\n          acc[i] = 0.0f;\n", ""),
+            ("acc[i] = total[i];", ";")),
+           ("kernel_f32",)),
     # sub-sampler (csrc/neighbor.cu)
     # draws 1 and 2 swapped in both tables: the same 8 pairs, each still 1/8
     Mutant("pair_table", "subsample",
@@ -266,6 +281,9 @@ def _chain_checks(seed: int):
     cases = [case for tile, s in ((cs.TILE, seed), (cs.E6_TILE, seed + 1))
              for case in cs.chain_cases(s, cs.chain_shapes(tile))]
     wants = [fused_rdb_chain_reference(x, wts) for _, _, x, wts in cases]
+    one_way = [(x, wts, fused_rdb_chain_reference(x, wts))
+               for label, tile, s in (("E2", cs.TILE, seed), ("E6", cs.E6_TILE, seed + 1))
+               for _, x, wts in cs.one_way_cases(s, cs.one_way_shapes(label, tile))]
     model, bursts = cs.e2_setup(seed)
     burst = bursts[:1]
     dtypes = {"f32": "float32", "bf16": "bfloat16"}
@@ -283,6 +301,8 @@ def _chain_checks(seed: int):
             if dname == "bfloat16":
                 unequal.append(cs.chain_flip_verdict(got, want))
             del got
+        kernel["float32"] += [cs.chain_verdict(fused_rdb_chain(x, wts), want, "float32",
+                                               cs.ONE_WAY_SHARE) for x, wts, want in one_way]
         out = dict(kernel_f32=cs.worst(*kernel["float32"]),
                    kernel_bf16=cs.worst(*kernel["bfloat16"]),
                    unequal_bf16=cs.worst(*unequal))
@@ -353,9 +373,10 @@ def _subsample_checks(seed: int):
 
 
 def tie_scan(seed: int):
-    """The f32 retrieval on near ties over a scan of gaps, set up once: a
+    """The retrieval on near ties over a scan of gaps, set up once: a
     callable giving {kind: {gap: how many of the SCAN_TIES ties pick the
-    nearer row}} (the odd row of each pair)."""
+    nearer row}} (the odd row of each pair); the bf16 kind on the bank, its
+    ties and queries in bf16, the others in float32."""
     import torch
 
     import chip_smoke as cs
@@ -363,28 +384,31 @@ def tie_scan(seed: int):
 
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
     bank = torch.rand((SCAN_ROWS, cs.PATCH_D), generator=g, device="cuda")
-    sqn = (bank ** 2).sum(1)
-    bank_norm = float(bank.norm(dim=1).max())
+    banks = {torch.float32: bank, torch.bfloat16: bank.to(torch.bfloat16)}
+    sqns = {dt: (b.float() ** 2).sum(1) for dt, b in banks.items()}
     pairs = slice(SCAN_ROW, SCAN_ROW + 2 * SCAN_TIES)
     nearer = torch.arange(SCAN_ROW + 1, SCAN_ROW + 2 * SCAN_TIES, 2, device="cuda")
+    makes = {"near_tie_rows": cs.near_tie_rows, "bf16": cs.bf16_tie_rows}
     cases = []
     for kind in SCAN_KINDS:
-        make = cs.near_tie_rows if kind == "near_tie_rows" else cs.lo_tie_rows
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        bank_norm = float(banks[dt].float().norm(dim=1).max())
         for gap in SCAN_GAPS:
             q = torch.rand((SCAN_TIES, cs.PATCH_D), generator=g, device="cuda")
             if kind.endswith("edge queries"):
                 q = cs.above_tf32(q)
+            q = q.to(dt).float()
             qn = float(q.norm(dim=1).max())
             tol = cs.f32_pick_tol(cs.PATCH_D, qn, max(bank_norm, (1 + cs.TIE_S) * qn))
-            rows = torch.stack(make(q, gap * tol), 1).reshape(2 * SCAN_TIES, -1)
-            cases.append((kind, gap, q, rows))
+            rows = torch.stack(makes.get(kind, cs.lo_tie_rows)(q, gap * tol), 1)
+            cases.append((kind, dt, gap, q, rows.reshape(2 * SCAN_TIES, -1)))
 
     def run():
         out = {kind: {} for kind in SCAN_KINDS}
-        for kind, gap, q, rows in cases:
-            bank[pairs] = rows
-            sqn[pairs] = (rows ** 2).sum(1)
-            idx = top1_l2_retrieval(q, bank, sqn)
+        for kind, dt, gap, q, rows in cases:
+            banks[dt][pairs] = rows.to(dt)
+            sqns[dt][pairs] = (rows ** 2).sum(1)
+            idx = top1_l2_retrieval(q, banks[dt], sqns[dt])
             out[kind][str(gap)] = int((idx.long() == nearer).sum())
         return out
 

@@ -854,17 +854,56 @@ def test_subsample_pair_kernel_at_the_convergence_shape(cuda):
         assert torch.equal(g, w)
 
 
-def _mutant(name):
-    """scripts/cuda/mutants.py and chip_smoke.py as modules, and the mutant
-    ``name`` built from its patched copy of csrc/ under build/mutants/."""
+def _chip_smoke():
     import sys
     from pathlib import Path
 
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_fused_rdb_chain_kernel_on_the_one_way_case_at_up0(cuda):
+    """E2's up0 (8 tiles of 44², Cin 576: 1,944 instructions a conv on one
+    accumulator without the per-stage sum) on inputs, weights and biases
+    ≥ 0, where the tensor cores' truncation cannot cancel: within
+    ONE_WAY_SHARE (0.1) of chain_tol of the plain version."""
+    cs = _chip_smoke()
+    (shape,) = [s for s in cs.chain_shapes(cs.TILE) if s[0] == "up0"]
+    (_, x, wts), = cs.one_way_cases(0, [shape], device=cuda)
+    before = fused_rdb_chain.launches
+    got = fused_rdb_chain(x, wts)
+    torch.cuda.synchronize()
+    assert fused_rdb_chain.launches == before + 1
+    check = cs.chain_verdict(got, fused_rdb_chain_reference(x, wts), "float32",
+                             cs.ONE_WAY_SHARE)
+    assert check.ok, check
+
+
+@pytest.mark.cuda
+def test_top1_l2_retrieval_kernel_picks_the_bf16_ties(cuda):
+    """chip_smoke.retrieval_case's bf16 regime: its 6 ties exact in bf16,
+    BF16_TIE_GAP float32 tolerances apart, go to the nearer row, and the
+    whole check passes."""
+    cs = _chip_smoke()
+    bank, sqn, q = cs.retrieval_case(0)["bfloat16"]
+    got = top1_l2_retrieval(q, bank, sqn)
+    want = cs.top1_want("bfloat16", bank, sqn, q)
+    ties = slice(cs.BF16_TIE_Q, cs.BF16_TIE_Q + cs.N_BF16_TIE)
+    nearer = list(range(cs.BF16_TIE_ROW + 1, cs.BF16_TIE_ROW + 2 * cs.N_BF16_TIE, 2))
+    assert want[2][ties].tolist() == nearer
+    assert got[ties].tolist() == nearer
+    assert cs.top1_verdict("bfloat16", got, want).ok
+
+
+def _mutant(name):
+    """scripts/cuda/mutants.py and chip_smoke.py as modules, and the mutant
+    ``name`` built from its patched copy of csrc/ under build/mutants/."""
     from image_denoising_tpu_torch.ops import _build
 
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import chip_smoke as cs
-
+    cs = _chip_smoke()
     mut = cs._script("mutants")
     m = next(m for m in mut.MUTANTS if m.name == name)
     return mut, cs, _build.open_library(m.source, mut.compile_mutant(mut.prepare(m))[0])

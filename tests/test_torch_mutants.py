@@ -52,7 +52,7 @@ def test_each_patch_applies_once_and_changes_the_source(name):
 
 def test_every_kernel_has_at_least_three_mutants():
     assert {k: sum(m.kernel == k for m in mut.MUTANTS) for k in mut.KERNELS} == dict(
-        chain=5, retrieval=3, subsample=3)
+        chain=6, retrieval=4, subsample=3)
     assert len(set(NAMES)) == len(NAMES)
 
 
