@@ -19,6 +19,7 @@ import torch
 
 from ..ckpt.io import load_checkpoint, module_arch
 from ..models.registry import build_model, build_model_from_log_name
+from ..utils.profiling import Backlog, span
 
 __all__ = [
     "add_blindspot_flag",
@@ -119,19 +120,32 @@ def iter_bursts(by_shape, get_frame, fb, make_runner, extra=(), post=None,
     frames. Yields ``(chunk, runner_out, post_out)``, where ``post(chunk,
     runner_out)`` (optional) queues more device work on the outputs while
     they are still on the device (the ``--device_metrics`` scorer).
+
+    Under a profiler each burst is a ``burst`` span (its unit the burst's
+    index in the stream) over ``burst.load`` and ``burst.submit``, and the
+    ``burst.queued`` counter samples the device queue at each submit
+    (``utils/profiling.py``).
     """
+    backlog = Backlog("burst", skip=max_inflight - 1)
+    unit = 0
     for (h, w), idxs in sorted(by_shape.items()):
         runner = make_runner(h, w)
         inflight = []
         for s in range(0, len(idxs), fb):
             chunk = idxs[s : s + fb]
-            batchf = np.stack([get_frame(j) for j in chunk])
-            if len(chunk) < fb:
-                batchf = np.concatenate(
-                    [batchf, np.repeat(batchf[-1:], fb - len(chunk), 0)]
-                )
-            out = runner(torch.from_numpy(batchf), *extra)
-            inflight.append((chunk, out, post(chunk, out) if post else None))
+            with span("burst", unit=unit):
+                with span("burst.load"):
+                    batchf = np.stack([get_frame(j) for j in chunk])
+                    if len(chunk) < fb:
+                        batchf = np.concatenate(
+                            [batchf, np.repeat(batchf[-1:], fb - len(chunk), 0)]
+                        )
+                backlog.sample()
+                with span("burst.submit") as submit:
+                    out = runner(torch.from_numpy(batchf), *extra)
+                backlog.add(submit)
+                inflight.append((chunk, out, post(chunk, out) if post else None))
+            unit += 1
             if len(inflight) >= max_inflight:
                 yield inflight.pop(0)
         while inflight:

@@ -11,7 +11,8 @@ names (``cuda:N``). ``--parallel`` splits each tile stack over the cards
 else every visible card), each running its share in ``--tile_batch``
 chunks. ``--device_metrics`` scores each burst on the device
 (``metrics/device.py``), ``--host_workers N`` runs the per-frame host pass
-in a thread pool and ``--profile_dir`` traces the denoise loop.
+in a thread pool and ``--profile_dir`` traces the denoise loop, the
+program's spans included (``utils/profiling.py``).
 ``--arch UNet|RESNET|UNetImproved`` or the ``--log_name`` dispatch picks
 the network, ``--blindspot`` the blind-spot UNet/RESNET.
 
@@ -61,7 +62,9 @@ def parse_args(argv=None):
                              "frame by frame like the reference.")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of the denoise "
-                             "loop to this directory")
+                             "loop to this directory; it carries the "
+                             "program's spans (tiled.*, and burst, "
+                             "burst.load, burst.submit with --frame_burst)")
     parser.add_argument("--save_images", type=str, default="all",
                         choices=["all", "denoised", "none"],
                         help="which PNGs to write per frame: 'all' (noisy + "

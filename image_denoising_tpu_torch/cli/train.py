@@ -19,7 +19,8 @@ Same flags as the JAX CLI, plus ``--device {cuda,cpu}``: ``cuda`` runs on
 the card ``--gpu_devices`` names (``cuda:N``). ``--dtype bfloat16``
 computes in bfloat16 with float32 parameters; ``--remat`` /
 ``--remat_depth`` recompute blocks in backward; ``--profile_dir`` writes a
-``torch.profiler`` trace of the first ``--profile_steps`` steps.
+``torch.profiler`` trace of the first ``--profile_steps`` steps, with the
+structure step's spans (``utils/profiling.py``).
 ``--arch UNet|RESNET|UNetImproved`` or the ``--log_name`` substring
 dispatch picks the network (``UNET``, ``UNET…blindspot``, ``RESNET``,
 ``UNetImproved``), ``--blindspot`` the blind-spot UNet/RESNET with
@@ -86,7 +87,10 @@ def parse_args(argv=None):
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of the first "
                              "training steps of the first epoch to this "
-                             "directory")
+                             "directory; with the structure loss it carries "
+                             "the program's step spans (train.step and its "
+                             "phases train.step.input, .forward, .loss, "
+                             ".backward, .optimizer)")
     parser.add_argument("--profile_steps", type=int, default=5)
     parser.add_argument("--subsampler", type=str, default="xla",
                         choices=["xla", "pallas"],

@@ -22,7 +22,9 @@ regimes:
 
 The tile grid is static per frame geometry and computed on the host; the
 gather, the chunked forward, the blend and the quantisation run on the
-device. Model calls take and return NCHW ``[k, C, ps, ps]`` tiles.
+device. Model calls take and return NCHW ``[k, C, ps, ps]`` tiles. Under a
+profiler each phase is a ``tiled.*`` span (``utils/profiling.py``); all
+but the forward and the retrieval are device-timed.
 
 ``mesh=`` (``parallel.make_mesh``) splits the tile stack over the mesh's
 devices, the counterpart of JAX's ``_shard_tiles``: the stack is padded
@@ -47,6 +49,7 @@ import torch
 
 from ..parallel.mesh import forward_over_mesh
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 __all__ = [
     "pyramid_weight_mask",
@@ -220,13 +223,20 @@ class _PyramidGeometry:
 
 
 def _run_frames(geo, model_call, frames255, batch, out_dtype, device, mesh):
-    imgs = torch.as_tensor(frames255).to(device).float() / 255.0  # [F,H,W]
-    tiles = geo.gather(imgs)                                     # [F,T,ps,ps]
+    with span("tiled.frames", device):
+        imgs = torch.as_tensor(frames255).to(device).float() / 255.0  # [F,H,W]
+    with span("tiled.gather", device):
+        tiles = geo.gather(imgs)                                     # [F,T,ps,ps]
     f, t, ps = tiles.shape[0], tiles.shape[1], geo.ps
-    preds = _forward(model_call, tiles.reshape(f * t, 1, ps, ps), batch, mesh)
-    preds = preds.reshape(f, t, ps, ps).float()
-    l1 = torch.mean(torch.abs(preds - tiles), dim=(2, 3)).mean(dim=1)
-    return _quantize(geo.blend(preds), out_dtype), l1
+    with span("tiled.forward"):
+        preds = _forward(model_call, tiles.reshape(f * t, 1, ps, ps), batch, mesh)
+    with span("tiled.l1", device):
+        preds = preds.reshape(f, t, ps, ps).float()
+        l1 = torch.mean(torch.abs(preds - tiles), dim=(2, 3)).mean(dim=1)
+    with span("tiled.blend", device):
+        canvas = geo.blend(preds)
+    with span("tiled.quantize", device):
+        return _quantize(canvas, out_dtype), l1
 
 
 def make_tiled_pyramid_runner(
@@ -340,14 +350,21 @@ class _HannGeometry:
 
 def _run_hann_frames(geo, model_call, frames255, batch, out_dtype, device,
                      pre_tile_fn, mesh):
-    imgs = torch.as_tensor(frames255).to(device).float() / 255.0  # [F,H,W]
-    tiles = geo.gather(imgs)                                     # [F,T,ps,ps]
+    with span("tiled.frames", device):
+        imgs = torch.as_tensor(frames255).to(device).float() / 255.0  # [F,H,W]
+    with span("tiled.gather", device):
+        tiles = geo.gather(imgs)                                     # [F,T,ps,ps]
     f, t, ps = tiles.shape[0], tiles.shape[1], geo.ps
     tiles = tiles.reshape(f * t, 1, ps, ps)
     if pre_tile_fn is not None:
-        tiles = pre_tile_fn(tiles)
-    preds = _forward(model_call, tiles, batch, mesh)[:, 0]
-    return _quantize(geo.blend(preds.reshape(f, t, ps, ps)), out_dtype)
+        with span("tiled.retrieve"):
+            tiles = pre_tile_fn(tiles)
+    with span("tiled.forward"):
+        preds = _forward(model_call, tiles, batch, mesh)[:, 0]
+    with span("tiled.blend", device):
+        canvas = geo.blend(preds.reshape(f, t, ps, ps))
+    with span("tiled.quantize", device):
+        return _quantize(canvas, out_dtype)
 
 
 def make_tiled_hann_runner(

@@ -29,6 +29,7 @@ keyed by the image's index in the call), then splits.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Optional
 
 import numpy as np
@@ -38,6 +39,7 @@ from ..losses import l1_loss, n2n_regularized_loss, structure_loss
 from ..ops.neighbor import generate_subimages, subsample_pair_fused
 from ..ops.rng import split_seed
 from ..parallel.mesh import forward_over_mesh, module_on
+from ..utils.profiling import Backlog, span
 from .state import TrainState
 
 __all__ = ["make_l1_train_step", "make_n2n_train_step", "make_structure_train_step",
@@ -126,8 +128,16 @@ def make_structure_train_step(
     two forwards. ``l1`` is L1(network(noisy), clean), the log's ``Loss1``.
     ``mesh``: data-parallel (module docstring); each device runs its
     chunk's fused forward.
+
+    Under a profiler each call is a device-timed ``train.step`` span (its
+    unit the call's index) over ``train.step.input``, ``.forward``,
+    ``.loss``, ``.backward`` and ``.optimizer``, and the
+    ``train.step.queued`` counter samples the device queue at its start
+    (``utils/profiling.py``).
     """
     device = next(model.parameters()).device
+    backlog = Backlog("train.step")
+    units = itertools.count()
 
     def forward(net, noisy01, clean01):
         if fused:
@@ -137,20 +147,29 @@ def make_structure_train_step(
         return net(noisy01), net(clean01)
 
     def step(clean255, noisy255):
-        clean01 = to_nchw01(clean255, device)
-        noisy01 = to_nchw01(noisy255, device)
-        pred_n, pred_c = _apply(model, mesh, forward, noisy01, clean01)
-        loss = structure_loss(pred_n, pred_c, clean01, alpha, beta, gamma)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if guards or grad_clip is not None:
-            _guarded_update(state, loss, grad_clip=grad_clip,
-                            max_loss_skip=5.0 if guards else None,
-                            max_grad_norm=20.0 if guards else None)
-        else:
-            state.optimizer.step()
-            state.step += 1
-        return {"loss": loss.detach(), "l1": l1_loss(pred_n.detach(), clean01)}
+        with span("train.step", device, unit=next(units)) as entry:
+            backlog.sample()
+            with span("train.step.input"):
+                clean01 = to_nchw01(clean255, device)
+                noisy01 = to_nchw01(noisy255, device)
+            with span("train.step.forward"):
+                pred_n, pred_c = _apply(model, mesh, forward, noisy01, clean01)
+            with span("train.step.loss"):
+                loss = structure_loss(pred_n, pred_c, clean01, alpha, beta, gamma)
+            with span("train.step.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("train.step.optimizer"):
+                if guards or grad_clip is not None:
+                    _guarded_update(state, loss, grad_clip=grad_clip,
+                                    max_loss_skip=5.0 if guards else None,
+                                    max_grad_norm=20.0 if guards else None)
+                else:
+                    state.optimizer.step()
+                    state.step += 1
+            l1 = l1_loss(pred_n.detach(), clean01)
+        backlog.add(entry)
+        return {"loss": loss.detach(), "l1": l1}
 
     return step
 
