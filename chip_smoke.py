@@ -8,8 +8,9 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device  — the card's name and power limit.
-  2. build   — nvcc builds csrc/fused_block.cu, csrc/retrieval.cu and
-               csrc/neighbor.cu for sm_90a and g++ the host patch sampler
+  2. build   — nvcc builds csrc/fused_block.cu, csrc/retrieval.cu,
+               csrc/neighbor.cu and csrc/group_norm.cu for sm_90a and g++
+               the host patch sampler
                csrc/patch_sampler.cpp, all at once (seconds printed; each
                kernel's registers and spills from ptxas).
   3. kernels — each kernel against its plain PyTorch version (TF32 off),
@@ -45,14 +46,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                seed other maps, one map for all channels; its device time
                with L2 flushed before each call (held to its byte bound at
                HBM's rate) and with the image in L2 (calls back to back, as
-               in the N2N step), and per call issued back to back. Times
+               in the N2N step), and per call issued back to back;
+               the GroupNorm pair (gn_stats, gn_apply with LeakyReLU and
+               with the residual add) at the 9 ResBlock tails of E2 (8 x
+               352²), E6 (8 x 128²), the finetune step (4 x 128²) and a
+               704² frame, float32 and bfloat16, within the card tests'
+               limits of its plain versions, and at E2's its device time
+               a burst beside its byte bound, its plain versions', the
+               F.group_norm chain it replaced, and conv1 on NCHW and
+               channels_last input. Times
                (CUDA events, median; the sub-sampler's device time from
                torch.profiler) and bounds.
   4. main    — the E2 serving path: ImprovedUNet-48 (seeded init) through
                make_tiled_pyramid_runner_frames(make_fused_forward(model), 8,
                704, 704, 352, 64, batch=-8, out_dtype="uint8_floor") on 3
                bursts of 8 seeded 704² uint8 frames, in float32 and bfloat16;
-               launch counts asserted (9 chains × 9 chunks per burst); output
+               launch counts asserted (9 chains × 9 chunks per burst, and
+               2 gn_stats + 2 gn_apply a chain launch, as on every path
+               below that runs the fused forward); output
                held against the same runner over the per-conv module forward,
                in float32 and in the same dtype; end-to-end MP/s.
   5. memory  — the E6 path at its production preset: ImprovedUNet-48 base
@@ -311,6 +322,18 @@ E6_BANK_ROWS = E6_PAIRS * E6_GRID ** 2                # 105,125
 PATCH_D = E6_TILE * E6_TILE                            # 16,384
 E6_TILES = E6_BURST * ((FRAME - E6_TILE) // (E6_TILE - OVERLAP) + 1) ** 2  # 400
 SUB_SOURCE = "image_denoising_tpu_torch/csrc/neighbor.cu"
+GN_SOURCE = "image_denoising_tpu_torch/csrc/group_norm.cu"
+# the GroupNorm pair against its plain version, the limits of
+# tests/test_torch_kernels_cuda.py: float32 statistics summed in another
+# order (mean within GN_STAT_TOL of the group's standard deviation, rstd
+# relative); apply from the plain statistics, float32 within GN_F32_TOL of
+# the largest value (an FMA against a multiply and an add), bfloat16 within
+# one unit in the last place of it on at most GN_BF16_SHARE of the elements
+# (a float32 difference that flips a rounding)
+GN_STAT_TOL, GN_F32_TOL, GN_BF16_ULP, GN_BF16_SHARE = 1e-5, 1e-5, 2.0 ** -7, 1e-3
+# a tail's passes over its level's tensor: c0 read twice and h written, conv1's
+# output read twice, the residual read and the result written
+GN_PASSES = 7
 SUB_REPLACES = "image_denoising_tpu/ops/neighbor_pallas.py:81"  # subsample_pair_pallas
 # the N2N trainer's reference geometry (bench.py:29): batch 4 of 352² frames
 TRAIN_B, TRAIN_FRAME, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_EPOCHS = 4, 352, 2, 10, 100
@@ -345,6 +368,9 @@ SUB_EDGE_SHAPES = ((TRAIN_B, 1, TRAIN_FRAME, 350, "float32"),
 L2_FLUSH_BYTES = 256 << 20
 # profiler windows kernel_device_ms takes at most to see every timed call
 PROFILE_WINDOWS = 3
+# the sleep (clock cycles, ~10 ms at 1.98 GHz) that queued_ms's calls are
+# queued behind
+QUEUE_SLEEP_CYCLES = 20_000_000
 # the [hpo] phase: cli/train_opt.main on HPO_FRAMES seeded 352^2 grayscale
 # pairs (HPO_FRAMES / HPO_B steps a tuning epoch, so that steps and not a
 # trial's set-up take most of its time), HPO_TRIALS trials of 1 tuning epoch
@@ -1080,15 +1106,17 @@ def phase_main(seed: int):
         run_bursts(run, bursts[:1])  # warm-up: the kernel library
         fwd_ms = time_ms(lambda: fwd(chunk), reps=3)
         fused_rdb_chain.launches = 0
+        gn_zero()
         preds, sec = run_bursts(run, bursts)
         launches = fused_rdb_chain.launches
         want = 9 * chunks_per_burst * BURSTS  # 9 level blocks per forward
         if launches != want:
             raise AssertionError(f"{dname}: {launches} chain launches, want {want}")
+        gn = gn_check(f"E2 {dname}", launches)
         assert preds.shape == (BURSTS, B, FRAME, FRAME)
         vs_f32 = level_diff(preds, module_preds["float32"])
         vs_same = level_diff(preds, module_preds[dname])
-        out[dname] = dict(launches=launches, seconds=sec, mps=mp / sec,
+        out[dname] = dict(launches=launches, gn_launches=gn, seconds=sec, mps=mp / sec,
                           fused_forward_ms_per_chunk=fwd_ms,
                           module_forward_ms_per_chunk=module_ms,
                           module_seconds=module_sec, module_mps=mp / module_sec,
@@ -1097,7 +1125,7 @@ def phase_main(seed: int):
             f"{sec:.3f} s, {mp / sec:.4f} MP/s end to end (per-conv module: "
             f"{mp / module_sec:.4f}); forward {fwd_ms:.2f} ms per {B}-tile "
             f"chunk (per-conv module: {module_ms:.2f}); chain launches "
-            f"{launches}")
+            f"{launches}, GroupNorm launches {gn}")
         for what, d in {"float32": vs_f32, dname: vs_same}.items():
             log(f"[main] {dname:8s} vs per-conv {what} forward: max "
                 f"{d['max_level_diff']} levels, mean {d['mean_level_diff']:.4f}, "
@@ -1266,12 +1294,14 @@ def phase_memory(seed: int):
         run_bursts(run, bursts[:1])
         fused_rdb_chain.launches = 0
         top1_l2_retrieval.launches = 0
+        gn_zero()
         preds, sec = run_bursts(run, bursts)
         launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
                         top1_l2_retrieval=top1_l2_retrieval.launches)
         want = dict(fused_rdb_chain=9 * chunks * BURSTS, top1_l2_retrieval=BURSTS)
         if launches != want:
             raise AssertionError(f"E6 {dname}: launches {launches}, want {want}")
+        gn_check(f"E6 {dname}", launches["fused_rdb_chain"])
         assert preds.shape == (BURSTS, E6_BURST, FRAME, FRAME) and preds.dtype == np.uint8
         vs_f32 = level_diff(preds, module_preds["float32"])
         vs_same = level_diff(preds, module_preds[dname])
@@ -1322,9 +1352,11 @@ def phase_memory(seed: int):
         run_bursts(run, bursts[:1])
         fused_rdb_chain.launches = 0
         top1_l2_retrieval.launches = 0
+        gn_zero()
         got, sec = run_bursts(run, bursts[:1])
         regime_launches[dname] = dict(fused_rdb_chain=fused_rdb_chain.launches,
                                       top1_l2_retrieval=top1_l2_retrieval.launches)
+        gn_check(f"E6 {dname} bank", fused_rdb_chain.launches)
         if regime_launches[dname] != dict(fused_rdb_chain=9 * chunks, top1_l2_retrieval=1):
             raise AssertionError(f"E6 {dname} bank: launches {regime_launches[dname]}")
         if not np.array_equal(got[0], preds_f32[0]):
@@ -1413,6 +1445,35 @@ def call_ms(fn, reps: int = 200) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of ``fn``, a function of several launches: ``reps``
+    calls queued on the stream behind a sleep kernel, between two CUDA
+    events, so the card runs them back to back whatever the host's pace
+    (the profiler dropped or added records of such windows: 90 to 190
+    events for 21 calls of 9 launches). If the sleep ended before the host
+    had queued the calls, it is doubled and the calls timed again."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = QUEUE_SLEEP_CYCLES
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise AssertionError(f"the host did not queue {reps} calls within a sleep of {cycles // 2} "
+                         "cycles")
 
 
 def _bits(t):
@@ -1750,6 +1811,202 @@ def phase_subsample(seed: int):
             f"{plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us ({bound_by}, HBM): {share:.3f} "
             "of the bound with L2 flushed")
     return results
+
+
+def gn_tail_shapes(batch: int, tile: int):
+    """(name, (N, H, W, C)) of the 9 ResBlock tails of a forward over
+    ``batch`` tiles of ``tile``²: each level block's chain output width."""
+    return [(n, (batch, tile // div, tile // div, nf)) for n, div, _, nf, _ in CHAIN_LEVELS]
+
+
+def gn_case(seed: int, shape, dtype):
+    """A tail's inputs on the card: c0 (x), the residual and γ, β, as
+    tests/test_torch_kernels_cuda.py draws them (per-channel shifts, so a
+    group's mean is far from 0)."""
+    import torch
+
+    n, h, w, c = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shift = 2 * torch.randn(c, generator=g, device="cuda")
+    x = (3 * torch.randn(n, h, w, c, generator=g, device="cuda") + shift).to(dtype)
+    r = torch.randn(n, h, w, c, generator=g, device="cuda").to(dtype)
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device="cuda")
+    beta = 0.2 * torch.randn(c, generator=g, device="cuda")
+    return x, r, gamma, beta
+
+
+def gn_verdicts(x, r, gamma, beta, groups: int):
+    """gn_stats and both gn_apply epilogues against their plain versions,
+    one launch each, as GN_* limits: the statistics (mean over the group's
+    standard deviation, rstd relative), then each apply from the plain
+    statistics (largest error over the largest value; bfloat16 also the
+    share of unequal elements). The outputs must be NHWC contiguous."""
+    import torch
+
+    from image_denoising_tpu_torch.ops.group_norm import (
+        gn_apply, gn_apply_reference, gn_stats, gn_stats_reference)
+
+    mean, rstd = gn_stats(x, groups)
+    want_mean, want_rstd = gn_stats_reference(x, groups)
+    got = {"act": gn_apply(x, want_mean, want_rstd, gamma, beta, act=True),
+           "residual": gn_apply(x, want_mean, want_rstd, gamma, beta, residual=r)}
+    want = {"act": gn_apply_reference(x, want_mean, want_rstd, gamma, beta, act=True),
+            "residual": gn_apply_reference(x, want_mean, want_rstd, gamma, beta,
+                                           residual=r)}
+    torch.cuda.synchronize()
+    out = [verdict(((mean - want_mean).abs() * want_rstd).max(), GN_STAT_TOL, "mean"),
+           verdict(((rstd - want_rstd).abs() / want_rstd).max(), GN_STAT_TOL, "rstd")]
+    bf16 = x.dtype == torch.bfloat16
+    for k in got:
+        if not (got[k].dtype == x.dtype and got[k].shape == x.shape
+                and got[k].is_contiguous()):
+            raise AssertionError(f"gn_apply {k}: {got[k].dtype} {tuple(got[k].shape)}, "
+                                 f"contiguous {got[k].is_contiguous()}")
+        err = (got[k].float() - want[k].float()).abs()
+        top = want[k].float().abs().max()
+        out.append(verdict(err.max() / top, GN_BF16_ULP if bf16 else GN_F32_TOL, k))
+        if bf16:
+            out.append(verdict((err > 0).float().mean(), GN_BF16_SHARE, f"{k} unequal"))
+    return out
+
+
+def phase_group_norm(seed: int):
+    """gn_stats and gn_apply (act and residual epilogues) against their
+    plain versions (gn_verdicts) at the ResBlock tails of E2 (8 × 352²
+    tiles), E6 (8 × 128²), the finetune step (4 × 128²) and the whole 704²
+    frame, in float32 and bfloat16; then, at E2's 9 levels, the device time
+    (queued_ms) of a tail's four launches in the order the forward issues
+    them (``kernel_ms``; L2 as the previous launch left it; ``stats_ms`` and
+    ``apply_ms`` its two kinds alone), of the
+    same four steps as their plain versions (``plain_ms``), of the tail's
+    earlier plain ops (``library_ms``: F.group_norm in float32 on an NCHW
+    copy, the casts, LeakyReLU, the add onto NCHW), of conv1 (cuDNN, TF32
+    off) on an NCHW and on a channels_last input, and the pair's byte bound
+    (7 passes over the level's tensor at HBM's rate); sums for the 9 chunks
+    of an E2 burst."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_denoising_tpu_torch.eval.tiled import reference_tile_grid
+    from image_denoising_tpu_torch.models.layers import gn_groups
+    from image_denoising_tpu_torch.ops.group_norm import (
+        gn_apply, gn_apply_reference, gn_plan, gn_stats, gn_stats_reference)
+
+    chunks = -(-B * len(reference_tile_grid(FRAME, FRAME, TILE, TILE - OVERLAP)) // B)
+    paths = (("E2", B, TILE), ("E6", B, E6_TILE), ("FT4x128", FT_B, E6_TILE),
+             ("FT1x704", 1, FRAME))
+    results = {"checks": {}, "E2": {}}
+    for i, (label, batch, tile) in enumerate(paths):
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            rows = results["checks"].setdefault(label, {})[dname] = []
+            for j, (name, shape) in enumerate(gn_tail_shapes(batch, tile)):
+                x, r, gamma, beta = gn_case(seed + 100 * i + j, shape, dt)
+                groups = gn_groups(shape[-1])
+                checks = gn_verdicts(x, r, gamma, beta, groups)
+                top = worst(*checks)
+                plan = gn_plan(shape[0], shape[1] * shape[2], shape[3], dt)
+                rows.append(dict(name=name, shape=shape, blocks=plan.blocks, vec=plan.vec,
+                                 margin=top.margin, **{v.what: v.reading for v in checks}))
+                log(f"[kernels] group_norm {label} {dname:8s} {name:6s} "
+                    f"{'x'.join(map(str, shape))}: "
+                    + ", ".join(f"{v.what} {v.reading:.3g} (limit {v.limit:.3g})"
+                                for v in checks)
+                    + f"; {plan.blocks} blocks of {plan.pixels} pixels, vec {plan.vec}")
+                if not top.ok:
+                    raise AssertionError(f"group_norm {label} {dname} {name}: {top.what} "
+                                         f"{top.reading} > {top.limit}")
+                del x, r
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            rows = []
+            for j, (name, shape) in enumerate(gn_tail_shapes(B, TILE)):
+                c0, rdb, gamma, beta = gn_case(seed + 1000 + j, shape, dt)
+                c1 = (c0 * 0.5 + rdb).contiguous()  # conv1's output, NHWC
+                c1_nchw = c1.permute(0, 3, 1, 2).contiguous()
+                c = shape[-1]
+                groups = gn_groups(c)
+                wt = (torch.randn(c, c, 3, 3, device="cuda") / (3 * c ** 0.5)).to(dt)
+                mean, rstd = gn_stats_reference(c0, groups)
+
+                def tail(stats, apply):
+                    def run():
+                        m, s = stats(c0, groups)
+                        apply(c0, m, s, gamma, beta, act=True)
+                        m, s = stats(c1, groups)
+                        apply(c1, m, s, gamma, beta, residual=rdb)
+                    return run
+
+                def library():
+                    h = F.group_norm(c0.permute(0, 3, 1, 2).float(), groups, gamma, beta,
+                                     1e-5)
+                    F.leaky_relu(h.to(dt), 0.2)
+                    h = F.group_norm(c1_nchw.float(), groups, gamma, beta, 1e-5).to(dt)
+                    rdb.permute(0, 3, 1, 2) + h
+
+                with torch.inference_mode():
+                    row = dict(
+                        name=name, shape=shape,
+                        kernel_ms=queued_ms(tail(gn_stats, gn_apply)),
+                        stats_ms=queued_ms(lambda: (gn_stats(c0, groups),
+                                                    gn_stats(c1, groups))),
+                        apply_ms=queued_ms(lambda: (
+                            gn_apply(c0, mean, rstd, gamma, beta, act=True),
+                            gn_apply(c1, mean, rstd, gamma, beta, residual=rdb))),
+                        plain_ms=queued_ms(tail(gn_stats_reference, gn_apply_reference)),
+                        library_ms=queued_ms(library),
+                        bound_ms=1e3 * GN_PASSES * c0.numel() * c0.element_size()
+                        / HBM_BYTES_PER_S,
+                        conv1_nchw_ms=queued_ms(lambda: F.conv2d(c1_nchw, wt, padding=1)),
+                        conv1_cl_ms=queued_ms(
+                            lambda: F.conv2d(c1.permute(0, 3, 1, 2), wt, padding=1)))
+                rows.append(row)
+                log(f"[kernels] group_norm E2 {dname:8s} {name:6s} "
+                    f"{'x'.join(map(str, shape))}: a tail's kernel pair "
+                    f"{row['kernel_ms']:.4f} ms (stats {row['stats_ms']:.4f}, apply "
+                    f"{row['apply_ms']:.4f}), bound {row['bound_ms']:.4f}; plain "
+                    f"{row['plain_ms']:.4f}; F.group_norm chain {row['library_ms']:.4f}; "
+                    f"conv1 NCHW {row['conv1_nchw_ms']:.4f}, channels_last "
+                    f"{row['conv1_cl_ms']:.4f}")
+                del c0, c1, c1_nchw, rdb
+            burst = {k: chunks * sum(r[k] for r in rows) for k in rows[0] if k.endswith("_ms")}
+            results["E2"][dname] = dict(levels=rows, burst=burst)
+            log(f"[kernels] group_norm E2 {dname:8s} the {9 * chunks} tails of a burst: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in burst.items())
+                + f" ({burst['kernel_ms'] / burst['bound_ms']:.3f} of the bound)")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return results
+
+
+GN_LAUNCHES: dict = {}  # the GroupNorm pair's launches (stats + apply) by path
+
+
+def gn_zero() -> None:
+    """Set the GroupNorm kernel pair's launch counts to 0, as the chain's."""
+    from image_denoising_tpu_torch.ops.group_norm import gn_apply, gn_stats
+
+    gn_stats.launches = gn_apply.launches = 0
+
+
+def gn_check(path: str, chain: int) -> int:
+    """The GroupNorm pair's launches since ``gn_zero``, held to ``chain``,
+    the chain launches since then: each level block of a fused forward runs
+    one chain call and one ResBlock tail, which launches gn_stats and
+    gn_apply twice each (18 + 18 an 8-tile chunk). Adds them to
+    GN_LAUNCHES[path] and returns them."""
+    from image_denoising_tpu_torch.ops.group_norm import gn_apply, gn_stats
+
+    got = (gn_stats.launches, gn_apply.launches)
+    if got != (2 * chain, 2 * chain):
+        raise AssertionError(f"{path}: GroupNorm launches (stats, apply) {got} for "
+                             f"{chain} chain launches, want {(2 * chain, 2 * chain)}")
+    GN_LAUNCHES[path] = GN_LAUNCHES.get(path, 0) + sum(got)
+    return sum(got)
 
 
 def top_convolutions(fn, top: int = 4):
@@ -2500,6 +2757,7 @@ def phase_finetune(seed: int, keep_dir: str):
                     torch.cuda.synchronize()
                     fused_rdb_chain.launches = 0
                     top1_l2_retrieval.launches = 0
+                    gn_zero()
                     t0 = time.perf_counter()
                 torch.cuda.set_sync_debug_mode("error" if i >= TRAIN_WARMUP else 0)
                 try:
@@ -2516,6 +2774,7 @@ def phase_finetune(seed: int, keep_dir: str):
             wrappers.top1_l2_retrieval = top1_l2_retrieval
         launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
                         top1_l2_retrieval=top1_l2_retrieval.launches)
+        gn_check("finetune step", fused_rdb_chain.launches)
         if not np.all(np.isfinite(losses)):
             raise AssertionError(f"finetune: non-finite losses {losses}")
         return dict(losses=losses, picked=picked, ms=step_s * 1e3, mps=mp / step_s,
@@ -2658,6 +2917,7 @@ def _finetune_clis(data, base_ckpt, tmp, seed):
     for name, main, extra, role in runs:
         fused_rdb_chain.launches = 0
         top1_l2_retrieval.launches = 0
+        gn_zero()
         save = os.path.join(tmp, name)
         t0 = time.perf_counter()
         with patch_streams() as seen:
@@ -2665,6 +2925,7 @@ def _finetune_clis(data, base_ckpt, tmp, seed):
         sec = time.perf_counter() - t0
         launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
                         top1_l2_retrieval=top1_l2_retrieval.launches)
+        gn_check(f"finetune cli.{name}", fused_rdb_chain.launches)
         (ckpt,) = glob.glob(os.path.join(save, "*", f"epoch_{role}_001.ckpt"))
         tree = load_params_tree(ckpt)
         pngs = glob.glob(os.path.join(save, "*", "val_*", "*.png"))
@@ -2685,6 +2946,7 @@ def _finetune_clis(data, base_ckpt, tmp, seed):
             adapter_ckpt = ckpt
     fused_rdb_chain.launches = 0
     top1_l2_retrieval.launches = 0
+    gn_zero()
     t0 = time.perf_counter()
     avg = evaluation_704_iqsl_memory.main([
         "--data_dir", data, "--base_ckpt", base_ckpt, "--adapter_ckpt", adapter_ckpt,
@@ -2693,6 +2955,7 @@ def _finetune_clis(data, base_ckpt, tmp, seed):
     sec = time.perf_counter() - t0
     launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
                     top1_l2_retrieval=top1_l2_retrieval.launches)
+    gn_check("finetune E6 CLI", fused_rdb_chain.launches)
     out["e6"] = dict(seconds=sec, psnr=avg["psnr"], launches=launches)
     log(f"[finetune] cli.evaluation_704_iqsl_memory.main serving "
         f"{os.path.basename(adapter_ckpt)} over the .ckpt base ({E6_PAIRS} frames, bursts "
@@ -2908,6 +3171,7 @@ def phase_data(seed: int, step_ms: float):
     torch.cuda.reset_peak_memory_stats()
     fused_rdb_chain.launches = 0
     top1_l2_retrieval.launches = 0
+    gn_zero()
     t0 = time.perf_counter()
     with patch_streams() as seen, contextlib.redirect_stdout(buf):
         state = finetune_memory.main(args)
@@ -2915,6 +3179,7 @@ def phase_data(seed: int, step_ms: float):
     sec = time.perf_counter() - t0
     launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
                     top1_l2_retrieval=top1_l2_retrieval.launches)
+    gn_check("data", fused_rdb_chain.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     said = buf.getvalue()
     for line in said.splitlines():
@@ -3027,12 +3292,14 @@ def run_cli(main, args):
             torch.cuda.synchronize()
             fused_rdb_chain.launches = 0
             top1_l2_retrieval.launches = 0
+            gn_zero()
             t0 = time.perf_counter()
             result = main(args)
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
             launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
                             top1_l2_retrieval=top1_l2_retrieval.launches)
+            gn_check(f"CLI {main.__module__.rsplit('.', 1)[-1]}", fused_rdb_chain.launches)
     finally:
         common.MetricsWriter, common.HostWorkPool = saved
         metrics.calculate_psnr = host_psnr
@@ -3741,12 +4008,14 @@ def phase_converge(seed: int, keep: str):
         torch.cuda.synchronize()
         fused_rdb_chain.launches = 0
         subsample_pair_fused.launches = 0
+        gn_zero()
         with contextlib.redirect_stdout(io.StringIO()):
             res = conv.run_leg(leg, root, keep, n_epoch=CONVERGE_EPOCHS, device="cuda",
                                noisy=noisy)
         torch.cuda.synchronize()
         launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
                         subsample_pair=subsample_pair_fused.launches)
+        gn_check(f"converge {leg}", fused_rdb_chain.launches)
         # N2N: one sub-sampler launch a step, the UNet has no chain; the
         # structure legs: E1 on each snapshot's 16 frames, 9 chain calls each
         want = (dict(fused_rdb_chain=0, subsample_pair=steps) if leg == "n2n" else
@@ -3793,12 +4062,14 @@ def phase_huge(seed: int, ckpt: str, prod_bank):
     torch.cuda.synchronize()
     fused_rdb_chain.launches = 0
     top1_l2_retrieval.launches = 0
+    gn_zero()
     with contextlib.redirect_stdout(io.StringIO()):
         res = hf.run(HUGE_PYR, HUGE_HANN, checkpoint=ckpt, device="cuda",
                      emit=lambda line: None)
     torch.cuda.synchronize()
     launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
                     top1_l2_retrieval=top1_l2_retrieval.launches)
+    gn_check("huge", fused_rdb_chain.launches)
     want = dict(fused_rdb_chain=9 * runs * sum(-(-t // hf.CHUNK) for t in tiles.values()),
                 top1_l2_retrieval=runs)
     out = dict(launches=launches)
@@ -4000,6 +4271,7 @@ def phase_rgb(seed: int):
     # the output-adapter finetune (1 epoch: 5 pairs x 4 patches of 128^2,
     # batches of 4: 5 steps) over the structure checkpoint, then E4 on its file
     fused_rdb_chain.launches = 0
+    gn_zero()
     save_ft = os.path.join(tmp, "finetune")
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
@@ -4011,6 +4283,7 @@ def phase_rgb(seed: int):
                                "--seed", str(seed)] + net)
     torch.cuda.synchronize()
     ft_launches = fused_rdb_chain.launches
+    gn_check("rgb finetune", ft_launches)
     totals["float32"] += ft_launches
     adapter_ckpt = os.path.join(save_ft, "rgb_ft", "epoch_adapter_001.ckpt")
     out["finetune"] = dict(seconds=time.perf_counter() - t0, steps=int(state.step),
@@ -4213,8 +4486,10 @@ def _md_e2(seed: int, mesh_of, split: int):
                 device="cuda", mesh=m)
             run_bursts(run, bursts[:1])  # warm-up
             fused_rdb_chain.launches = 0
+            gn_zero()
             preds, sec = run_bursts(run, bursts)
             runs[name] = (preds, sec, fused_rdb_chain.launches)
+            gn_check(f"multidevice E2 {name}", fused_rdb_chain.launches)
         (p1, s1, l1), (pm, sm, lm) = runs["single"], runs["mesh"]
         want = 9 * split * share_chunks * MD_BURSTS
         if lm != want:
@@ -4278,9 +4553,11 @@ def _md_e6(seed: int, bank, model, adapter, mesh_of, split: int):
     p1, s1 = run_bursts(run1, [frames])
     fused_rdb_chain.launches = 0
     top1_l2_retrieval.launches = 0
+    gn_zero()
     pm, sm = run_bursts(runm, [frames])
     launches = dict(fused_rdb_chain=fused_rdb_chain.launches,
                     top1_l2_retrieval=top1_l2_retrieval.launches)
+    gn_check("multidevice E6", fused_rdb_chain.launches)
     share_chunks = _share_chunks(E6_TILES, split)
     want = dict(fused_rdb_chain=9 * split * share_chunks, top1_l2_retrieval=split)
     if launches != want:
@@ -4634,7 +4911,7 @@ def multidevice_cards(seed: int) -> int:
     log(f"[cards] {n} cards; cuda:0 reaches the others by peer access: "
         f"{[torch.cuda.can_device_access_peer(0, i) for i in range(1, n)]}")
     t0 = time.perf_counter()
-    sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu")
+    sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu", "group_norm.cu")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
@@ -4827,7 +5104,7 @@ def main(argv=None) -> int:
     log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
 
     t0 = time.perf_counter()
-    sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu")
+    sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu", "group_norm.cu")
     host_sources = ("patch_sampler.cpp",)  # g++, for the finetuners' patch stream
     with concurrent.futures.ThreadPoolExecutor(len(sources) + len(host_sources)) as pool:
         # one nvcc or g++ each, together
@@ -4849,6 +5126,7 @@ def main(argv=None) -> int:
     _build.load_fused_block()
     _build.load_retrieval()
     _build.load_neighbor()
+    _build.load_group_norm()
     _build.load_patch_sampler()
 
     chain_e2 = phase_chain(args.seed, chain_shapes(TILE), "E2",
@@ -4868,6 +5146,7 @@ def main(argv=None) -> int:
                  for i, (b, t) in enumerate(((B, TILE), (FT_B, E6_TILE), (1, FRAME)))}
     top1 = phase_retrieval(args.seed)
     subsample = phase_subsample(args.seed)
+    group_norm = phase_group_norm(args.seed)
     floor = phase_launch_floor()
     main_path = phase_main(args.seed)
     memory = phase_memory(args.seed)
@@ -5000,6 +5279,22 @@ def main(argv=None) -> int:
                                              "bound_by")}, launches=n2n_unet),
         n2n_128=dict({f: converge["subsample_128"][f] for f in (
             "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by")}, launches=conv_sub)))
+    gn_burst = {d: group_norm["E2"][d]["burst"] for d in ("bfloat16", "float32")}
+    gn_rows = [r for by_dtype in group_norm["checks"].values() for rows in by_dtype.values()
+               for r in rows]
+    summary.append(dict(
+        name="group_norm", dtype="bfloat16", route="cuda",
+        design="statistics by Welford, a last block merging the partials; apply with "
+               "LeakyReLU or the residual add; 16-byte vectors (CUDA cores)",
+        source=GN_SOURCE, replaces=None, launches=sum(GN_LAUNCHES.values()),
+        launches_by_path=dict(GN_LAUNCHES),
+        max_margin=max(r["margin"] for r in gn_rows),
+        ms=gn_burst["bfloat16"]["kernel_ms"], plain_ms=gn_burst["bfloat16"]["plain_ms"],
+        bound_ms=gn_burst["bfloat16"]["bound_ms"], bound_by="bytes",
+        library_ms=gn_burst["bfloat16"]["library_ms"],
+        **{k: gn_burst["bfloat16"][k] for k in ("stats_ms", "apply_ms", "conv1_nchw_ms",
+                                                 "conv1_cl_ms")},
+        float32=gn_burst["float32"]))
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_seconds=build_s,
@@ -5008,7 +5303,8 @@ def main(argv=None) -> int:
                        kernels=dict(chain_e2=chain_e2, chain_e6=chain_e6,
                                     chain_ft4x128=chain_ft, chain_ft1x704=chain_frame,
                                     chain_rgb=chain_rgb,
-                                    top1=top1, subsample=subsample, launch_floor=floor),
+                                    top1=top1, subsample=subsample, group_norm=group_norm,
+                                    launch_floor=floor),
                        main=main_path, memory=memory, train=train, train_cli=train_cli,
                        structure=structure, hpo=hpo, finetune=fine, data=data,
                        serving=serving,
@@ -5053,7 +5349,17 @@ def main(argv=None) -> int:
         "2816^2 Hann frames (chain, bfloat16) and the Hann leg's hoisted retrieval "
         "(int8); b1849: retrieval at that leg's B=1849 over its int8 bank (n rows "
         "padded); b1849_prod: the same queries over the production int8 bank, as the "
-        "E6 CLI retrieves a 2816^2 frame in one pass")
+        "E6 CLI retrieves a 2816^2 frame in one pass. group_norm: ms/plain_ms/bound_ms/"
+        "library_ms sum the 81 ResBlock tails of an E2 burst (9 chunks of 9 levels), each "
+        "tail's two gn_stats and two gn_apply launches in the forward's order (device time: "
+        "CUDA events around calls queued behind a sleep kernel), the same steps as their "
+        "plain versions, and the plain ops the "
+        "tail ran before (F.group_norm in float32 on NCHW, casts, LeakyReLU, the add); "
+        "bound_ms 7 passes over each level's tensor at HBM's rate; conv1_*_ms: conv1 on "
+        "NCHW and channels_last input (TF32 off); float32: the same in float32; "
+        "max_margin: the worst reading over its limit of the checks at E2, E6, 4x128^2 "
+        "and 1x704^2; launches_by_path: stats + apply launches of each checked run, two "
+        "of each a chain launch")
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

@@ -5,12 +5,19 @@ Counterpart of ``image_denoising_tpu/models/fused_forward.py``.
 ``improved_unet_fused_apply`` computes what ``ImprovedUNet.forward``
 computes, but sends each of the 9 level blocks' lead conv → RDB → ResBlock
 conv0 through ``ops/fused_block.py::fused_rdb_chain`` (on CUDA, the
-hand-written kernel). GroupNorm (statistics in float32), the rest of the
-ResBlock, the noise estimator, ``conv_ps`` + PixelShuffle, max-pool and the
-final conv stay plain PyTorch, as the JAX package leaves them to XLA.
+hand-written kernel), and the rest of each ResBlock (GN0 → LeakyReLU → conv1
+→ GN1 → + the RDB's output) through ``ops/group_norm.py``'s kernel pair
+(on CUDA, ``csrc/group_norm.cu``: statistics and affine in float32, fused
+with the LeakyReLU and with the residual add; the plain version on the CPU)
+around a cuDNN conv1. The noise estimator, ``conv_ps`` + PixelShuffle,
+max-pool and the final conv stay plain PyTorch, as the JAX package leaves
+them to XLA.
 
-Activations stay NCHW-shaped in ``channels_last`` memory, so the NHWC view
-the chain takes (and the NHWC tensors it returns) cost no copy.
+Activations are NCHW-shaped in ``channels_last`` memory, so the NHWC view
+the chain takes costs no copy, and they stay ``channels_last`` through the
+ResBlock tail: GroupNorm reads and writes NHWC, and conv1 gets and returns
+``channels_last``. On CUDA each tail adds 1 to the ``forward.gn_tail``
+counter of ``utils/profiling.py``.
 
 A float32 forward is float32 throughout: the chain kernel runs 3xTF32, and
 ``make_fused_forward`` runs the plain cuDNN convs with TF32 off whatever
@@ -33,7 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.fused_block import FusedChainWeights, fused_rdb_chain
+from ..ops.group_norm import gn_apply, gn_stats
 from ..utils.device import resolve_device
+from ..utils.profiling import count
 from .improved_unet import ImprovedUNet
 from .layers import gn_groups, leaky_relu, max_pool_2x2, pixel_shuffle
 
@@ -49,26 +58,26 @@ def _conv(x, sd, name: str):
     return F.conv2d(x, w, sd.get(f"{name}.bias"), padding=w.shape[-1] // 2)
 
 
-def _group_norm(x, sd, name: str, eps: float = 1e-5):
-    """GroupNorm with the reference group-count fallback; stats in float32."""
-    y = F.group_norm(x.float(), gn_groups(x.shape[1]),
-                     sd[f"{name}.weight"].float(), sd[f"{name}.bias"].float(),
-                     eps)
-    return y.to(x.dtype)
+def _group_norm(x, sd, name: str, **epilogue):
+    """GroupNorm of NHWC ``x`` with the reference group-count fallback
+    (statistics and affine in float32) and ``gn_apply``'s ``epilogue``."""
+    mean, rstd = gn_stats(x, gn_groups(x.shape[-1]))
+    return gn_apply(x, mean, rstd, sd[f"{name}.weight"], sd[f"{name}.bias"], **epilogue)
 
 
 def _res_tail(rdb_out, c0, sd, prefix: str):
-    """ResBlock minus conv0 (the chain produced it): GN0 → LReLU → conv1 → GN1 → + rdb_out."""
-    h = leaky_relu(_group_norm(c0, sd, f"{prefix}.block.1"))
-    h = _group_norm(_conv(h, sd, f"{prefix}.block.3"), sd, f"{prefix}.block.4")
-    return rdb_out + h
+    """ResBlock minus conv0 (the chain produced it) on the chain's NHWC
+    results: GN0 + LReLU → conv1 → GN1 + rdb_out; NCHW (channels_last) out."""
+    if c0.device.type == "cuda":
+        count("forward.gn_tail")
+    h = _group_norm(c0, sd, f"{prefix}.block.1", act=True)
+    h = _conv(h.permute(0, 3, 1, 2), sd, f"{prefix}.block.3").permute(0, 2, 3, 1)
+    return _group_norm(h, sd, f"{prefix}.block.4", residual=rdb_out).permute(0, 3, 1, 2)
 
 
 def _chain(x, wts: FusedChainWeights):
-    """NCHW (channels_last) in → (rdb_out, c0) NCHW views of the NHWC results."""
-    xh = x.contiguous(memory_format=_CL).permute(0, 2, 3, 1)
-    rdb_out, c0 = fused_rdb_chain(xh, wts)
-    return rdb_out.permute(0, 3, 1, 2), c0.permute(0, 3, 1, 2)
+    """NCHW (channels_last) in → the NHWC (rdb_out, c0)."""
+    return fused_rdb_chain(x.contiguous(memory_format=_CL).permute(0, 2, 3, 1), wts)
 
 
 def chain_weights(sd, depth: int = 4) -> List[FusedChainWeights]:

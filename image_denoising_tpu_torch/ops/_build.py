@@ -26,7 +26,7 @@ import tempfile
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "HOST_BUILD_DIR", "SIGNATURES", "build", "build_host", "cuda_headers",
-           "load_fused_block", "load_neighbor", "load_patch_sampler", "load_retrieval",
+           "load_fused_block", "load_group_norm", "load_neighbor", "load_patch_sampler", "load_retrieval",
            "load_ssim", "open_library"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
@@ -120,7 +120,7 @@ def build_host(source: str) -> tuple[Path, str]:
     return _compile(_source(source), gxx, GXX_FLAGS, b"", HOST_BUILD_DIR)
 
 
-_I, _P = ctypes.c_int, ctypes.c_void_p
+_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 # each CUDA library's C functions: (argument types, return type)
 SIGNATURES = {
     "fused_block.cu": {
@@ -131,6 +131,10 @@ SIGNATURES = {
         "idt_subsample_pair": ([_I, _P, _I, _I, _I, _I, ctypes.c_uint64, _P, _P, _P, _P, _P],
                                _I),
         "idt_empty_launches": ([_I, _P], _I)},
+    "group_norm.cu": {
+        "idt_gn_stats": ([_I, _I, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P], _I),
+        "idt_gn_apply": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                         _I)},
 }
 
 
@@ -162,6 +166,13 @@ def load_neighbor() -> ctypes.CDLL:
     """The N2N sub-sampler library (csrc/neighbor.cu), built on first call;
     it also holds the empty kernel that times the launch floor."""
     return open_library("neighbor.cu", build("neighbor.cu")[0])
+
+
+@functools.lru_cache(maxsize=None)
+def load_group_norm() -> ctypes.CDLL:
+    """The GroupNorm statistics and apply library (csrc/group_norm.cu),
+    built on first call."""
+    return open_library("group_norm.cu", build("group_norm.cu")[0])
 
 
 @functools.lru_cache(maxsize=None)

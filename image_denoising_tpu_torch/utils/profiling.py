@@ -40,6 +40,10 @@ The spans (``*``: device-timed) and counters of the program:
   (``pre_tile_fn``, Hann only), ``tiled.forward`` (the chunked forward with
   its pad and cat), ``tiled.l1``* (the predictions cast to float32 and the
   tiles' L1; pyramid only), ``tiled.blend``*, ``tiled.quantize``*.
+- ``models/fused_forward.py::_res_tail``: counter ``forward.gn_tail``, 1 for
+  each ResBlock tail whose GroupNorm runs on the kernel pair
+  (``ops/group_norm.py``, CUDA only): 9 an ImprovedUNet forward, 81 an E2
+  burst of 9 chunks.
 - ``train/steps.py::make_structure_train_step``: ``train.step``* (unit: the
   step's index for this step function), inside it ``train.step.input``,
   ``train.step.forward``, ``train.step.loss``, ``train.step.backward``,

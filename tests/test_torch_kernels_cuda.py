@@ -19,6 +19,12 @@ from image_denoising_tpu_torch.ops.fused_block import (
     fused_rdb_chain,
     fused_rdb_chain_reference,
 )
+from image_denoising_tpu_torch.ops.group_norm import (
+    gn_apply,
+    gn_apply_reference,
+    gn_stats,
+    gn_stats_reference,
+)
 
 
 @pytest.fixture
@@ -958,3 +964,120 @@ def test_subsample_check_rejects_the_pair_table_mutant(cuda):
         got = cs.poisoned(lambda: subsample_pair_fused(2 ** 33 + 5, img))
     assert not cs.subsample_bits_verdict(got, want).ok
     assert cs.subsample_bits_verdict(subsample_pair_fused(2 ** 33 + 5, img), want).ok
+
+
+# (N, H, W, C) of the ResBlock tails the forward runs: E2's 9 levels of an
+# 8-tile chunk of 352², the finetuners' batch of 4 × 128², E1's whole 704²
+# frame, a bottleneck whose blocks get fewer pixels than rows, a tiny width;
+# then the one-value-a-thread kernels: widths that 16 bytes do not divide
+# (C = 4 in bfloat16, the up3 level of an n_feature 8 network, and C = 6 in
+# both dtypes) and tensors one element past a 16-byte boundary (GN_OFFSET)
+GN_CASES = {
+    "e2_down0": (8, 352, 352, 48), "e2_down1": (8, 176, 176, 96),
+    "e2_down2": (8, 88, 88, 192), "e2_down3": (8, 44, 44, 384),
+    "e2_bottle": (8, 22, 22, 384), "e2_up0": (8, 44, 44, 192),
+    "e2_up1": (8, 88, 88, 96), "e2_up2": (8, 176, 176, 48),
+    "e2_up3": (8, 352, 352, 24), "finetune_4x128": (4, 128, 128, 48),
+    "e1_1x704": (1, 704, 704, 48), "ragged_1x44": (1, 44, 44, 384),
+    "tiny_2x9x7": (2, 9, 7, 8),
+    "width4_2x9x7": (2, 9, 7, 4), "width6_2x9x7": (2, 9, 7, 6),
+    "unaligned_2x44x44x96": (2, 44, 44, 96),
+}
+GN_OFFSET = {"unaligned_2x44x44x96": 1}  # elements x and the residual start past a boundary
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(GN_CASES))
+def test_group_norm_kernels_match_plain_version(cuda, case, dtype):
+    """gn_stats, gn_apply(act) and gn_apply(residual) against their plain
+    versions on the card, one launch each, NHWC (channels_last) out.
+    Statistics: float32 sums of up to 1.2 M values in another order (1e-5 of
+    the group's standard deviation for the mean, 1e-5 relative for rstd).
+    Apply, from the plain statistics: float32 within 1e-5 of the largest
+    value (FMA against a multiply and an add); bfloat16 within one unit in
+    the last place of the largest value (2^-7 of it), on at most 0.1 % of
+    elements (a float32 difference that flips a rounding). The scalar
+    cases must take the one-value-a-thread kernels, the others the 16-byte
+    ones."""
+    from image_denoising_tpu_torch.models.layers import gn_groups
+    from image_denoising_tpu_torch.ops.group_norm import gn_plan
+
+    n, h, w, c = GN_CASES[case]
+    offset = GN_OFFSET.get(case, 0)
+    groups = gn_groups(c)
+    g = torch.Generator(device=cuda).manual_seed(n * h * w + c)
+    shift = 2 * torch.randn(c, generator=g, device=cuda)
+    x = (3 * torch.randn(n, h, w, c, generator=g, device=cuda) + shift).to(dtype)
+    r = torch.randn(n, h, w, c, generator=g, device=cuda).to(dtype)
+    if offset:
+        x, r = (torch.empty(t.numel() + offset, dtype=dtype, device=cuda)[offset:]
+                .view(t.shape).copy_(t) for t in (x, r))
+        assert x.data_ptr() % 16 and r.data_ptr() % 16
+    scalar = bool(offset or c % (16 // x.element_size()))
+    assert (gn_plan(n, h * w, c, dtype, not offset).vec == 1) == scalar
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=cuda)
+    beta = 0.2 * torch.randn(c, generator=g, device=cuda)
+    before = (gn_stats.launches, gn_apply.launches)
+    mean, rstd = gn_stats(x, groups)
+    want_mean, want_rstd = gn_stats_reference(x, groups)
+    act = gn_apply(x, want_mean, want_rstd, gamma, beta, act=True)
+    res = gn_apply(x, want_mean, want_rstd, gamma, beta, residual=r)
+    torch.cuda.synchronize()
+    assert (gn_stats.launches, gn_apply.launches) == (before[0] + 1, before[1] + 2)
+    assert mean.shape == rstd.shape == (n, groups) and mean.dtype == torch.float32
+    assert ((mean - want_mean).abs() <= 1e-5 / want_rstd).all()
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+    for got, want in ((act, gn_apply_reference(x, want_mean, want_rstd, gamma, beta, act=True)),
+                      (res, gn_apply_reference(x, want_mean, want_rstd, gamma, beta,
+                                               residual=r))):
+        assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
+        assert got.permute(0, 3, 1, 2).is_contiguous(memory_format=torch.channels_last)
+        err = (got.float() - want.float()).abs()
+        top = want.float().abs().max()
+        if dtype == torch.float32:
+            assert err.max() <= 1e-5 * top
+        else:
+            assert err.max() <= 2.0 ** -7 * top
+            assert (err > 0).float().mean() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_forward_runs_every_tail_on_the_group_norm_kernels(cuda, dtype):
+    """One of E2's 8-tile chunks of 352² through ImprovedUNet-48's fused
+    forward under a profiler: 9 tails on the ``forward.gn_tail`` counter, 18
+    launches of each GroupNorm kernel, 9 chain launches, no
+    ``F.group_norm`` kernel (``RowwiseMoments``) on the card, and a tail's
+    output channels_last."""
+    from image_denoising_tpu_torch.models import ImprovedUNet, make_fused_forward
+    from image_denoising_tpu_torch.models.fused_forward import _res_tail
+    from image_denoising_tpu_torch.utils import profiling
+
+    torch.manual_seed(22)
+    model = ImprovedUNet(1, 1, 48).eval()
+    fwd = make_fused_forward(model, device=cuda, dtype=dtype)
+    x = torch.rand(8, 1, 352, 352, device=cuda)
+    fwd(x)
+    torch.cuda.synchronize()
+    before = (gn_stats.launches, gn_apply.launches, fused_rdb_chain.launches)
+    profiling.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        y = fwd(x)
+        torch.cuda.synchronize()
+    assert profiling.record()["counters"].get("forward.gn_tail") == 9
+    assert (gn_stats.launches, gn_apply.launches, fused_rdb_chain.launches) == (
+        before[0] + 18, before[1] + 18, before[2] + 9)
+    names = [e.key for e in prof.key_averages()]
+    assert any("gn_stats_kernel" in k for k in names)
+    assert any("gn_apply_kernel" in k for k in names)
+    assert not any("RowwiseMoments" in k for k in names)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+
+    sd = {k: v.to(cuda, torch.float32 if ".block.1." in k or ".block.4." in k else dtype)
+          for k, v in model.state_dict().items()}
+    c0 = torch.randn(8, 44, 44, 384, device=cuda).to(dtype)
+    tail = _res_tail(torch.randn_like(c0), c0, sd, "downs.3.3")
+    assert tail.shape == (8, 384, 44, 44)
+    assert tail.is_contiguous(memory_format=torch.channels_last)
