@@ -14,7 +14,9 @@ adapter's own tree). Trees and state dicts cross through
 ``load_checkpoint`` reads a ``.ckpt`` (with ``arch=``) or a
 reference-layout ``.pth`` state dict, such as the JAX package's
 ``export_pth`` writes, and returns a state dict that loads with
-``strict=True``.
+``strict=True``. Restormer, which the JAX package lacks, has no params-tree
+layout: its checkpoint is always a ``torch.save`` file in the upstream
+layout, such as the released ``{"params": state_dict}``.
 
 ``save_train_state`` / ``restore_train_state`` keep a whole train state
 (parameters, Adam moments and step counts, the ``step`` and ``skipped``
@@ -45,16 +47,19 @@ def checkpoint_path(save_root: str, role: str, epoch: int) -> str:
 
 def module_arch(module: torch.nn.Module) -> str:
     """The ``arch`` name of a ported module: 'UNet', 'RESNET',
-    'UNetImproved', 'output_adapter' or its memory-adapter variant (JAX's
-    ``cli/common.py::_arch_name`` for the networks)."""
+    'UNetImproved', 'Restormer', 'output_adapter' or its memory-adapter
+    variant (JAX's ``cli/common.py::_arch_name`` for the networks)."""
     from ..adapters.memory_adapters import MEMORY_ADAPTERS
     from ..adapters.output_adapter import OutputAdapter
     from ..models.improved_unet import ImprovedUNet
     from ..models.resnet import RESNET
+    from ..models.restormer import Restormer
     from ..models.unet import UNet
 
     if isinstance(module, ImprovedUNet):
         return "UNetImproved"
+    if isinstance(module, Restormer):
+        return "Restormer"
     if isinstance(module, RESNET):
         return "RESNET"
     if isinstance(module, UNet):
@@ -110,13 +115,13 @@ def load_checkpoint(path: str, arch: Optional[str] = None,
     """A state dict on the CPU that loads into the ``arch`` module with
     ``strict=True``.
 
-    ``.pth``: the reference-layout state dict, any ``module.`` prefix
-    stripped. Anything else is a ``.ckpt`` params tree, mapped through
-    ``params_to_state_dict(tree, arch)``. ``prefix`` picks a submodule out
-    of a wrapper checkpoint: ``"base"`` or ``"adapter"`` of an
-    ``epoch_adapter`` file.
+    ``.pth``, and any file for ``arch="Restormer"``: the reference-layout
+    state dict (``pth_import.read_pth``). Anything else is a ``.ckpt``
+    params tree, mapped through ``params_to_state_dict(tree, arch)``.
+    ``prefix`` picks a submodule out of a wrapper checkpoint: ``"base"`` or
+    ``"adapter"`` of an ``epoch_adapter`` file.
     """
-    if path.endswith(".pth"):
+    if path.endswith(".pth") or arch == "Restormer":  # no params-tree layout
         state = read_pth(path)
         if prefix:
             state = {k[len(prefix) + 1:]: v for k, v in state.items()

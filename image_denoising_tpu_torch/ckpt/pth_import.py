@@ -26,10 +26,14 @@ __all__ = ["import_pth", "load_state_dict", "read_pth", "state_dict_to_params"]
 
 def read_pth(path: str) -> Dict[str, Any]:
     """A ``.pth`` state dict on the CPU, as torch tensors, with
-    ``nn.DataParallel``'s ``module.`` prefix stripped (``finetune.py:207-218``)."""
+    ``nn.DataParallel``'s ``module.`` prefix stripped (``finetune.py:207-218``)
+    and BasicSR's ``{"params": state_dict}`` wrapper (Restormer's released
+    weights) taken off."""
     import torch
 
     state = torch.load(path, map_location="cpu", weights_only=True)
+    if set(state) == {"params"} and isinstance(state["params"], dict):
+        state = state["params"]
     if any(k.startswith("module.") for k in state):
         state = {k.replace("module.", "", 1): v for k, v in state.items()}
     return state

@@ -16,9 +16,10 @@ Shapes are bucketed from the PIL headers alone and frames decode per burst,
 so host memory holds the bursts in flight, not the directory. Two inputs
 with one stem (``a.png``, ``a.tif``) keep their extension in the output
 name. Same flags as the JAX CLI plus ``--device {cuda,cpu}``;
-``--arch UNet|RESNET|UNetImproved`` or the ``--log_name`` dispatch picks
-the network, ``--blindspot`` the blind-spot UNet/RESNET; ``--parallel``
-splits each burst's tile stack over every visible card.
+``--arch UNet|RESNET|UNetImproved|Restormer`` or the ``--log_name``
+dispatch picks the network (Restormer's ``--checkpoint`` is its upstream
+``torch.save`` file), ``--blindspot`` the blind-spot UNet/RESNET;
+``--parallel`` splits each burst's tile stack over every visible card.
 
 Run: ``python -m image_denoising_tpu_torch.cli.denoise --input_dir frames
 --checkpoint model.ckpt`` (``--device cpu`` off the card).

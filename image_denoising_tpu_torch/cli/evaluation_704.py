@@ -13,8 +13,9 @@ chunks. ``--device_metrics`` scores each burst on the device
 (``metrics/device.py``), ``--host_workers N`` runs the per-frame host pass
 in a thread pool and ``--profile_dir`` traces the denoise loop, the
 program's spans included (``utils/profiling.py``).
-``--arch UNet|RESNET|UNetImproved`` or the ``--log_name`` dispatch picks
-the network, ``--blindspot`` the blind-spot UNet/RESNET.
+``--arch UNet|RESNET|UNetImproved|Restormer`` or the ``--log_name``
+dispatch picks the network (Restormer's ``--checkpoint`` is its upstream
+``torch.save`` file), ``--blindspot`` the blind-spot UNet/RESNET.
 
 Run: ``python -m image_denoising_tpu_torch.cli.evaluation_704 --data_dir d
 --checkpoint model.ckpt`` (the JAX package's ``.ckpt``, or a

@@ -1,5 +1,5 @@
 """The serving forward of every network: ImprovedUNet through the fused
-level-block chain, UNet and RESNET as their modules.
+level-block chain, UNet, RESNET and Restormer as their modules.
 
 Counterpart of ``image_denoising_tpu/models/fused_forward.py``.
 ``improved_unet_fused_apply`` computes what ``ImprovedUNet.forward``
@@ -26,9 +26,9 @@ A float32 forward is float32 throughout: the chain kernel runs 3xTF32, and
 ``make_forward`` is what the CLIs call, the port's ``jitted_apply``
 (``image_denoising_tpu/cli/common.py``): ``make_fused_forward`` for an
 ImprovedUNet; for UNet and RESNET, whose convs the JAX package also leaves
-to XLA's convolutions, a no-grad forward of a frozen copy of the module on
-the device, in the compute dtype and ``channels_last``, with TF32 off in
-float32.
+to XLA's convolutions, and for Restormer, which the JAX package lacks, a
+no-grad forward of a frozen copy of the module on the device, in the
+compute dtype and ``channels_last``, with TF32 off in float32.
 """
 from __future__ import annotations
 
@@ -187,11 +187,13 @@ def make_forward(model, device="cuda", dtype: Optional[torch.dtype] = None,
     that device's forward, and ``fwd(x)`` the batch split over the mesh and
     gathered on its first device; ``device`` is then not used.
 
-    For UNet and RESNET the module is copied to the device once, in
-    ``channels_last``, its weights cast to ``dtype`` (the convs would cast
+    For UNet, RESNET and Restormer the module is copied to the device once,
+    in ``channels_last``, its weights cast to ``dtype`` (the convs would cast
     them on every call; the values are the same) and its compute dtype set,
     so the input and every concatenation keep the JAX package's dtypes. The
-    caller's module is not touched.
+    parameters whose names end in one of the module's ``FLOAT32_PARAMS``
+    (Restormer's LayerNorm weights and temperatures) stay float32, as the
+    statistics they scale are. The caller's module is not touched.
     """
     if mesh is not None:
         from ..parallel.mesh import PerDevice
@@ -204,6 +206,10 @@ def make_forward(model, device="cuda", dtype: Optional[torch.dtype] = None,
     net = copy.deepcopy(model).eval().requires_grad_(False)
     net.dtype = None if dt == torch.float32 else dt
     net = net.to(device=dev, dtype=dt, memory_format=_CL)
+    keep = getattr(model, "FLOAT32_PARAMS", ())
+    for name, p in net.named_parameters():
+        if name.endswith(keep):  # copied again from the caller's float32 module
+            p.data = model.get_parameter(name).detach().to(dev, torch.float32)
     precise = _cudnn_tf32_off if dt == torch.float32 else contextlib.nullcontext
 
     @torch.inference_mode()

@@ -5,7 +5,9 @@ eval CLIs (reference ``finetune.py:189-204``); ``build_model_from_log_name``
 is the substring dispatch of ``train.py:298-314`` / ``evaluation.py:32-48``,
 priority order kept, raising a clear error where the reference leaves the
 network undefined. ``UNET`` is the log-name spelling only: as ``--arch`` it
-is unknown, as in the JAX package.
+is unknown, as in the JAX package. ``Restormer`` (``models/restormer.py``)
+has no JAX counterpart: ``n_feature`` is its ``dim``, and the rest are the
+published grayscale-denoising values.
 """
 from __future__ import annotations
 
@@ -15,11 +17,12 @@ import torch
 
 from .improved_unet import ImprovedUNet
 from .resnet import RESNET
+from .restormer import Restormer
 from .unet import UNet
 
 __all__ = ["ARCHS", "build_model", "build_model_from_log_name"]
 
-ARCHS = ("UNet", "RESNET", "UNetImproved")
+ARCHS = ("UNet", "RESNET", "UNetImproved", "Restormer")
 
 
 def build_model(arch: str, n_channel: int = 1, n_feature: int = 48,
@@ -37,6 +40,9 @@ def build_model(arch: str, n_channel: int = 1, n_feature: int = 48,
     if arch == "UNetImproved":
         return ImprovedUNet(in_nc=n_channel, out_nc=n_channel, n_feature=n_feature,
                             dtype=dtype, remat=remat, remat_depth=remat_depth)
+    if arch == "Restormer":
+        return Restormer(inp_channels=n_channel, out_channels=n_channel, dim=n_feature,
+                         dtype=dtype)
     raise ValueError(f"Unknown arch: {arch!r} (choose from {ARCHS})")
 
 
@@ -52,6 +58,8 @@ def build_model_from_log_name(log_name: str, n_channel: int = 1, n_feature: int 
     if "UNetImproved" in log_name:
         return build_model("UNetImproved", n_channel, n_feature, dtype=dtype,
                            remat=remat, remat_depth=remat_depth)
+    if "Restormer" in log_name:
+        return build_model("Restormer", n_channel, n_feature, dtype=dtype)
     raise ValueError(
         f"log_name {log_name!r} matches no architecture "
-        "(need one of UNET / RESNET / UNetImproved as a substring)")
+        "(need one of UNET / RESNET / UNetImproved / Restormer as a substring)")

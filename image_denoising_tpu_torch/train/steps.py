@@ -222,32 +222,47 @@ def make_n2n_train_step(
     injects selectors drawn elsewhere. ``mesh``: data-parallel (module
     docstring); the noise and the sub-sampler run once, over the whole
     batch, on the first device, and both forwards split over the mesh.
+
+    Under a profiler it records the structure step's spans and counters
+    (``train.step`` over ``.input``: the frames to the device, the noise
+    and the sub-sampler; ``.forward``: both forwards; ``.loss``,
+    ``.backward``, ``.optimizer``; ``train.step.queued``).
     """
     device = next(model.parameters()).device
     gen = torch.Generator(device=device) if noise_fn is not None else None
+    backlog = Backlog("train.step")
+    units = itertools.count()
 
     def step(clean255, noisy255, seed: int, epoch: int):
-        if noise_fn is not None:
-            noise_seed, mask_seed = split_seed(seed)
-            gen.manual_seed(noise_seed)
-            noisy01 = noise_fn(gen, to_nchw01(clean255, device))
-        else:
-            mask_seed = seed
-            noisy01 = to_nchw01(noisy255, device)
-        # Λ in float32, as the JAX step computes it
-        lam = float(np.float32(epoch) / np.float32(n_epoch) * np.float32(increase_ratio))
-        sub1, sub2, (sel1, sel2) = subsample(mask_seed, noisy01)
-        with torch.no_grad():
-            denoised = _apply(model, mesh, lambda net, x: net(x), noisy01)
-            den_sub1 = generate_subimages(denoised, sel1)
-            den_sub2 = generate_subimages(denoised, sel2)
-        pred = _apply(model, mesh, lambda net, x: net(x), sub1)
-        total, (l_rec, l_reg) = n2n_regularized_loss(
-            pred, sub2, den_sub1, den_sub2, lam, lambda1=lambda1, lambda2=lambda2)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        state.optimizer.step()
-        state.step += 1
+        with span("train.step", device, unit=next(units)) as entry:
+            backlog.sample()
+            with span("train.step.input"):
+                if noise_fn is not None:
+                    noise_seed, mask_seed = split_seed(seed)
+                    gen.manual_seed(noise_seed)
+                    noisy01 = noise_fn(gen, to_nchw01(clean255, device))
+                else:
+                    mask_seed = seed
+                    noisy01 = to_nchw01(noisy255, device)
+                sub1, sub2, (sel1, sel2) = subsample(mask_seed, noisy01)
+            # Λ in float32, as the JAX step computes it
+            lam = float(np.float32(epoch) / np.float32(n_epoch) * np.float32(increase_ratio))
+            with span("train.step.forward"):
+                with torch.no_grad():
+                    denoised = _apply(model, mesh, lambda net, x: net(x), noisy01)
+                    den_sub1 = generate_subimages(denoised, sel1)
+                    den_sub2 = generate_subimages(denoised, sel2)
+                pred = _apply(model, mesh, lambda net, x: net(x), sub1)
+            with span("train.step.loss"):
+                total, (l_rec, l_reg) = n2n_regularized_loss(
+                    pred, sub2, den_sub1, den_sub2, lam, lambda1=lambda1, lambda2=lambda2)
+            with span("train.step.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                total.backward()
+            with span("train.step.optimizer"):
+                state.optimizer.step()
+                state.step += 1
+        backlog.add(entry)
         return {"loss": total.detach(), "loss_rec": l_rec.detach(),
                 "loss_reg": l_reg.detach()}
 

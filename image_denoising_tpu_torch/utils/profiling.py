@@ -44,8 +44,16 @@ The spans (``*``: device-timed) and counters of the program:
   each ResBlock tail whose GroupNorm runs on the kernel pair
   (``ops/group_norm.py``, CUDA only): 9 an ImprovedUNet forward, 81 an E2
   burst of 9 chunks.
-- ``train/steps.py::make_structure_train_step``: ``train.step``* (unit: the
-  step's index for this step function), inside it ``train.step.input``,
+- ``models/restormer.py::Restormer.forward``: ``restormer.enc1``*,
+  ``restormer.enc2``*, ``restormer.enc3``*, ``restormer.latent``*,
+  ``restormer.dec3``*, ``restormer.dec2``*, ``restormer.dec1``*,
+  ``restormer.refine``*, one around each stage's transformer blocks (the
+  embed, the samplers, the reduce convs, the concatenations and the output
+  conv fall outside them): 72 an E2 burst of 9 chunks. Counter
+  ``restormer.tiles``: the tiles each forward carries.
+- ``train/steps.py::make_structure_train_step`` and
+  ``make_n2n_train_step``: ``train.step``* (unit: the step's index for
+  this step function), inside it ``train.step.input``,
   ``train.step.forward``, ``train.step.loss``, ``train.step.backward``,
   ``train.step.optimizer``. Counters ``train.step.queued`` and
   ``train.step.sampled``: at each step's start, the recorded steps still

@@ -17,7 +17,8 @@ from image_denoising_tpu_torch.eval.tiled import (make_tiled_hann_runner_frames,
                                                   make_tiled_pyramid_runner_frames)
 from image_denoising_tpu_torch.models.improved_unet import ImprovedUNet
 from image_denoising_tpu_torch.train.state import create_train_state
-from image_denoising_tpu_torch.train.steps import make_structure_train_step
+from image_denoising_tpu_torch.ops import AugmentNoise
+from image_denoising_tpu_torch.train.steps import make_n2n_train_step, make_structure_train_step
 from image_denoising_tpu_torch.utils import profiling
 
 # span: its parent's name
@@ -81,6 +82,20 @@ def _train():
     return losses, {k: p.detach().clone() for k, p in net.named_parameters()}
 
 
+def _train_n2n():
+    """Two N2N steps at batch 2 of 32² frames, noise drawn in the step:
+    (losses, parameters)."""
+    net = _net(4)
+    state = create_train_state(net, lr=3e-4)
+    step = make_n2n_train_step(net, state, noise_fn=AugmentNoise("gauss25").add_train_noise)
+    rng = np.random.default_rng(5)
+    losses = []
+    for i in range(N_STEPS):
+        clean = rng.integers(0, 256, (2, 32, 32, 1), np.uint8)
+        losses.append(step(clean, None, 1000 + i, 1)["loss"].item())
+    return losses, {k: p.detach().clone() for k, p in net.named_parameters()}
+
+
 def _profiled(fn):
     with profile(activities=[ProfilerActivity.CPU]):
         return fn()
@@ -139,6 +154,21 @@ def test_every_burst_span_once_per_burst_under_its_parent():
 
 def test_every_step_span_once_per_step_under_its_parent():
     _profiled(_train)
+    got = _by_unit(profiling.record(), STEP_SPANS)
+    assert sorted(got) == list(range(N_STEPS))
+    for unit, names in got.items():
+        assert names == {name: [parent] for name, parent in STEP_SPANS.items()}, unit
+
+
+def test_n2n_steps_identical_with_the_profiler_on_and_off():
+    losses_off, params_off = _train_n2n()
+    losses_on, params_on = _profiled(_train_n2n)
+    assert losses_off == losses_on
+    assert all(torch.equal(params_off[k], params_on[k]) for k in params_off)
+
+
+def test_every_n2n_step_span_once_per_step_under_its_parent():
+    _profiled(_train_n2n)
     got = _by_unit(profiling.record(), STEP_SPANS)
     assert sorted(got) == list(range(N_STEPS))
     for unit, names in got.items():
