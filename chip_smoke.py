@@ -9,8 +9,9 @@
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device  — the card's name and power limit.
   2. build   — nvcc builds csrc/fused_block.cu, csrc/retrieval.cu,
-               csrc/neighbor.cu and csrc/group_norm.cu for sm_90a and g++
-               the host patch sampler
+               csrc/neighbor.cu, csrc/group_norm.cu and
+               csrc/add_layer_norm.cu for sm_90a and g++ the host patch
+               sampler
                csrc/patch_sampler.cpp, all at once (seconds printed; each
                kernel's registers and spills from ptxas).
   3. kernels — each kernel against its plain PyTorch version (TF32 off),
@@ -54,7 +55,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                limits of its plain versions, and at E2's its device time
                a burst beside its byte bound, its plain versions', the
                F.group_norm chain it replaced, and conv1 on NCHW and
-               channels_last input. Times
+               channels_last input; Restormer's add and norm (add_ln, with
+               and without the residual) at the 5 shapes of an E2 chunk of
+               8 x 352², float32 and bfloat16, within the card tests'
+               limits of its plain version, and its launches in one such
+               chunk through the published Restormer's bf16 serving copy
+               (88). Times
                (CUDA events, median; the sub-sampler's device time from
                torch.profiler) and bounds.
   4. main    — the E2 serving path: ImprovedUNet-48 (seeded init) through
@@ -334,6 +340,18 @@ GN_STAT_TOL, GN_F32_TOL, GN_BF16_ULP, GN_BF16_SHARE = 1e-5, 1e-5, 2.0 ** -7, 1e-
 # a tail's passes over its level's tensor: c0 read twice and h written, conv1's
 # output read twice, the residual read and the result written
 GN_PASSES = 7
+ADD_LN_SOURCE = "image_denoising_tpu_torch/csrc/add_layer_norm.cu"
+# Restormer's add-and-norm calls in an E2 chunk of B tiles of TILE²: (name, N,
+# H, W, C) of enc1, enc2, enc3 and dec3, the latent, dec1 and the refinement
+ADD_LN_SHAPES = (("enc1", B, TILE, TILE, 48), ("enc2", B, TILE // 2, TILE // 2, 96),
+                 ("enc3", B, TILE // 4, TILE // 4, 192),
+                 ("latent", B, TILE // 8, TILE // 8, 384), ("dec1", B, TILE, TILE, 96))
+# add_ln against its plain version, the limits of tests/test_torch_kernels_cuda.py:
+# the sum bit for bit; the norm (its variance summed in another order) within
+# ADD_LN_F32_TOL of each value in float32, and in bfloat16 within one unit in
+# the last place of each value on at most ADD_LN_BF16_SHARE of the elements
+ADD_LN_F32_TOL, ADD_LN_BF16_ULP, ADD_LN_BF16_SHARE = 1e-5, 2.0 ** -7, 0.01
+RESTORMER_ADD_LN = 88  # launches a Restormer forward: 44 blocks, two norms each
 SUB_REPLACES = "image_denoising_tpu/ops/neighbor_pallas.py:81"  # subsample_pair_pallas
 # the N2N trainer's reference geometry (bench.py:29): batch 4 of 352² frames
 TRAIN_B, TRAIN_FRAME, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_EPOCHS = 4, 352, 2, 10, 100
@@ -1981,6 +1999,85 @@ def phase_group_norm(seed: int):
     finally:
         torch.backends.cudnn.allow_tf32 = saved
     return results
+
+
+def phase_add_layer_norm(seed: int):
+    """add_ln against add_ln_reference at ADD_LN_SHAPES, float32 and
+    bfloat16, with and without the residual, at the card tests' limits (the
+    sum: unequal elements, limit 0; the norm: elements past their tolerance
+    of their own value, limit 0, and in bfloat16 the share unequal); then
+    one chunk of B tiles of TILE² through the published Restormer's bf16
+    serving copy (make_forward, default init), its add_ln launches counted
+    from 0 after a warm-up forward and held to RESTORMER_ADD_LN."""
+    import torch
+
+    from image_denoising_tpu_torch.models.fused_forward import make_forward
+    from image_denoising_tpu_torch.models.restormer import Restormer
+    from image_denoising_tpu_torch.ops.layer_norm import add_ln, add_ln_plan, add_ln_reference
+
+    rows = []
+    for i, (name, *shape) in enumerate(ADD_LN_SHAPES):
+        c = shape[-1]
+        g = torch.Generator(device="cuda").manual_seed(seed + 10 * i)
+        shift = torch.randn(c, generator=g, device="cuda")
+        w = 1 + 0.3 * torch.randn(c, generator=g, device="cuda")
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            bf16 = dt == torch.bfloat16
+            tol = ADD_LN_BF16_ULP if bf16 else ADD_LN_F32_TOL
+            x = (2 * torch.randn(shape, generator=g, device="cuda") + shift).to(dt)
+            r = torch.randn(shape, generator=g, device="cuda").to(dt)
+            for res in ("residual", "alone"):
+                before = add_ln.launches
+                s, y = add_ln(x, w, r if res == "residual" else None)
+                want_s, want_y = add_ln_reference(x, w, r if res == "residual" else None)
+                torch.cuda.synchronize()
+                err = (y.float() - want_y.float()).abs()
+                checks = [verdict(abs(add_ln.launches - before - 1), 0,
+                                  "launches other than one"),
+                          verdict(int((s != want_s).sum()), 0, "sum unequal"),
+                          verdict(int((err > tol * want_y.float().abs()).sum()), 0,
+                                  f"norm past {tol:.3g} of its value")]
+                if bf16:
+                    checks.append(verdict((err > 0).float().mean(), ADD_LN_BF16_SHARE,
+                                          "norm unequal share"))
+                if not (y.dtype == dt and y.shape == x.shape and y.is_contiguous()):
+                    raise AssertionError(f"add_ln {name} {dname}: {y.dtype} "
+                                         f"{tuple(y.shape)}, contiguous {y.is_contiguous()}")
+                top = worst(*checks)
+                plan = add_ln_plan(x.numel() // c, c, dt)
+                rows.append(dict(name=name, shape=shape, dtype=dname, residual=res == "residual",
+                                 vectors=plan.vectors, lanes=plan.lanes,
+                                 max_err=float(err.max()), margin=top.margin,
+                                 **{v.what: v.reading for v in checks}))
+                log(f"[kernels] add_ln {name:6s} {'x'.join(map(str, shape))} {dname:8s} "
+                    f"{res:8s}: " + ", ".join(f"{v.what} {v.reading:.3g} (limit {v.limit:.3g})"
+                                              for v in checks)
+                    + f"; largest error {float(err.max()):.3g}; {plan.vectors} vectors "
+                    f"of {plan.lanes} lanes a pixel")
+                if not top.ok:
+                    raise AssertionError(f"add_ln {name} {dname} {res}: {top.what} "
+                                         f"{top.reading} > {top.limit}")
+                del s, y, want_s, want_y, err
+            del x, r
+
+    torch.manual_seed(seed)
+    fwd = make_forward(Restormer(), device="cuda", dtype=torch.bfloat16)
+    x = torch.rand(B, 1, TILE, TILE, generator=torch.Generator().manual_seed(seed)).to("cuda")
+    fwd(x)  # warm-up: cuDNN plans
+    torch.cuda.synchronize()
+    add_ln.launches = 0
+    y = fwd(x)
+    torch.cuda.synchronize()
+    launches = add_ln.launches
+    log(f"[kernels] add_ln Restormer bf16 serving copy, one chunk of {B}x{TILE}^2: "
+        f"{launches} launches (want {RESTORMER_ADD_LN}), output finite "
+        f"{bool(torch.isfinite(y).all())}")
+    if launches != RESTORMER_ADD_LN or not torch.isfinite(y).all():
+        raise AssertionError(f"Restormer chunk: {launches} add_ln launches, want "
+                             f"{RESTORMER_ADD_LN}, or a non-finite output")
+    return dict(checks=rows, max_margin=max(r["margin"] for r in rows),
+                forward_launches=launches)
 
 
 GN_LAUNCHES: dict = {}  # the GroupNorm pair's launches (stats + apply) by path
@@ -4911,7 +5008,8 @@ def multidevice_cards(seed: int) -> int:
     log(f"[cards] {n} cards; cuda:0 reaches the others by peer access: "
         f"{[torch.cuda.can_device_access_peer(0, i) for i in range(1, n)]}")
     t0 = time.perf_counter()
-    sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu", "group_norm.cu")
+    sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu", "group_norm.cu",
+               "add_layer_norm.cu")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
@@ -5104,7 +5202,8 @@ def main(argv=None) -> int:
     log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
 
     t0 = time.perf_counter()
-    sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu", "group_norm.cu")
+    sources = ("fused_block.cu", "retrieval.cu", "neighbor.cu", "group_norm.cu",
+               "add_layer_norm.cu")
     host_sources = ("patch_sampler.cpp",)  # g++, for the finetuners' patch stream
     with concurrent.futures.ThreadPoolExecutor(len(sources) + len(host_sources)) as pool:
         # one nvcc or g++ each, together
@@ -5127,6 +5226,7 @@ def main(argv=None) -> int:
     _build.load_retrieval()
     _build.load_neighbor()
     _build.load_group_norm()
+    _build.load_add_layer_norm()
     _build.load_patch_sampler()
 
     chain_e2 = phase_chain(args.seed, chain_shapes(TILE), "E2",
@@ -5147,6 +5247,7 @@ def main(argv=None) -> int:
     top1 = phase_retrieval(args.seed)
     subsample = phase_subsample(args.seed)
     group_norm = phase_group_norm(args.seed)
+    add_layer_norm = phase_add_layer_norm(args.seed)
     floor = phase_launch_floor()
     main_path = phase_main(args.seed)
     memory = phase_memory(args.seed)
@@ -5295,6 +5396,16 @@ def main(argv=None) -> int:
         **{k: gn_burst["bfloat16"][k] for k in ("stats_ms", "apply_ms", "conv1_nchw_ms",
                                                  "conv1_cl_ms")},
         float32=gn_burst["float32"]))
+    summary.append(dict(
+        name="add_layer_norm", dtype="bfloat16", route="cuda",
+        design="a pixel a power-of-two group of lanes holding 16-byte vectors in registers, "
+               "statistics by shuffles, one wave (CUDA cores)",
+        source=ADD_LN_SOURCE, replaces=None,
+        launches=add_layer_norm["forward_launches"] + len(add_layer_norm["checks"]),
+        launches_by_path={"checks": len(add_layer_norm["checks"]),
+                          "restormer_chunk": add_layer_norm["forward_launches"]},
+        max_margin=add_layer_norm["max_margin"], ms=None, plain_ms=None, bound_ms=None,
+        bound_by="bytes", library_ms=None))
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_seconds=build_s,
@@ -5304,7 +5415,7 @@ def main(argv=None) -> int:
                                     chain_ft4x128=chain_ft, chain_ft1x704=chain_frame,
                                     chain_rgb=chain_rgb,
                                     top1=top1, subsample=subsample, group_norm=group_norm,
-                                    launch_floor=floor),
+                                    add_layer_norm=add_layer_norm, launch_floor=floor),
                        main=main_path, memory=memory, train=train, train_cli=train_cli,
                        structure=structure, hpo=hpo, finetune=fine, data=data,
                        serving=serving,
@@ -5359,7 +5470,10 @@ def main(argv=None) -> int:
         "NCHW and channels_last input (TF32 off); float32: the same in float32; "
         "max_margin: the worst reading over its limit of the checks at E2, E6, 4x128^2 "
         "and 1x704^2; launches_by_path: stats + apply launches of each checked run, two "
-        "of each a chain launch")
+        "of each a chain launch. add_layer_norm: max_margin over the checks at an E2 "
+        "Restormer chunk's 5 shapes, both dtypes, with and without the residual; "
+        "launches_by_path[restormer_chunk]: one bf16 served chunk of 8 x 352^2; its times "
+        "come from scripts/cuda/time_add_ln.py, so ms/plain_ms/bound_ms are null")
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

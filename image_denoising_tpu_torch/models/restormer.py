@@ -33,9 +33,18 @@ activations are in it. ``FLOAT32_PARAMS`` names the parameters a serving
 copy keeps in float32 when it casts the rest (``make_forward``). The output
 conv's result plus the float32 input is float32.
 
+Each stage threads its pending residual through its blocks: every add but
+the stage's last goes into the norm that follows it
+(``BiasFreeLayerNorm.add_forward``), so a stage of n blocks makes 2n such
+calls, 2n − 1 of them with a residual, and one plain add at its end.
+Without autograd (serving's ``inference_mode``) each call is
+``ops/layer_norm.py::add_ln``, one kernel on a CUDA tensor; under autograd
+it is the same arithmetic as plain ops (the kernel has no backward).
+
 Under a profiler each forward records a device-timed span around each
 stage's transformer blocks (``restormer.enc1`` … ``restormer.refine``) and
-adds its batch to the ``restormer.tiles`` counter (``utils/profiling.py``).
+adds its batch to the ``restormer.tiles`` counter; ``add_ln`` adds 1 to
+``restormer.add_ln`` at each kernel launch (``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -45,12 +54,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.layer_norm import add_ln, add_ln_reference
 from ..utils.profiling import count, span
 
 __all__ = ["Restormer", "TransformerBlock"]
 
 LN_EPS = 1e-5
 NORM_EPS = 1e-12
+_CL = torch.channels_last
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
 
 
 class Conv(nn.Conv2d):
@@ -78,10 +97,24 @@ class BiasFreeLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
 
     def forward(self, x):
-        z = x.float()
-        var = z.var(1, keepdim=True, unbiased=False)
-        w = self.weight.float().view(1, -1, 1, 1)
-        return (z / torch.sqrt(var + LN_EPS) * w).to(x.dtype)
+        return self.add_forward(x)[1]
+
+    def add_forward(self, x, residual=None):
+        """(s, y): s = x + ``residual`` (x without one) on x's dtype, y its
+        norm, both NCHW. Without autograd ``add_ln``: on a CUDA tensor one
+        kernel, which reads channels_last, so x and the residual are made so
+        (a no-op in the serving copy). Under autograd its plain version,
+        which has a backward."""
+        fn = add_ln
+        if torch.is_grad_enabled():
+            fn = add_ln_reference
+        elif x.is_cuda:
+            x = x.contiguous(memory_format=_CL)
+            if residual is not None:
+                residual = residual.contiguous(memory_format=_CL)
+        s, y = fn(_nhwc(x), self.weight.float(),
+                  None if residual is None else _nhwc(residual), LN_EPS)
+        return _nchw(s), _nchw(y)
 
 
 class LayerNorm(nn.Module):
@@ -145,8 +178,16 @@ class TransformerBlock(nn.Module):
         self.ffn = FeedForward(channels, expansion)
 
     def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.ffn(self.norm2(x))
+        x, f = self.add_forward(x)
+        return x + f
+
+    def add_forward(self, x, residual=None):
+        """``forward`` of x + ``residual`` (x without one) with its adds
+        fused into the norms and the last one left to the caller: (z, f)
+        with ``forward(x + residual) == z + f``."""
+        x, h = self.norm1.body.add_forward(x, residual)
+        x, h = self.norm2.body.add_forward(x, self.attn(h))
+        return x, self.ffn(h)
 
 
 class Resample(nn.Module):
@@ -163,8 +204,20 @@ class Resample(nn.Module):
         return F.pixel_unshuffle(y, 2) if self.down else F.pixel_shuffle(y, 2)
 
 
-def _stage(channels: int, heads: int, n: int, expansion: float) -> nn.Sequential:
-    return nn.Sequential(*[TransformerBlock(channels, heads, expansion) for _ in range(n)])
+class Stage(nn.Sequential):
+    """A level's transformer blocks: the residual each block leaves pending
+    goes into the next block's first norm (``TransformerBlock.add_forward``),
+    and only the stage's last add is a plain one."""
+
+    def forward(self, x):
+        residual = None
+        for block in self:
+            x, residual = block.add_forward(x, residual)
+        return x if residual is None else x + residual
+
+
+def _stage(channels: int, heads: int, n: int, expansion: float) -> Stage:
+    return Stage(*[TransformerBlock(channels, heads, expansion) for _ in range(n)])
 
 
 class Restormer(nn.Module):

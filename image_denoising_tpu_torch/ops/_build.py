@@ -26,8 +26,8 @@ import tempfile
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "HOST_BUILD_DIR", "SIGNATURES", "build", "build_host", "cuda_headers",
-           "load_fused_block", "load_group_norm", "load_neighbor", "load_patch_sampler", "load_retrieval",
-           "load_ssim", "open_library"]
+           "load_add_layer_norm", "load_fused_block", "load_group_norm", "load_neighbor",
+           "load_patch_sampler", "load_retrieval", "load_ssim", "open_library"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -135,6 +135,8 @@ SIGNATURES = {
         "idt_gn_stats": ([_I, _I, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P], _I),
         "idt_gn_apply": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                          _I)},
+    "add_layer_norm.cu": {
+        "idt_add_ln": ([_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P], _I)},
 }
 
 
@@ -173,6 +175,13 @@ def load_group_norm() -> ctypes.CDLL:
     """The GroupNorm statistics and apply library (csrc/group_norm.cu),
     built on first call."""
     return open_library("group_norm.cu", build("group_norm.cu")[0])
+
+
+@functools.lru_cache(maxsize=None)
+def load_add_layer_norm() -> ctypes.CDLL:
+    """Restormer's residual add and LayerNorm library
+    (csrc/add_layer_norm.cu), built on first call."""
+    return open_library("add_layer_norm.cu", build("add_layer_norm.cu")[0])
 
 
 @functools.lru_cache(maxsize=None)

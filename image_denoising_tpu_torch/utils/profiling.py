@@ -51,6 +51,11 @@ The spans (``*``: device-timed) and counters of the program:
   embed, the samplers, the reduce convs, the concatenations and the output
   conv fall outside them): 72 an E2 burst of 9 chunks. Counter
   ``restormer.tiles``: the tiles each forward carries.
+- ``ops/layer_norm.py::add_ln``: counter ``restormer.add_ln``, 1 at
+  each launch of the residual add and norm kernel (CUDA only), which
+  Restormer's blocks run without autograd
+  (``models/restormer.py::BiasFreeLayerNorm.add_forward``): 88 a forward
+  (44 blocks, two norms each), 792 an E2 burst.
 - ``train/steps.py::make_structure_train_step`` and
   ``make_n2n_train_step``: ``train.step``* (unit: the step's index for
   this step function), inside it ``train.step.input``,

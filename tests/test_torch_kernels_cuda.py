@@ -25,6 +25,7 @@ from image_denoising_tpu_torch.ops.group_norm import (
     gn_stats,
     gn_stats_reference,
 )
+from image_denoising_tpu_torch.ops.layer_norm import add_ln, add_ln_plan, add_ln_reference
 
 
 @pytest.fixture
@@ -1081,3 +1082,159 @@ def test_fused_forward_runs_every_tail_on_the_group_norm_kernels(cuda, dtype):
     tail = _res_tail(torch.randn_like(c0), c0, sd, "downs.3.3")
     assert tail.shape == (8, 384, 44, 44)
     assert tail.is_contiguous(memory_format=torch.channels_last)
+
+
+# (N, H, W, C) of Restormer's add and norm calls in an E2 burst's 8-tile
+# chunk of 352² (enc1, enc2, enc3 and dec3, latent, dec1 and refinement),
+# then an odd pixel count (the last warp partly past the end), a width no 1
+# to 4 vectors of a power-of-two group of lanes make (C = 40: five bf16
+# vectors, ten float32 ones), and a tensor one element past a 16-byte
+# boundary (ADD_LN_OFFSET): the last two take one value a lane
+ADD_LN_CASES = {
+    "enc1_8x352": (8, 352, 352, 48), "enc2_8x176": (8, 176, 176, 96),
+    "enc3_8x88": (8, 88, 88, 192), "latent_8x44": (8, 44, 44, 384),
+    "dec1_8x352": (8, 352, 352, 96), "odd_1x7x9": (1, 7, 9, 48),
+    "width40_2x9x7": (2, 9, 7, 40), "unaligned_2x44x44x96": (2, 44, 44, 96),
+}
+ADD_LN_OFFSET = {"unaligned_2x44x44x96": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "alone"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(ADD_LN_CASES))
+def test_add_ln_kernel_matches_plain_version(cuda, case, dtype, residual):
+    """add_ln against its plain version on the card, one launch, NHWC out.
+    The sum: equal bit for bit (both round the float32 sum once). The norm:
+    the variance is summed in another order (two passes over registers
+    against PyTorch's Welford), so float32 within 1e-5 relative of each
+    value; bfloat16 within one unit in the last place of each value (2^-7
+    of it), on at most 1 % of elements (a float32 difference that flips a
+    rounding). The scalar cases must take the one-value-a-thread kernel, the
+    others the 16-byte one."""
+    n, h, w, c = ADD_LN_CASES[case]
+    offset = ADD_LN_OFFSET.get(case, 0)
+    g = torch.Generator(device=cuda).manual_seed(n * h * w + c)
+    shift = torch.randn(c, generator=g, device=cuda)
+    x = (2 * torch.randn(n, h, w, c, generator=g, device=cuda) + shift).to(dtype)
+    r = torch.randn(n, h, w, c, generator=g, device=cuda).to(dtype) if residual else None
+    if offset:
+        x = torch.empty(x.numel() + offset, dtype=dtype, device=cuda)[offset:].view(
+            x.shape).copy_(x)
+        assert x.data_ptr() % 16
+    scalar = bool(offset or case.startswith("width"))
+    assert (add_ln_plan(n * h * w, c, dtype, not offset).vectors == 0) == scalar
+    wt = 1 + 0.3 * torch.randn(c, generator=g, device=cuda)
+    before = add_ln.launches
+    s, y = add_ln(x, wt, r)
+    torch.cuda.synchronize()
+    assert add_ln.launches == before + 1
+    want_s, want_y = add_ln_reference(x, wt, r)
+    assert torch.equal(s, want_s) and (residual or s is x)
+    assert y.dtype == dtype and y.shape == x.shape and y.is_contiguous()
+    err = (y.float() - want_y.float()).abs()
+    if dtype == torch.float32:
+        assert (err <= 1e-5 * want_y.abs()).all()
+    else:
+        assert (err <= 2.0 ** -7 * want_y.float().abs()).all()
+        assert (err > 0).float().mean() <= 0.01
+
+
+RESTORMER_CFG = dict(inp_channels=1, out_channels=1, dim=48, num_blocks=[4, 6, 6, 8],
+                     num_refinement_blocks=4, heads=[1, 2, 4, 8], ffn_expansion_factor=2.66)
+
+
+def _published_restormer_chunk(cuda):
+    """The published grayscale Restormer on the benchmark reference's
+    weights (on the host), its state dict, and an E2 chunk of 8 tiles of
+    352² on the card."""
+    from gpubench.reference import restormer as ref
+    from image_denoising_tpu_torch.models import restormer as port
+
+    sd = ref.make_weights(RESTORMER_CFG, 2 ** 31 + 7, "cpu")
+    model = port.Restormer()
+    model.load_state_dict(sd, strict=True)
+    x = torch.rand(8, 1, 352, 352, generator=torch.Generator().manual_seed(8)).to(cuda)
+    return model, sd, x
+
+
+@pytest.mark.cuda
+def test_served_restormer_runs_every_add_and_norm_on_the_kernel(cuda):
+    """One of E2's 8-tile chunks of 352² through the published Restormer's
+    bf16 serving copy under a profiler: 88 launches of the kernel (44 blocks,
+    two norms each), ``restormer.add_ln`` 88 and the kernel in the trace. A
+    forward under autograd (the same weights, each conv casting to bf16,
+    the blocks' plain ops) launches it 0 times. Both forwards round to bf16
+    in their own places, and a rounding that flips early is carried through
+    44 blocks, so they are held to the float32 reference (TF32 off) and not
+    to each other: the kernel's mean distance from it at most 1.1 times the
+    plain ops' (a mean over 1 M pixels; the same rounding sizes)."""
+    from gpubench.reference import restormer as ref
+    from image_denoising_tpu_torch.models.fused_forward import make_forward
+    from image_denoising_tpu_torch.utils import profiling
+
+    model, sd, x = _published_restormer_chunk(cuda)
+    fwd = make_forward(model, device=cuda, dtype=torch.bfloat16)
+    fwd(x)
+    torch.cuda.synchronize()
+    before = add_ln.launches
+    profiling.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        y = fwd(x)
+        torch.cuda.synchronize()
+    assert add_ln.launches == before + 88
+    assert profiling.record()["counters"].get("restormer.add_ln") == 88
+    assert any("add_ln_vec_kernel" in e.key for e in prof.key_averages())
+    profiling.reset()
+
+    model = model.to(cuda, memory_format=torch.channels_last).requires_grad_(False)
+    model.dtype = torch.bfloat16  # each conv casts to bf16, the norms' weights stay float32
+    before = add_ln.launches
+    with torch.enable_grad():
+        plain = model(x.contiguous(memory_format=torch.channels_last))
+    torch.cuda.synchronize()
+    assert add_ln.launches == before
+    with torch.no_grad():
+        want = ref.forward({k: v.to(cuda) for k, v in sd.items()}, x, RESTORMER_CFG)
+    kernel_err = float((y.float() - want).abs().mean())
+    plain_err = float((plain.float() - want).abs().mean())
+    apart = float((y.float() - plain.float()).abs().mean())
+    print(f"restormer chunk: kernel {kernel_err:.6g}, plain {plain_err:.6g} from the "
+          f"float32 reference; {apart:.6g} apart")
+    assert kernel_err <= 1.1 * plain_err, (kernel_err, plain_err, apart)
+
+
+@pytest.mark.cuda
+def test_served_float32_restormer_matches_its_plain_ops(cuda):
+    """The same chunk through the float32 serving copy (TF32 off): 88
+    launches of the kernel, against the module's plain ops under autograd
+    (0 launches). In float32 both paths round where the other does, and only
+    the order in which each pixel's variance is summed differs (the kernel's
+    two passes over registers against PyTorch's Welford), so they are held to
+    each other directly: a mean distance of at most 1e-5 and a largest of at
+    most 1e-3 (a quarter of a 1/255 level). In bf16 the two paths are 1.8e-3
+    apart on average; a norm computed below float32 would be as far."""
+    from image_denoising_tpu_torch.models.fused_forward import make_forward
+
+    model, _, x = _published_restormer_chunk(cuda)
+    fwd = make_forward(model, device=cuda, dtype=torch.float32)
+    fwd(x)
+    torch.cuda.synchronize()
+    before = add_ln.launches
+    y = fwd(x)
+    torch.cuda.synchronize()
+    assert add_ln.launches == before + 88
+    assert y.dtype == torch.float32
+
+    model = model.to(cuda, memory_format=torch.channels_last).requires_grad_(False)
+    before = add_ln.launches
+    with torch.enable_grad():
+        plain = model(x.contiguous(memory_format=torch.channels_last))
+    torch.cuda.synchronize()
+    assert add_ln.launches == before
+    diff = (y - plain).abs()
+    mean, top = float(diff.mean()), float(diff.max())
+    print(f"float32 restormer chunk: kernel path {mean:.6g} from the plain ops on "
+          f"average, {top:.6g} at most")
+    assert mean <= 1e-5 and top <= 1e-3, (mean, top)

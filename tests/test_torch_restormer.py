@@ -160,18 +160,18 @@ def test_served_burst_matches_the_reference_tiling(seed):
 def test_bf16_serving_copy_keeps_its_float32_parameters(monkeypatch):
     net = _small(7)
     seen = {}
-    real_ln, real_attn = port.BiasFreeLayerNorm.forward, port.Attention.forward
+    real_ln, real_attn = port.BiasFreeLayerNorm.add_forward, port.Attention.forward
 
-    def ln(self, x):
+    def ln(self, x, residual=None):  # the served path's norms, each fused with an add
         seen.setdefault("ln", []).append((self.weight, x.dtype))
-        return real_ln(self, x)
+        return real_ln(self, x, residual)
 
     def attn(self, x):
         seen.setdefault("tau", []).append(self.temperature)
         seen.setdefault("qkv", []).append(self.qkv.weight.dtype)
         return real_attn(self, x)
 
-    monkeypatch.setattr(port.BiasFreeLayerNorm, "forward", ln)
+    monkeypatch.setattr(port.BiasFreeLayerNorm, "add_forward", ln)
     monkeypatch.setattr(port.Attention, "forward", attn)
     make_forward(net, device="cpu", dtype=torch.bfloat16)(_tiles(7, n=1))
     originals = dict(net.named_parameters())
